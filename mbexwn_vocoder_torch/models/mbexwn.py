@@ -1,0 +1,351 @@
+"""MBExWN generator, inference path: F0 predictor -> wavetable excitation ->
+gated WaveNet reshaping -> PQMF synthesis -> cepstral spectral-envelope
+filter applied in the STFT domain.
+
+Counterpart of the JAX package's models/mbexwn.py.  Tensors keep the JAX
+package's (B, T, C) layout.  The noise channel takes an explicit `noise`
+tensor or a `torch.Generator`: the JAX package draws
+`jax.random.normal(PRNGKey(0))`, a stream torch cannot reproduce, so a test
+that compares the two draws the noise once and hands it to both.
+
+Config branches the registry models do not use raise NotImplementedError
+naming the ROADMAP item that will port them.
+"""
+from __future__ import annotations
+
+import copy
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..dsp.pqmf import pqmf_filters
+from ..dsp.wavetable import WavetableSpec, build_wavetable_grid
+from ..dsp.windows import hann_periodic
+from ..nn.layers import Conv1DWeightNorm
+from ..nn.subnet import generate_subnet_from_specs
+from ..nn.wavenet import WaveNetAEBlock, resolve_dtype
+from ..ops.oscillator import oscillator, stable_cumsum_and_wrap
+from ..ops.pqmf_ops import pqmf_synthesis
+from ..ops.precision import exact_fp32
+from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
+
+log_to_db = 20 * np.log10(np.exp(1))
+
+# config keys that only the trainer reads; inference accepts and ignores them
+_TRAINING_ONLY_KEYS = {
+    "pp_teacher_forcing_schedule", "pp_F0_pred_loss_limits_ms", "pp_F0_rec_loss_limits_ms",
+    "pp_F0_loss_weight", "pp_F0_loss_method", "pp_F0_UV_loss_weight", "pp_subnet_exclude_from_pretrain",
+    "pp_subnet_suppress_uv_gradient", "psns_gain_loss_weight", "psns_cepstral_loss_weight",
+    "stft_coh_loss_weight", "dump_controls", "pulse_noise_floor_db", "remat_wavenet_blocks",
+}
+
+
+def _dtype_pref(env_name, config_value):
+    """Env var > config key > fp32; an empty env value forces fp32."""
+    env = os.environ.get(env_name)
+    if env is not None:
+        return resolve_dtype(env or None)
+    return resolve_dtype(config_value or None)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, item {item})")
+
+
+class MBExWN(nn.Module):
+    """Synthesize audio from mel spectrograms via a multi-band excited WaveNet."""
+
+    def __init__(
+        self,
+        preprocess_config: Dict,
+        pp_subnet,
+        ps_subnet,
+        pp_mod_subnet: Dict,
+        pp_mod_subnet_upsampling_factors: List[int],
+        pp_mod_subnet_channel_factors: List[int],
+        multi_band_config: Dict,
+        pp_min_frequency: float = 40.0,
+        pp_max_frequency: float = 600.0,
+        pp_activation: str = "soft_sigmoid",
+        pp_mod_subnet_noise_channel_sigma: float = 0.5,
+        pp_mod_subnet_use_pqmf: bool = True,
+        pp_subnet_use_valid_padding: bool = False,
+        pp_subnet_training_only: bool = False,
+        ps_max_ceps_coefs: int = 120,
+        ps_env_order_scale=None,
+        ps_subnet_use_valid_padding: bool = False,
+        ps_use_stft: bool = True,
+        ps_off: bool = False,
+        filter_max_db_range=None,
+        psns_use_cepstral_loss_constraint: bool = False,
+        spect_filters_preserve_energy: bool = False,
+        remove_inactive_pad_layers: bool = False,
+        use_prelu: bool = True,
+        pulse_rate_factor: int = 2,
+        pulse_channels: int = 8,
+        pulse_channels_use_pqmf: bool = False,
+        pulse_channels_multi_band_config=None,
+        force_causal: bool = False,
+        wavetable_config: Dict = None,
+        alpha: float = 0.2,
+        internal_win_size_s=None,
+        internal_fft_over: int = 0,
+        name: str = "MBExWNGen",
+        quiet: bool = True,
+        wn_compute_dtype=None,
+        subnet_compute_dtype=None,
+        **training_only,
+    ):
+        super().__init__()
+        unknown = set(training_only) - _TRAINING_ONLY_KEYS
+        if unknown:
+            raise TypeError(f"MBExWN: unexpected config keys {sorted(unknown)}")
+        if pp_subnet_training_only:
+            _not_ported("pp_subnet_training_only (training)", "12")
+        if force_causal:
+            _not_ported("force_causal synthesis", "10")
+        if ps_off or not ps_use_stft:
+            _not_ported("the multiband-gain branch (ps_use_stft: false / ps_off)", "13")
+        if pulse_channels_use_pqmf:
+            _not_ported("the pulse-channel PQMF fold", "13")
+        wavetable_config = dict(wavetable_config or {})
+        if (wavetable_config.get("use_sinusoid_as_fun") or wavetable_config.get("use_sinusoid")
+                or wavetable_config.get("add_subharm_chans")):
+            _not_ported("the sinusoid and subharmonic oscillator modes", "13")
+        if not pp_mod_subnet_use_pqmf:
+            _not_ported("the excitation without PQMF synthesis (pp_mod_subnet_use_pqmf: false)", "13")
+        if not ps_env_order_scale or not filter_max_db_range:
+            _not_ported("the envelope without F0-adaptive cepstral windows or range limit "
+                        "(ps_env_order_scale / filter_max_db_range unset)", "13")
+        if psns_use_cepstral_loss_constraint or spect_filters_preserve_energy:
+            _not_ported("psns_use_cepstral_loss_constraint / spect_filters_preserve_energy", "13")
+        if internal_fft_over:
+            _not_ported("internal_fft_over > 0", "13")
+
+        self.name = name
+        self.sample_rate = preprocess_config["sample_rate"]
+        self.spect_hop_size = preprocess_config["hop_size"]
+        self.mel_channels = preprocess_config["mel_channels"]
+        self.multi_band_config = copy.deepcopy(multi_band_config)
+        self.mb_factor = self.multi_band_config["subbands"]
+        self.pulse_rate = self.sample_rate / pulse_rate_factor
+        self.pulse_channels = pulse_channels
+        self.spect_to_subband_upsampling_factor = self.spect_hop_size // self.mb_factor
+        self.spect_to_pulse_upsampling_factor = (
+            self.spect_to_subband_upsampling_factor * pulse_channels) // int(np.prod(pp_mod_subnet_upsampling_factors))
+        self.F0_down_sampling_factor = int(self.sample_rate // self.pulse_rate)
+        self.pp_min_frequency = pp_min_frequency
+        self.pp_max_frequency = pp_max_frequency
+        self.subnet_compute_dtype = _dtype_pref("MBEXWN_SUBNET_DTYPE", subnet_compute_dtype)
+        self.wn_compute_dtype = _dtype_pref("MBEXWN_WN_DTYPE", wn_compute_dtype)
+
+        self.pp_subnet = None
+        if pp_subnet:
+            self.pp_subnet, _ = generate_subnet_from_specs(
+                pp_subnet, base_name="PulsPar", in_channels=self.mel_channels, final_n_channels=1, final_nks=1,
+                final_activation=pp_activation, pad_to_valid=pp_subnet_use_valid_padding,
+                target_ups=self.spect_to_pulse_upsampling_factor,
+                remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
+
+        ups_prod = int(np.prod(pp_mod_subnet_upsampling_factors))
+        if self.pulse_rate / pulse_channels * ups_prod * self.mb_factor != self.sample_rate:
+            raise RuntimeError(
+                f"MBExWN::config_error::the generated sample rate "
+                f"{self.pulse_rate / pulse_channels * ups_prod * self.mb_factor} != {self.sample_rate}")
+
+        # wavetable oscillator: the grid's constants; the tables themselves
+        # are a weight ("wavetables") and come with the state_dict
+        self.wavetable: WavetableSpec = build_wavetable_grid(sample_rate=self.pulse_rate, quiet=quiet,
+                                                             **wavetable_config)
+        self.register_buffer("wavetables", torch.from_numpy(self.wavetable.wavetables.copy()))
+
+        # spectral-envelope subnet + cepstral machinery
+        self.filter_max_log_range = filter_max_db_range / log_to_db
+
+        if internal_win_size_s:
+            self.stft_win_size = int(internal_win_size_s * self.sample_rate)
+        else:
+            self.stft_win_size = 4 * self.spect_hop_size
+        fft_size = 16
+        while fft_size < self.stft_win_size:
+            fft_size *= 2
+        self.fft_size = fft_size
+        stft_window = hann_periodic(self.stft_win_size)
+        self.register_buffer("stft_window", torch.from_numpy(stft_window), persistent=False)
+        self.register_buffer("istft_window", torch.from_numpy(
+            inverse_stft_window(self.stft_win_size, self.spect_hop_size, stft_window)), persistent=False)
+        # F0 smoothing for the cepstral-window select: bartlett without its
+        # boundary zeros
+        smooth_win = np.bartlett(2 * self.spect_hop_size + 3)[1:-1]
+        self.register_buffer("frequency_smoothing_kernel", torch.from_numpy(
+            (smooth_win / np.sum(smooth_win)).astype(np.float32)), persistent=False)
+
+        self.ps_subnet, _ = generate_subnet_from_specs(
+            ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
+            final_n_channels=ps_max_ceps_coefs, final_activation=None, pad_to_valid=ps_subnet_use_valid_padding,
+            remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
+        # 30 log-spaced half-hamming cepstral windows, one per F0 step
+        windows, log10f0 = [], []
+        for f0 in np.logspace(np.log10(pp_min_frequency), np.log10(pp_max_frequency), 30):
+            win_len = int(ps_env_order_scale * 0.5 * self.sample_rate / f0)
+            if (win_len // 2) * 2 == win_len:
+                win_len += 1
+            log10f0.append(np.log10(f0))
+            half = np.hamming(win_len)[win_len // 2:]
+            if win_len // 2 + 1 > ps_max_ceps_coefs:
+                windows.append(half[:ps_max_ceps_coefs])
+            else:
+                windows.append(np.concatenate((half, np.zeros(ps_max_ceps_coefs - 1 - (win_len // 2)))))
+        self.register_buffer("ps_cepstral_windows_log10f0",
+                             torch.from_numpy(np.asarray(log10f0, dtype=np.float32)), persistent=False)
+        self.register_buffer("ps_cepstral_windows",
+                             torch.from_numpy(np.asarray(windows, dtype=np.float32)), persistent=False)
+
+        # WaveNet blocks
+        pp_mod = copy.deepcopy(pp_mod_subnet)
+        self.pp_mod_subnet_noise_channel_sigma = pp_mod_subnet_noise_channel_sigma
+        n_channels = pp_mod.pop("n_channels")
+        cond_lin = pp_mod.pop("cond_lin_upsampling", 16)
+        cond_ks = pp_mod.pop("cond_kernel_size", 3)
+        self.block_names = []
+        in_channels = self.wn_in_channels
+        curr_pulse_rate = self.pulse_rate / self.pulse_channels
+        spect_rate = self.sample_rate / self.spect_hop_size
+        for iwn, (ups, chan_fac) in enumerate(zip(pp_mod_subnet_upsampling_factors, pp_mod_subnet_channel_factors)):
+            if curr_pulse_rate != (curr_pulse_rate // (spect_rate * cond_lin)) * spect_rate * cond_lin:
+                raise RuntimeError(
+                    f"MBExWN::config_error:: cannot achieve conditioning rate {curr_pulse_rate} by integer "
+                    f"upsampling of spectrum rate {spect_rate} with linear up {cond_lin}")
+            block_name = f"PP_waveNetBlock_ups{ups}_{iwn}"
+            self.add_module(block_name, WaveNetAEBlock(
+                in_channels, self.mel_channels, n_channels=int(n_channels * chan_fac),
+                up_sample=None if ups <= 1 else True, up_down_factor=ups, cond_kernel_size=cond_ks,
+                cond_conv_upsampling=int(curr_pulse_rate // (spect_rate * cond_lin)), cond_lin_upsampling=cond_lin,
+                compute_dtype=self.wn_compute_dtype, name=block_name, **pp_mod))
+            self.block_names.append(block_name)
+            in_channels = pp_mod["n_out_channels"]
+            curr_pulse_rate *= ups
+        self.wn_post_net = Conv1DWeightNorm(in_channels, self.mb_factor, 1, name="wn_post_net")
+
+        mb = self.multi_band_config
+        _, syn = pqmf_filters(mb["subbands"], mb["taps"], mb["cutoff_ratio"], mb["beta"], mb.get("max_band"))
+        # WIO (taps+1, used, 1) -> OIW (1, used, taps+1)
+        self.register_buffer("pqmf_synthesis_filter", torch.from_numpy(np.ascontiguousarray(syn.transpose(2, 1, 0))),
+                             persistent=False)
+
+    @property
+    def wn_in_channels(self) -> int:
+        """Folded pulse channels plus the optional noise channel."""
+        return self.pulse_channels + (1 if self.pp_mod_subnet_noise_channel_sigma else 0)
+
+    def wn_input_length(self, T_mel: int) -> int:
+        """Time steps entering the first WaveNet block (the noise's length)."""
+        return T_mel * self.spect_to_pulse_upsampling_factor // self.pulse_channels
+
+    # ------------------------------------------------------------- subpaths
+
+    def _run_subnet(self, subnet, mel):
+        """Run a conditioning subnet in the subnet compute dtype, cast back."""
+        dt = self.subnet_compute_dtype
+        if dt is None:
+            return subnet(mel)
+        return subnet(mel.to(dt)).to(mel.dtype)
+
+    def generate_f0(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, T_mel, C) -> (B, T_mel*spect_to_pulse_ups) F0 contour in Hz."""
+        T_out = mel.shape[1] * self.spect_to_pulse_upsampling_factor
+        if self.pp_subnet is not None:
+            x = self._run_subnet(self.pp_subnet, mel)
+            f0 = x[:, :, 0] * (self.pp_max_frequency - self.pp_min_frequency) + self.pp_min_frequency
+            return f0[:, :T_out]
+        return torch.full((mel.shape[0], T_out), float(self.pp_max_frequency), dtype=mel.dtype, device=mel.device)
+
+    def oscillate(self, pulse_frequency: torch.Tensor, phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Wavetable oscillator: F0 (B, T12k) -> excitation (B, T12k).
+
+        phase_offset (B,): absolute phase (mod 1) just before the first
+        sample, the carry of chunked synthesis."""
+        wt = self.wavetable
+        phase = stable_cumsum_and_wrap(pulse_frequency / wt.sample_rate)
+        if phase_offset is not None:
+            phase = torch.remainder(phase + phase_offset[:, None], 1.0)
+        return oscillator(phase.contiguous(), pulse_frequency.contiguous(), self.wavetables, wt.nominalF0,
+                          wt.F0GridFactor, wt.min_transposition, wt.max_transposition)
+
+    def fold_pulse_channels(self, pulse_signal: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Fold the pulse-rate excitation to the WaveNet input rate
+        (B, T/pulse_channels, pulse_channels) and append the sigma-scaled
+        Gaussian noise channel.  `noise` (B, T/pulse_channels, 1) wins over
+        `generator`; with neither, a generator seeded 0 is used, so every
+        call draws the same noise, as the JAX package's PRNGKey(0) does."""
+        B = pulse_signal.shape[0]
+        x = pulse_signal.reshape(B, -1, self.pulse_channels)
+        if self.pp_mod_subnet_noise_channel_sigma:
+            shape = x.shape[:-1] + (1,)
+            if noise is None:
+                if generator is None:
+                    generator = torch.Generator(device=x.device).manual_seed(0)
+                noise = torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)
+            elif tuple(noise.shape) != tuple(shape):
+                raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(shape)}")
+            x = torch.cat((x, self.pp_mod_subnet_noise_channel_sigma * noise.to(x.device, x.dtype)), dim=-1)
+        return x
+
+    def generate_excitation(self, mel: torch.Tensor, pulse_frequency: torch.Tensor,
+                            noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                            phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Excitation waveform (B, T_mel*hop) at the output sample rate."""
+        x = self.fold_pulse_channels(self.oscillate(pulse_frequency, phase_offset), noise, generator)
+        for name in self.block_names:
+            x = getattr(self, name)(x, mel)
+        x = self.wn_post_net(x)
+        mb = self.multi_band_config
+        return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"], mb.get("max_band"))[:, :, 0]
+
+    def get_cepstral_windows(self, f0: torch.Tensor, smooth_stride: int) -> torch.Tensor:
+        """F0-adaptive cepstral window per frame: smooth F0, pick the nearest
+        of the 30 log-spaced windows (a gather)."""
+        kern = self.frequency_smoothing_kernel
+        k = kern.shape[0]
+        f0_padded = torch.cat((f0[:, :1].expand(-1, k // 2), f0, f0[:, -1:].expand(-1, k // 2)), dim=1)
+        smoothed = F.conv1d(f0_padded[:, None, :], kern[None, None, :], stride=smooth_stride)[:, 0]
+        log10f0 = self.ps_cepstral_windows_log10f0
+        smooth_log10f0 = torch.clamp((1 / np.log(10)) * torch.log(smoothed), log10f0[0], log10f0[-1])
+        ratio = (smooth_log10f0 - log10f0[0]) / (log10f0[-1] - log10f0[0])
+        idx = torch.round(ratio * (log10f0.shape[0] - 1)).long()
+        return self.ps_cepstral_windows[idx]
+
+    def generate_specenv(self, mel: torch.Tensor, pulse_frequency: torch.Tensor) -> torch.Tensor:
+        """Cepstral spectral-envelope filter, complex (B, T_mel, fft//2+1)."""
+        x = self._run_subnet(self.ps_subnet, mel)
+        x = x * self.get_cepstral_windows(pulse_frequency, smooth_stride=self.spect_to_pulse_upsampling_factor)
+        # drop the gain coefficient (the source gain carries it)
+        x = F.pad(x[:, :, 1:], (1, 0))
+        log_amp_phase = rdft(x, self.fft_size)
+        log_amp_phase = torch.complex(self.filter_max_log_range * torch.tanh(log_amp_phase.real), log_amp_phase.imag)
+        return torch.exp(log_amp_phase)
+
+    # ----------------------------------------------------------------- call
+
+    @exact_fp32()
+    def forward(self, mel: torch.Tensor, F0: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full synthesis: (B, T_mel, mel_channels) -> (B, T_mel*hop) audio."""
+        pulse_frequency = self.generate_f0(mel)
+        f0 = F0 if F0 is not None else pulse_frequency
+        excitation = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset)
+        win, hop = self.stft_win_size, self.spect_hop_size
+        padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))
+        source_stft = stft(padded, win, hop, self.fft_size, self.stft_window)[:, : mel.shape[1]]
+        signal_stft = source_stft * self.generate_specenv(mel, f0)
+        signal = istft(signal_stft, win, hop, self.fft_size, self.istft_window)
+        return signal[:, win // 2: win // 2 + pulse_frequency.shape[1] * self.F0_down_sampling_factor]
+
+    def output_length(self, T_mel: int) -> int:
+        return T_mel * self.spect_hop_size

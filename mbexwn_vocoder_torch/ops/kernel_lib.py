@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+Every `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, for `sm_90a`; the objects are linked into one shared library with
+a plain C interface, loaded with ctypes.  The library's name carries a hash
+of the sources and flags, so an edited source is rebuilt and an unchanged
+one is reused.  The build happens at first use, never at import, and writes
+only under the package's `_build/` directory (listed in .gitignore).
+
+Each wrapper that launches a kernel adds one to its entry in `launches`,
+right where it launches, so a caller can show that a path really ran the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).absolute().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launch counts per kernel, read and reset by callers such as chip_smoke.py
+launches = {"wavenet_layer": 0, "oscillator": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # dtype (0 fp32, 1 bf16), x_in, cond, w_dil, b_dil, w_rs, b_rs, x_out, skip,
+    # B, T, C, dilation, skip_only, stream
+    "mbexwn_wavenet_layer": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # phase, freq, tables, out, n, n_wavetable, n_grid, nominal_f0, min_tr,
+    # max_tr, 1/log(grid_factor), stream
+    "mbexwn_oscillator": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (CUDA_HOME or PATH)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (in parallel) and link one shared library; return its path."""
+    sources, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    so = BUILD_DIR / f"libmbexwn_kernels_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        build_info.update(path=str(so), seconds=0.0, cached=True)
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name} ==\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log_text = "\n".join(logs)
+        (BUILD_DIR / "build.log").write_text(log_text)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log_text}")
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp_so), *[str(o) for _, o, _ in procs]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernel library failed:\n{link.stdout}")
+        os.replace(tmp_so, so)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0, cached=False, log=log_text)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a non-zero cudaGetLastError()."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,89 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU and the CUDA toolkit (the kernels are built at
+first use) and skip elsewhere.  On a machine with a card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+chip_smoke.py holds the kernels against the plain versions at the main
+path's shapes; these cover the edges: batch > 1, ragged time tiles, a
+dilation wider than the utterance, channel counts that are not multiples
+of the 32-wide chunks.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mbexwn_vocoder_torch.ops import kernel_lib
+from mbexwn_vocoder_torch.ops.oscillator import oscillator, oscillator_plain, stable_cumsum_and_wrap
+from mbexwn_vocoder_torch.ops.precision import exact_fp32
+from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _case(C, B, T, dils, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, T, C, generator=g) * 0.3).to(device, dtype)
+    cond = (torch.randn(B, T, 2 * C, generator=g) * 0.2).to(device, dtype)
+    weights = []
+    for i in range(len(dils)):
+        out = C if i == len(dils) - 1 else 2 * C
+        scale = 1.0 / np.sqrt(3 * C)
+        weights.append(tuple(t.to(device, dtype) for t in (
+            torch.randn(2 * C, 3, C, generator=g) * scale, torch.randn(2 * C, generator=g) * 0.05,
+            torch.randn(out, C, generator=g) * scale, torch.randn(out, generator=g) * 0.05)))
+    return x, cond, weights
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C,B,T,dils", [(8, 2, 100, (1, 2, 64, 128)), (68, 3, 257, (1, 16, 4)),
+                                        (340, 2, 130, (1, 2, 4, 8, 16, 32, 64, 1, 2, 4, 8, 16))])
+def test_k1_matches_plain(card, C, B, T, dils, dtype, tol):
+    x, cond, weights = _case(C, B, T, dils, dtype, card)
+    before = kernel_lib.launches["wavenet_layer"]
+    with exact_fp32():
+        got = wavenet_stack(x, cond, weights, dils)
+        ref = wavenet_stack_plain(x, cond, weights, dils)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before == len(dils)
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert torch.isfinite(got).all() and rel <= tol, rel
+
+
+def test_k1_leaves_its_input_alone(card):
+    x, cond, weights = _case(16, 1, 70, (1, 2, 4), torch.bfloat16, card)
+    x0 = x.clone()
+    wavenet_stack(x, cond, weights, (1, 2, 4))
+    torch.cuda.synchronize()
+    assert torch.equal(x, x0)
+
+
+def test_k1_refuses_what_it_does_not_take(card):
+    x, cond, weights = _case(6, 1, 16, (1,), torch.bfloat16, card)
+    with pytest.raises(ValueError, match="C % 4"):
+        wavenet_stack(x, cond, weights, (1,))
+    x, cond, weights = _case(8, 1, 16, (1,), torch.float16, card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        wavenet_stack(x, cond, weights, (1,))
+
+
+def test_k2_matches_plain(card):
+    g = torch.Generator().manual_seed(1)
+    tables = torch.randn(513, 13, generator=g).to(card)
+    f0 = (40.0 + 560.0 * torch.rand(3, 5001, generator=g)).to(card)
+    phase = stable_cumsum_and_wrap(f0 / 12000.0).contiguous()
+    args = (tables, 46.875, 1.25, 1.0, 1.25 ** 12)
+    before = kernel_lib.launches["oscillator"]
+    got = oscillator(phase, f0, *args)
+    ref = oscillator_plain(phase, f0, *args)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["oscillator"] - before == 1
+    assert float((got - ref).abs().max()) <= 1e-5

@@ -1,0 +1,213 @@
+"""The plain versions of the two CUDA kernels against the JAX package's
+Pallas kernels (interpret mode, as the JAX package's own tests run them on
+the CPU) and against its plain XLA paths, on the same numpy inputs.
+
+K1: the dilated gated WaveNet stack (ops/wavenet_stack.py vs
+    ops/pallas_wavenet.py), C=8, T=512, the registry's 12-layer dilation set
+    with a skip-only tail; rtol/atol 5e-5 as tests/test_pallas_wavenet.py.
+K2: table lookup + grid cross-fade (ops/oscillator.py vs
+    ops/pallas_oscillator.py) on the (513, 13) registry tables, 1e-5.
+On a CPU tensor each wrapper runs its plain version and launches nothing.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mbexwn_vocoder_tpu.nn.wavenet import WaveNetAE as JaxWaveNetAE
+from mbexwn_vocoder_tpu.nn.wavenet import _gate as jax_gate
+from mbexwn_vocoder_tpu.ops import oscillator as josc
+from mbexwn_vocoder_tpu.ops.conv import fold_weight_norm as jax_fold
+from mbexwn_vocoder_tpu.ops.pallas_oscillator import oscillator_fused
+from mbexwn_vocoder_tpu.ops.pallas_wavenet import fused_wavenet_stack
+
+from mbexwn_vocoder_torch import get_config_file
+from mbexwn_vocoder_torch.compat.params_io import flatten, load_params, params_from_jax
+from mbexwn_vocoder_torch.dsp.wavetable import build_wavetable_grid
+from mbexwn_vocoder_torch.config import read_config
+from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
+from mbexwn_vocoder_torch.ops import kernel_lib
+from mbexwn_vocoder_torch.ops import oscillator as tosc
+from mbexwn_vocoder_torch.ops.wavenet_stack import gate, wavenet_stack, wavenet_stack_plain
+
+torch.set_num_threads(2)
+REGISTRY_DILS = (1, 2, 4, 8, 16, 32, 64, 1, 2, 4, 8, 16)
+
+
+@pytest.fixture
+def no_kernel_build(monkeypatch):
+    """A CPU path must never build or launch a kernel."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(kernel_lib, "library", refuse)
+    before = dict(kernel_lib.launches)
+    yield
+    assert kernel_lib.launches == before
+
+
+def _stack_case(rng, B, T, C, dils, last_skip_only=True):
+    x = rng.randn(B, T, C).astype(np.float32) * 0.3
+    cond = rng.randn(B, T, 2 * C).astype(np.float32) * 0.2
+    weights = []
+    for i in range(len(dils)):
+        out_rs = C if (last_skip_only and i == len(dils) - 1) else 2 * C
+        weights.append((rng.randn(3, C, 2 * C).astype(np.float32) * 0.2, rng.randn(2 * C).astype(np.float32) * 0.05,
+                        rng.randn(C, out_rs).astype(np.float32) * 0.2, rng.randn(out_rs).astype(np.float32) * 0.05))
+    return x, cond, weights
+
+
+def _torch_weights(weights, dtype=torch.float32):
+    """JAX layout (3, C, 2C) / (C, out) -> the port's N-major (2C, 3, C) / (out, C)."""
+    return [(torch.from_numpy(wd).permute(2, 0, 1).contiguous().to(dtype), torch.from_numpy(bd).to(dtype),
+             torch.from_numpy(wr).t().contiguous().to(dtype), torch.from_numpy(br).to(dtype))
+            for wd, bd, wr, br in weights]
+
+
+def test_k1_plain_matches_pallas_stack(no_kernel_build):
+    """C=8, T=512, 12 layers in 3 groups with tiling, skip-only tail."""
+    rng = np.random.RandomState(1)
+    x, cond, weights = _stack_case(rng, 2, 512, 8, REGISTRY_DILS)
+    ref = fused_wavenet_stack(jnp.asarray(x), jnp.asarray(cond),
+                              [tuple(jnp.asarray(w) for w in lw) for lw in weights],
+                              REGISTRY_DILS, group_size=4, interpret=True)
+    got = wavenet_stack(torch.from_numpy(x), torch.from_numpy(cond), _torch_weights(weights), REGISTRY_DILS)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5, atol=5e-5)
+
+
+def test_k1_plain_matches_layerwise_reference_with_res_tail(no_kernel_build):
+    """All layers with res columns, against a float64 numpy loop."""
+    rng = np.random.RandomState(2)
+    dils = (1, 2, 4, 8)
+    x, cond, weights = _stack_case(rng, 1, 96, 8, dils, last_skip_only=False)
+    got = wavenet_stack_plain(torch.from_numpy(x), torch.from_numpy(cond), _torch_weights(weights), dils).numpy()
+    xr = x.astype(np.float64)
+    skip = np.zeros_like(xr)
+    for (wd, bd, wr, br), d in zip(weights, dils):
+        xp = np.pad(xr, ((0, 0), (d, d), (0, 0)))
+        y = xp[:, :96] @ wd[0] + xp[:, d:d + 96] @ wd[1] + xp[:, 2 * d:2 * d + 96] @ wd[2] + bd + cond
+        g = np.tanh(y[..., :8]) / (1 + np.exp(-y[..., 8:]))
+        rs = g @ wr + br
+        xr = xr + rs[..., :8]
+        skip = skip + rs[..., 8:]
+    np.testing.assert_allclose(got, skip, rtol=5e-5, atol=5e-5)
+
+
+def test_k1_plain_bf16_close_to_fp32(no_kernel_build):
+    """bf16 operands round x and the gated activation like the JAX kernel;
+    the skip sum stays within bf16-rounding distance of fp32 (rel-RMS 5e-2,
+    the JAX package's own bound for its bf16 kernel)."""
+    rng = np.random.RandomState(3)
+    dils = (1, 2, 4, 8)
+    x, cond, weights = _stack_case(rng, 1, 128, 8, dils)
+    ref = wavenet_stack(torch.from_numpy(x), torch.from_numpy(cond), _torch_weights(weights), dils).numpy()
+    wb = _torch_weights(weights, torch.bfloat16)
+    got = wavenet_stack(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(cond).to(torch.bfloat16), wb, dils)
+    assert got.dtype == torch.float32
+    rel = np.sqrt(np.mean((got.numpy() - ref) ** 2) / np.mean(ref ** 2))
+    assert rel < 0.05, rel
+
+
+@pytest.mark.parametrize("activation", ["gtu", "glu", "gfu", "gsu"])
+def test_gates_match_jax(activation):
+    rng = np.random.RandomState(4)
+    a, s = rng.randn(2, 16, 4).astype(np.float32) * 2, rng.randn(2, 16, 4).astype(np.float32) * 2
+    got = gate(activation, torch.from_numpy(a), torch.from_numpy(s)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_gate(activation, jnp.asarray(a), jnp.asarray(s))),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("activation", ["gtu", "gsu"])
+def test_wavenet_module_matches_jax(activation, no_kernel_build):
+    """WaveNetAE at small width (start, shared upsampled conditioning, the
+    stack, end) against the JAX module's plain conv path, 5e-5."""
+    kw = dict(n_channels=16, n_layers=12, kernel_size=3, n_out_channels=8, max_log2_dilation_rate=7,
+              cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4, activation=activation)
+    jnet = JaxWaveNetAE(name="wn", **kw)
+    rng = np.random.RandomState(5)
+    B, T, Cin, Tm = 2, 128, 7, 16
+    audio = rng.randn(B, T, Cin).astype(np.float32) * 0.3
+    mel = rng.randn(B, Tm, 10).astype(np.float32) * 0.3
+    params, _ = jnet.init(jax.random.PRNGKey(0), ((B, T, Cin), (B, Tm, 10)))
+    params = jax_fold(params)
+    ref = jnet(params, (jnp.asarray(audio), jnp.asarray(mel)))
+    tnet = WaveNetAE(Cin, 10, name="wn", **kw)
+    assert tnet.dilations == list(REGISTRY_DILS)
+    tnet.load_state_dict(params_from_jax(flatten(params)), strict=True)
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(audio), torch.from_numpy(mel))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5, atol=5e-5)
+    # the cached stack weights follow a reload (in-place copy) of the params
+    cached = tnet.stack_weights(torch.float32)[0][0].clone()
+    state = {k: v * 0.5 for k, v in tnet.state_dict().items()}
+    tnet.load_state_dict(state)
+    torch.testing.assert_close(tnet.stack_weights(torch.float32)[0][0], cached * 0.5)
+
+
+@pytest.fixture(scope="module")
+def registry_oscillator():
+    """SPEECH's (513, 13) tables (from weights.npz) and grid constants."""
+    path = get_config_file("SPEECH")
+    cfg = read_config(path)["mbexwn_config"]["wavetable_config"]
+    spec = build_wavetable_grid(sample_rate=12000.0, **cfg)
+    tables = load_params(path.replace("config.yaml", "weights.npz"))["wavetables"]
+    assert tables.shape == (513, 13) and tables.dtype == np.float32
+    return tables, spec
+
+
+def test_k2_plain_matches_pallas_oscillator(registry_oscillator, no_kernel_build):
+    tables, spec = registry_oscillator
+    T = 6000
+    f0 = (40.0 * (600.0 / 40.0) ** np.linspace(0, 1, 2 * T)).reshape(2, T).astype(np.float32)
+    phase = np.asarray(josc.stable_cumsum_and_wrap(jnp.asarray(f0) / spec.sample_rate))
+    consts = (spec.nominalF0, spec.F0GridFactor, spec.min_transposition, spec.max_transposition)
+    ref = oscillator_fused(jnp.asarray(phase), jnp.asarray(f0), jnp.asarray(tables), *consts, interpret=True)
+    got = tosc.oscillator(torch.from_numpy(phase.copy()), torch.from_numpy(f0), torch.from_numpy(tables), *consts)
+    assert tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    # and against the JAX package's default tent-matmul path
+    ref_xla = josc.grid_crossfade(josc.wavetable_lookup(jnp.asarray(phase), jnp.asarray(tables)),
+                                  jnp.asarray(f0), *consts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_xla), rtol=1e-5, atol=1e-5)
+
+
+def test_k2_lookup_and_crossfade_match_jax(registry_oscillator):
+    tables, spec = registry_oscillator
+    rng = np.random.RandomState(6)
+    phase = rng.rand(2, 3000).astype(np.float32)
+    phase[0, :3] = [0.0, 0.5, 511.0 / 512.0]
+    f0 = rng.uniform(20.0, 900.0, (2, 3000)).astype(np.float32)
+    grid = tosc.wavetable_lookup(torch.from_numpy(phase), torch.from_numpy(tables))
+    jgrid = josc.wavetable_lookup(jnp.asarray(phase), jnp.asarray(tables))
+    np.testing.assert_allclose(grid.numpy(), np.asarray(jgrid), rtol=1e-5, atol=1e-5)
+    consts = (spec.nominalF0, spec.F0GridFactor, spec.min_transposition, spec.max_transposition)
+    got = tosc.grid_crossfade(grid, torch.from_numpy(f0), *consts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(josc.grid_crossfade(jgrid, jnp.asarray(f0), *consts)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [999, 1000, 12_000])
+def test_stable_cumsum_and_wrap_matches_jax(T):
+    """Chunk 1000 with mod-1 carried offsets, up to one second at the 12 kHz
+    pulse rate; compared wrap-aware, min(|d|, 1-|d|) <= 1e-5, since a value
+    just below 1 may come out just above 0 in the other framework.  (Both
+    frameworks' fp32 rounding grows with the number of chunks: at 76,800
+    samples they differ by ~2e-5, which the full-synthesis budgets cover.)"""
+    rng = np.random.RandomState(T)
+    f0 = rng.uniform(40.0, 600.0, (2, T)).astype(np.float32)
+    got = tosc.stable_cumsum_and_wrap(torch.from_numpy(f0) / 12000.0).numpy()
+    ref = np.asarray(josc.stable_cumsum_and_wrap(jnp.asarray(f0) / 12000.0))
+    assert got.shape == ref.shape and got.min() >= 0.0 and got.max() <= 1.0
+    d = np.abs(got - ref)
+    assert np.max(np.minimum(d, 1.0 - d)) <= 1e-5
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 4, 2, device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        wavenet_stack(x, torch.zeros(1, 4, 4, device="meta"), [], [])
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tosc.oscillator(torch.zeros(1, 4, device="meta"), torch.zeros(1, 4, device="meta"),
+                        torch.zeros(3, 2, device="meta"), 50.0, 1.25, 1.0, 2.0)
