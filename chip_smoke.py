@@ -11,7 +11,9 @@ prints no result line:
      the main path gives it at 512 mel frames: WaveNet block 0 (12,800 rows)
      and block 1 (25,600 rows).  fp32 with TF32 off, rel-RMS <= 1e-4
      (summation order only); bf16, rel-RMS <= 2e-2 (bf16 rounding of x and
-     of the gated activation at other points);
+     of the gated activation at other points).  Then a batched, ragged case
+     in bf16: VOICE block 0's inputs stretched to T = 12,837 (not a multiple
+     of the 128-row tile) and stacked with their time reversal to B = 2;
   3. K2 (oscillator) against its plain version: registry tables, B=2,
      T=76,800, F0 sweeping 40-600 Hz, max abs <= 1e-5;
   4. end to end: MELInverter("SPEECH") and MELInverter("VOICE") on the card
@@ -176,7 +178,7 @@ def main() -> int:
     print(f"  build {time.perf_counter() - t0:.1f} s (nvcc {kernel_lib.build_info.get('seconds', 0.0):.1f} s, "
           f"cached={kernel_lib.build_info.get('cached')})", flush=True)
     for line in kernel_lib.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "==" in line:
+        if "Used" in line or "spill" in line or line.startswith("=="):
             print("   ", line.strip())
 
     mel = make_mel(N_FRAMES, 80, SEED)
@@ -228,6 +230,20 @@ def main() -> int:
                 check(np.isfinite(g).all() and err <= tol,
                       f"K1 {model_id} block {block_index} C={x.shape[-1]} rows={x.shape[1]} {str(dtype)[6:]}: "
                       f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
+    inv = inverter("VOICE", "")
+    x, cond, weights, dils = stack_inputs(inv, 0, torch.bfloat16)
+    with torch.inference_mode(), exact_fp32():
+        x2 = torch.cat([x, x[:, :37]], dim=1)
+        c2 = torch.cat([cond, cond[:, :37]], dim=1)
+        x2, c2 = torch.cat([x2, x2.flip(1)], dim=0).contiguous(), torch.cat([c2, c2.flip(1)], dim=0).contiguous()
+        got = wavenet_stack(x2, c2, weights, dils)
+        ref = wavenet_stack_plain(x2, c2, weights, dils)
+        torch.cuda.synchronize()
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    err = rel_rms(g, r)
+    check(np.isfinite(g).all() and err <= 2e-2,
+          f"K1 VOICE block 0 batched and ragged, B={x2.shape[0]} T={x2.shape[1]} C={x2.shape[2]} bfloat16: "
+          f"rel-RMS {err:.3e} (<= 0.02), max abs {float(np.max(np.abs(g - r))):.3e}")
     # the main path runs bf16: its largest error at any of its shapes
     k1_max_abs = max(e for (_, _, dtype), e in k1_err.items() if dtype == torch.bfloat16)
 

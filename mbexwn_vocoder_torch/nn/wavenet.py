@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.wavenet_stack import wavenet_stack
+from ..ops.wavenet_stack import PackedStackWeights, pack_stack_weights, wavenet_stack
 from .layers import Conv1DUpDownSample, Conv1DWeightNorm, LinInterpLayer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
@@ -104,11 +104,12 @@ class WaveNetAE(nn.Module):
         self.end = Conv1DWeightNorm(n_channels, n_out_channels, 1, name="end", **conv_kw)
         self._stack_cache = None
 
-    def stack_weights(self, dtype: torch.dtype):
-        """Per-layer (w_dil (2C, 3, C), b_dil, w_rs (Cout, C), b_rs) in `dtype`,
-        the layout of ops/wavenet_stack.py.  Built once and kept until a
-        parameter is replaced or changed in place (load_state_dict, .to()), so
-        a synthesis does not re-cast and re-lay out 20 MB of weights."""
+    def stack_weights(self, dtype: torch.dtype) -> PackedStackWeights:
+        """Per-layer (w_dil (2C, 3, Cp), b_dil, w_rs (Cout, Cp), b_rs) in `dtype`,
+        the kernel layout of ops/wavenet_stack.py (reduction dimension padded
+        with zeros to Cp).  Built once and kept until a parameter is replaced
+        or changed in place (load_state_dict, .to()), so a synthesis does not
+        re-cast and re-lay out 20 MB of weights or re-encode their tensor maps."""
         params = list(self.parameters())
         key = (dtype, tuple((id(p), p._version) for p in params))
         if self._stack_cache is None or self._stack_cache[0] != key:
@@ -116,10 +117,10 @@ class WaveNetAE(nn.Module):
             for i in range(self.n_layers):
                 conv = getattr(self, f"conv1D_{i}")
                 rs = getattr(self, f"res_skip_{i}")
-                out.append((conv.weight.detach().permute(0, 2, 1).to(dtype).contiguous(), conv.bias.detach().to(dtype),
-                            rs.weight.detach()[:, :, 0].to(dtype).contiguous(), rs.bias.detach().to(dtype)))
+                out.append((conv.weight.detach().permute(0, 2, 1).to(dtype), conv.bias.detach().to(dtype),
+                            rs.weight.detach()[:, :, 0].to(dtype), rs.bias.detach().to(dtype)))
             # the params are held too, so their ids cannot be reused while cached
-            self._stack_cache = (key, out, params)
+            self._stack_cache = (key, pack_stack_weights(out), params)
         return self._stack_cache[1]
 
     def forward(self, audio: torch.Tensor, spect: torch.Tensor) -> torch.Tensor:

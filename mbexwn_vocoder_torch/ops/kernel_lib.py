@@ -37,8 +37,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # dtype (0 fp32, 1 bf16), x_in, cond, w_dil, b_dil, w_rs, b_rs, x_out, skip,
-    # B, T, C, dilation, skip_only, stream
-    "mbexwn_wavenet_layer": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, T, C, Cp, Ch, dilation, skip_only, stream
+    "mbexwn_wavenet_layer": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, n_layers, x_buf0, x_buf1, cond, per-layer pointer arrays w_dil, b_dil,
+    # w_rs, b_rs, int arrays dilations and skip_only, weight tensor maps (host,
+    # bf16 only), skip, B, T, C, Cp, Ch, stream
+    "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # out (host, 2 x 128 bytes), w_dil, w_rs, C, Cp, rows of w_rs
+    "mbexwn_wavenet_weight_maps": [_P, _P, _P, _I, _I, _I],
     # phase, freq, tables, out, n, n_wavetable, n_grid, nominal_f0, min_tr,
     # max_tr, 1/log(grid_factor), stream
     "mbexwn_oscillator": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _F, _P],
@@ -127,3 +133,13 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a non-zero cudaGetLastError()."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def launched(ret: int, name: str) -> int:
+    """The count of launches a C entry point enqueued, which it returns; a
+    negative value is its error: -(cudaError), or -(10000 + CUresult) from a
+    tensor-map encode."""
+    if ret < 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {-ret} "
+                           f"({'CUresult ' + str(-ret - 10000) if ret <= -10000 else 'cudaError ' + str(-ret)})")
+    return ret

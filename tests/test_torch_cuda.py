@@ -7,8 +7,9 @@ first use) and skip elsewhere.  On a machine with a card:
 
 chip_smoke.py holds the kernels against the plain versions at the main
 path's shapes; these cover the edges: batch > 1, ragged time tiles, a
-dilation wider than the utterance, channel counts that are not multiples
-of the 32-wide chunks.
+dilation wider than the utterance, an utterance shorter than one 128-row
+tile, channel counts that are not multiples of the 64-wide reduction slices
+or of the column chunks, and the two host entries against each other.
 """
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ import torch
 from mbexwn_vocoder_torch.ops import kernel_lib
 from mbexwn_vocoder_torch.ops.oscillator import oscillator, oscillator_plain, stable_cumsum_and_wrap
 from mbexwn_vocoder_torch.ops.precision import exact_fp32
-from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+from mbexwn_vocoder_torch.ops.wavenet_stack import (pack_stack_weights, wavenet_layer, wavenet_stack,
+                                                     wavenet_stack_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,7 +47,9 @@ def _case(C, B, T, dils, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("C,B,T,dils", [(8, 2, 100, (1, 2, 64, 128)), (68, 3, 257, (1, 16, 4)),
-                                        (340, 2, 130, (1, 2, 4, 8, 16, 32, 64, 1, 2, 4, 8, 16))])
+                                        (340, 2, 130, (1, 2, 4, 8, 16, 32, 64, 1, 2, 4, 8, 16)),
+                                        (340, 2, 50, (64, 1, 64)), (340, 2, 391, (1, 64, 16, 4)),
+                                        (320, 2, 257, (32, 2, 64))])
 def test_k1_matches_plain(card, C, B, T, dils, dtype, tol):
     x, cond, weights = _case(C, B, T, dils, dtype, card)
     before = kernel_lib.launches["wavenet_layer"]
@@ -56,6 +60,28 @@ def test_k1_matches_plain(card, C, B, T, dils, dtype, tol):
     assert kernel_lib.launches["wavenet_layer"] - before == len(dils)
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
     assert torch.isfinite(got).all() and rel <= tol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_stack_entry_equals_layer_entry(card, dtype):
+    """One host call for the stack enqueues what the per-layer entry enqueues
+    layer by layer: the same skip sum, bit for bit."""
+    C, B, T, dils = 340, 2, 300, (1, 64, 4, 16, 2)
+    x, cond, weights = _case(C, B, T, dils, dtype, card, seed=3)
+    packed = pack_stack_weights(weights)
+    before = kernel_lib.launches["wavenet_layer"]
+    whole = wavenet_stack(x, cond, packed, dils)
+    assert kernel_lib.launches["wavenet_layer"] - before == len(dils)
+    bufs = torch.zeros((2, B, T, packed.C_pad), dtype=dtype, device=card)
+    bufs[0, :, :, :C] = x
+    skip = torch.zeros((B, T, C), dtype=torch.float32, device=card)
+    for i, ((wd, bd, wr, br), d) in enumerate(zip(packed, dils)):
+        wavenet_layer(bufs[i % 2], cond, wd, bd, wr, br, bufs[(i + 1) % 2], skip, d)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before == 2 * len(dils)
+    assert torch.equal(whole, skip)
+    # the pad columns of the ping-pong buffers are still zero
+    assert not bufs[..., C:].any()
 
 
 def test_k1_leaves_its_input_alone(card):

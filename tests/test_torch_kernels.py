@@ -211,3 +211,118 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError, match="unsupported device"):
         tosc.oscillator(torch.zeros(1, 4, device="meta"), torch.zeros(1, 4, device="meta"),
                         torch.zeros(3, 2, device="meta"), 50.0, 1.25, 1.0, 2.0)
+
+
+# ---- the kernel's operand layout: reduction dimension padded with zeros to a multiple of 64
+
+from mbexwn_vocoder_torch.ops.wavenet_stack import PackedStackWeights, pack_stack_weights, padded_channels
+
+
+def test_padded_channels():
+    assert [padded_channels(c) for c in (8, 64, 320, 340, 384, 385)] == [64, 64, 320, 384, 384, 448]
+
+
+@pytest.mark.parametrize("C", [320, 340])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_weights_padded_layout(C, dtype):
+    """WaveNetAE.stack_weights at the registry's two widths: (2C, 3, Cp) and
+    (Cout, Cp), contiguous, zeros in the pad, and the unpadded part bit-equal
+    to the (2C, 3, C) / (Cout, C) re-layout of the conv parameters."""
+    torch.manual_seed(C)
+    net = WaveNetAE(5, 6, n_channels=C, n_layers=2, kernel_size=3, n_out_channels=4, max_log2_dilation_rate=7,
+                    cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4)
+    packed = net.stack_weights(dtype)
+    Cp = padded_channels(C)
+    assert isinstance(packed, PackedStackWeights) and (packed.C, packed.C_pad, len(packed)) == (C, Cp, 2)
+    assert packed.dtype == dtype
+    for i, (wd, bd, wr, br) in enumerate(packed):
+        conv, rs = getattr(net, f"conv1D_{i}"), getattr(net, f"res_skip_{i}")
+        n_rs = 2 * C if i == 0 else C  # the last layer is skip-only
+        assert tuple(wd.shape) == (2 * C, 3, Cp) and tuple(wr.shape) == (n_rs, Cp)
+        assert tuple(bd.shape) == (2 * C,) and tuple(br.shape) == (n_rs,)
+        assert all(t.is_contiguous() and t.dtype == dtype for t in (wd, bd, wr, br))
+        assert not wd[..., C:].any() and not wr[..., C:].any()
+        assert torch.equal(wd[..., :C], conv.weight.detach().permute(0, 2, 1).to(dtype))
+        assert torch.equal(wr[..., :C], rs.weight.detach()[:, :, 0].to(dtype))
+        assert torch.equal(bd, conv.bias.detach().to(dtype)) and torch.equal(br, rs.bias.detach().to(dtype))
+
+
+def test_stack_weights_cache_follows_the_parameters():
+    """The packed weights are kept between calls and rebuilt when a
+    parameter changes in place (its version counter) or the dtype does."""
+    net = WaveNetAE(5, 6, n_channels=12, n_layers=3, kernel_size=3, n_out_channels=4, max_log2_dilation_rate=7,
+                    cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4)
+    first = net.stack_weights(torch.float32)
+    assert net.stack_weights(torch.float32) is first
+    assert net.stack_weights(torch.bfloat16) is not first
+    first = net.stack_weights(torch.float32)
+    before = first[1][2].clone()
+    with torch.no_grad():
+        net.res_skip_1.bias.add_(1.0)  # touches the version of one parameter only
+        net.res_skip_1.weight.mul_(2.0)
+    second = net.stack_weights(torch.float32)
+    assert second is not first
+    torch.testing.assert_close(second[1][2], before * 2.0, rtol=0, atol=0)
+    assert not second[1][2][:, 12:].any()
+
+
+@pytest.mark.parametrize("C", [8, 20])
+def test_k1_plain_same_on_padded_operands(C, no_kernel_build):
+    """The plain version on the kernel layout (x (B, T, Cp), packed weights)
+    gives the very skip sum it gives on unpadded operands (it reads the first
+    C columns only), and multiplying the zero pad, as the kernel does, gives
+    the same up to fp32 summation order.  On the padded operands it still
+    matches the Pallas stack."""
+    rng = np.random.RandomState(7)
+    x, cond, weights = _stack_case(rng, 2, 512, C, REGISTRY_DILS)
+    tw = _torch_weights(weights)
+    packed = pack_stack_weights(tw)
+    Cp = padded_channels(C)
+    assert packed.C_pad == Cp == 64 and tuple(packed[0][0].shape) == (2 * C, 3, Cp)
+    x_pad = torch.nn.functional.pad(torch.from_numpy(x), (0, Cp - C))
+    plain = wavenet_stack_plain(torch.from_numpy(x), torch.from_numpy(cond), tw, REGISTRY_DILS)
+    for xin in (x_pad, torch.from_numpy(x)):
+        padded = wavenet_stack(xin, torch.from_numpy(cond), packed, REGISTRY_DILS)
+        assert tuple(padded.shape) == (2, 512, C) and padded.dtype == torch.float32
+        assert torch.equal(padded, plain)
+    # the same function at width Cp, with the pad really multiplied: zero rows and columns
+    # in every weight and bias, cond's halves moved to columns 0 and Cp
+    pad = torch.nn.functional.pad
+
+    def pad_halves(t, spec):  # each C-row half of t padded on its own
+        return torch.cat([pad(t[k:k + C], spec) for k in range(0, t.shape[0], C)])
+
+    wide = [(pad_halves(wd, (0, 0, 0, 0, 0, Cp - C)), pad_halves(bd, (0, Cp - C)),
+             pad_halves(wr, (0, 0, 0, Cp - C)), pad_halves(br, (0, Cp - C))) for wd, bd, wr, br in packed]
+    c = torch.from_numpy(cond)
+    cond_wide = torch.cat([pad(c[..., :C], (0, Cp - C)), pad(c[..., C:], (0, Cp - C))], -1)
+    multiplied = wavenet_stack_plain(x_pad, cond_wide, wide, REGISTRY_DILS)
+    assert tuple(multiplied.shape) == (2, 512, Cp) and not multiplied[..., C:].any()
+    torch.testing.assert_close(multiplied[..., :C], plain, rtol=1e-5, atol=1e-5)
+    ref = fused_wavenet_stack(jnp.asarray(x), jnp.asarray(cond),
+                              [tuple(jnp.asarray(w) for w in lw) for lw in weights],
+                              REGISTRY_DILS, group_size=4, interpret=True)
+    np.testing.assert_allclose(padded.numpy(), np.asarray(ref), rtol=5e-5, atol=5e-5)
+
+
+def test_k1_plain_padded_bf16_matches_unpadded(no_kernel_build):
+    """In bf16 too: x and the gated activation round at the same points
+    whether or not the operands carry the pad."""
+    rng = np.random.RandomState(8)
+    dils = (1, 2, 4, 8)
+    x, cond, weights = _stack_case(rng, 1, 128, 12, dils)
+    wb = _torch_weights(weights, torch.bfloat16)
+    xb, cb = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(cond).to(torch.bfloat16)
+    assert torch.equal(wavenet_stack_plain(xb, cb, pack_stack_weights(wb), dils), wavenet_stack_plain(xb, cb, wb, dils))
+
+
+def test_pack_stack_weights_refuses_mismatched_layers():
+    rng = np.random.RandomState(9)
+    _, _, weights = _stack_case(rng, 1, 8, 8, (1, 2))
+    tw = _torch_weights(weights)
+    with pytest.raises(ValueError, match="w_rs"):
+        pack_stack_weights([tw[0], (tw[1][0], tw[1][1], tw[1][2][:, :4], tw[1][3])])
+    with pytest.raises(ValueError, match="at least one layer"):
+        pack_stack_weights([])
+    with pytest.raises(ValueError, match="cond implies"):
+        wavenet_stack_plain(torch.zeros(1, 8, 7), torch.zeros(1, 8, 16), pack_stack_weights(tw), (1, 2))
