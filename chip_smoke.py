@@ -14,19 +14,30 @@ prints no result line:
      of the gated activation at other points).  Then a batched, ragged case
      in bf16: VOICE block 0's inputs stretched to T = 12,837 (not a multiple
      of the 128-row tile) and stacked with their time reversal to B = 2;
-  3. K2 (oscillator) against its plain version: registry tables, B=2,
-     T=76,800, F0 sweeping 40-600 Hz, max abs <= 1e-5;
+  3. K2, the whole oscillator stage (F0 -> phase -> lookup -> cross-fade) in
+     one launch, against its plain version on the card: (a) SPEECH's tables,
+     B=1, T=76,800, F0 sweeping 40-600 Hz; (b) B=3, T=12,345 (no multiple of
+     the 1000-sample phase chunk) with a phase offset; (c) VOICE's tables.
+     Audio max abs <= 1e-5; the phase it returns bit-equal to the plain
+     version's on the card and on the CPU (the count of differing samples
+     is printed);
   4. end to end: MELInverter("SPEECH") and MELInverter("VOICE") on the card
      with a 512-frame mel made from a seed.  fp32: within 1e-3 rel-RMS of the
      port's own CPU run with the same injected noise.  bf16 (the shipped
      mode, the main path): finite, of the right length, and the launch
      counts, reset just before and read just after, show K1 and K2 ran;
   5. times (CUDA events): each kernel, its plain version and its bound at
-     the main path's shapes; end-to-end synthesis ms and audio-seconds per
-     second at batch 1, 512 frames, bf16, after warm-up;
-  6. one synthesis under torch.profiler: device busy time, idle share and
-     the kernels that take the most device time (informative: a profiler
-     failure prints "not measured" and fails nothing).
+     the main path's shapes.  K2 and what it is held against are timed
+     device-paced (`device_time_ms`: the host enqueues every call while a
+     spin kernel holds the card), beside the floor of an empty launch and of
+     a cooperative launch that only crosses one grid barrier, and
+     `library_ms`: F.grid_sample on precomputed coordinates, which computes
+     the lookup and cross-fade but not the phase; end-to-end synthesis ms
+     and audio-seconds per second at batch 1, 512 frames, bf16, after
+     warm-up;
+  6. one synthesis under torch.profiler: device busy time, the count of
+     device activities, idle share and the kernels that take the most
+     device time; a trace with no device activity fails.
 The last lines are a one-line summary of the end-to-end numbers, the card's
 name and power limit, a `kernels` JSON line, and
 `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
@@ -94,11 +105,44 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time per call of `fn`, free of the host's pace: a spin kernel
+    (`torch.cuda._sleep`) holds the card while the host enqueues every call,
+    then the calls run back to back between two events.  While the start
+    event has completed before the host is done (the spin was too short, or
+    the launch queue filled up), the spin is doubled and the calls halved."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    cycles = int(2e6 * (3.0 * host_ms + 1.0))  # at most 2 GHz: at least 3x the host's time
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / iters
+        cycles, iters = 2 * cycles, max(1, iters // 2)
+    raise RuntimeError("the host did not get ahead of the card: no device-paced time")
+
+
 def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
     """Profile one synthesis: device busy time (the union of kernel and copy
     intervals), the idle share against the untraced synthesis time, and the
-    kernels that take the most device time.  Returns the idle share, or
-    None when the profiler saw no device activity."""
+    kernels that take the most device time, and the oscillator kernel's.
+    Returns (idle share, device activities); (None, 0) when the profiler saw
+    no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -115,8 +159,8 @@ def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
         ms, n = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (ms + (end - start) / 1e3, n + 1)
     if not spans:
-        print("  trace: not measured (the profiler recorded no device activity)", flush=True)
-        return None
+        print("  trace: the profiler recorded no device activity", flush=True)
+        return None, 0
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -130,9 +174,10 @@ def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
     idle = max(0.0, 1.0 - busy_ms / synth_ms)
     print(f"  device busy {busy_ms:.3f} ms in {len(spans)} device activities; untraced synthesis "
           f"{synth_ms:.2f} ms -> device idle share {idle:.3f}", flush=True)
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"    {ms:9.3f} ms {n:5d}x  {name[:80]}", flush=True)
-    return idle
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in ranked[:top] + [kv for kv in ranked[top:] if "oscillat" in kv[0]]:
+        print(f"    {ms:9.4f} ms {n:5d}x  {name[:80]}", flush=True)
+    return idle, len(spans)
 
 
 def main() -> int:
@@ -147,7 +192,7 @@ def main() -> int:
     try:
         from mbexwn_vocoder_torch.mel_inverter import MELInverter
         from mbexwn_vocoder_torch.ops import kernel_lib
-        from mbexwn_vocoder_torch.ops.oscillator import oscillator, oscillator_plain, stable_cumsum_and_wrap
+        from mbexwn_vocoder_torch.ops.oscillator import PHASE_CHUNK, oscillate, oscillate_plain
         from mbexwn_vocoder_torch.ops.precision import exact_fp32
         from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
     except ImportError as e:
@@ -248,20 +293,30 @@ def main() -> int:
     k1_max_abs = max(e for (_, _, dtype), e in k1_err.items() if dtype == torch.bfloat16)
 
     # ---- 3. K2 vs plain
-    print("[3] K2 oscillator vs plain (B=2, T=76,800)", flush=True)
-    blk = inverter("SPEECH", "").model.block
-    wt = blk.wavetable
-    T_osc = 76_800
-    sweep = 40.0 * (600.0 / 40.0) ** np.linspace(0, 1, 2 * T_osc)
-    f0 = torch.from_numpy(sweep.reshape(2, T_osc).astype(np.float32)).to(dev)
-    osc_args = (blk.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition)
-    with torch.inference_mode():
-        phase = stable_cumsum_and_wrap(f0 / wt.sample_rate).contiguous()
-        got = oscillator(phase, f0, *osc_args)
-        ref = oscillator_plain(phase, f0, *osc_args)
-        torch.cuda.synchronize()
-    k2_err = float((got - ref).abs().max())
-    check(math.isfinite(k2_err) and k2_err <= 1e-5, f"K2 max abs {k2_err:.3e} (<= 1e-5)")
+    print("[3] K2 oscillator stage (F0 -> phase -> lookup -> cross-fade) vs plain", flush=True)
+    k2_err = 0.0
+    for model_id, B, T, with_offset in (("SPEECH", 1, 76_800, False), ("SPEECH", 3, 12_345, True),
+                                        ("VOICE", 1, 76_800, False)):
+        blk = inverter(model_id, "").model.block
+        wt = blk.wavetable
+        consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+        sweep = 40.0 * (600.0 / 40.0) ** np.linspace(0, 1, B * T)
+        f0_cpu = torch.from_numpy(sweep.reshape(B, T).astype(np.float32))
+        off_cpu = torch.from_numpy(np.random.RandomState(SEED).rand(B).astype(np.float32)) if with_offset else None
+        f0, off = f0_cpu.to(dev), None if off_cpu is None else off_cpu.to(dev)
+        with torch.inference_mode():
+            got, phase = oscillate(f0, blk.wavetables, *consts, phase_offset=off, return_phase=True)
+            ref, ref_phase = oscillate_plain(f0, blk.wavetables, *consts, phase_offset=off, return_phase=True)
+            torch.cuda.synchronize()
+            cpu_phase = oscillate_plain(f0_cpu, blk.wavetables.cpu(), *consts, phase_offset=off_cpu,
+                                        return_phase=True)[1]
+        err = float((got - ref).abs().max())
+        k2_err = max(k2_err, err)
+        diff_card, diff_cpu = int((phase != ref_phase).sum()), int((phase.cpu() != cpu_phase).sum())
+        check(math.isfinite(err) and err <= 1e-5 and diff_card == 0 and diff_cpu == 0,
+              f"K2 {model_id} tables {tuple(blk.wavetables.shape)} B={B} T={T}"
+              f"{' with phase_offset' if with_offset else ''}: audio max abs {err:.3e} (<= 1e-5); phase samples "
+              f"differing from plain on the card {diff_card}, on the CPU {diff_cpu} (of {B * T})")
 
     # ---- 4. end to end
     print("[4] end to end, 512 frames", flush=True)
@@ -318,16 +373,47 @@ def main() -> int:
     wt = blk.wavetable
     n_osc = N_FRAMES * blk.spect_to_pulse_upsampling_factor
     f0 = torch.from_numpy(np.linspace(80.0, 300.0, n_osc, dtype=np.float32)[None]).to(dev)
-    osc_args = (blk.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition)
+    consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+    tables = blk.wavetables
+    lib, stream = kernel_lib.library(), torch.cuda.current_stream().cuda_stream
+    n_chunks = -(-n_osc // PHASE_CHUNK)  # K2's grid: one CTA per chunk (77 <= 132 SMs, all resident)
     with torch.inference_mode():
-        phase = stable_cumsum_and_wrap(f0 / wt.sample_rate).contiguous()
-        k2_ms = cuda_time_ms(lambda: oscillator(phase, f0, *osc_args), iters=200)
-        k2_plain_ms = cuda_time_ms(lambda: oscillator_plain(phase, f0, *osc_args), iters=50)
-    k2_bytes = 12.0 * n_osc + blk.wavetables.numel() * 4
-    k2_flop = 20.0 * n_osc
+        k2_ms = device_time_ms(lambda: oscillate(f0, tables, *consts), iters=200)
+        k2_enqueued_ms = cuda_time_ms(lambda: oscillate(f0, tables, *consts), iters=200)
+        k2_plain_ms = device_time_ms(lambda: oscillate_plain(f0, tables, *consts), iters=20)
+        floors = {}
+        for name, grid_sync, blocks in (("empty launch", 0, 1),
+                                        (f"cooperative launch of {n_chunks} CTAs with one grid barrier", 1, n_chunks)):
+            def launch():
+                kernel_lib.check(lib.mbexwn_floor_launch(grid_sync, blocks, stream), "floor")
+            floors[name] = (device_time_ms(launch, 200), cuda_time_ms(launch, 200))
+        # the library yardstick: the lookup and cross-fade as one bilinear
+        # grid_sample in the (n_wavetable, n_grid) table, zeros outside, on
+        # coordinates computed beforehand from the kernel's own phase
+        audio, phase = oscillate(f0, tables, *consts, return_phase=True)
+        n_wt, n_grid = tables.shape
+        gp = torch.log(torch.clamp(f0 / wt.nominalF0, wt.min_transposition, wt.max_transposition)) / math.log(
+            wt.F0GridFactor)
+        coords = torch.stack([gp * (2.0 / (n_grid - 1)) - 1.0, phase * 2.0 - 1.0], dim=-1).view(1, 1, n_osc, 2)
+        image = tables.view(1, 1, n_wt, n_grid)
+
+        def library_call():
+            return torch.nn.functional.grid_sample(image, coords, mode="bilinear", padding_mode="zeros",
+                                                   align_corners=True)
+
+        library_diff = float((library_call().view(1, n_osc) - audio).abs().max())
+        library_ms = device_time_ms(library_call, iters=200)
+    k2_bytes = 8.0 * n_osc + tables.numel() * 4
+    k2_flop = 40.0 * n_osc
     k2_bound = 1e3 * max(k2_bytes / H100_BYTES_PER_S, k2_flop / 67e12)
-    print(f"  K2: samples {n_osc} kernel {k2_ms:.4f} ms plain {k2_plain_ms:.4f} ms bound {k2_bound:.5f} ms",
-          flush=True)
+    print(f"  K2: samples {n_osc}, device-paced: kernel {k2_ms:.5f} ms, plain {k2_plain_ms:.5f} ms; bound "
+          f"{k2_bound:.5f} ms (bytes: 8 B/sample + table at 3.35 TB/s); kernel as enqueued back to back "
+          f"{k2_enqueued_ms:.5f} ms", flush=True)
+    for name, (paced, enqueued) in floors.items():
+        print(f"  floor: {name}: {paced:.5f} ms device-paced, {enqueued:.5f} ms as enqueued", flush=True)
+    print(f"  K2 library_ms {library_ms:.5f}: one F.grid_sample (bilinear, zeros outside, align_corners) on "
+          f"coordinates computed beforehand; it covers the lookup and cross-fade only, not the phase; "
+          f"max abs {library_diff:.3e} from the kernel's audio", flush=True)
 
     for _ in range(3):
         inv.synth_from_mel(mel)
@@ -343,16 +429,12 @@ def main() -> int:
           f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s (bf16, batch 1, {N_FRAMES} frames)", flush=True)
     print(f"  K1 per synthesis: kernel {k1_ms:.3f} ms plain {k1_plain_ms:.3f} ms bound {k1_bound:.4f} ms "
           f"({k1_bound_by}; 989 TFLOP/s bf16, 3.35 TB/s)", flush=True)
-    print("  library_ms: none for either kernel: no single PyTorch call computes the gated dilated "
-          "residual layer or the table lookup with grid cross-fade", flush=True)
+    print("  K1 library_ms: none: no single PyTorch call computes the gated dilated residual layer", flush=True)
 
-    # ---- 6. where the time goes: one traced synthesis (informative only)
+    # ---- 6. where the time goes: one traced synthesis
     print("[6] trace (one bf16 synthesis, torch.profiler)", flush=True)
-    idle = None
-    try:
-        idle = trace_synthesis(inv, mel, synth_ms)
-    except Exception as e:  # the profiler is untried on this machine; the numbers are optional
-        print(f"  trace: not measured ({type(e).__name__}: {e})", flush=True)
+    idle, n_activities = trace_synthesis(inv, mel, synth_ms)
+    check(n_activities > 0, f"trace: {n_activities} device activities in one synthesis")
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -366,12 +448,12 @@ def main() -> int:
         {"name": "oscillator", "route": "cuda", "source": "mbexwn_vocoder_torch/csrc/oscillator.cu",
          "replaces": "mbexwn_vocoder_tpu/ops/pallas_oscillator.py:49", "launches": main_launches["oscillator"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": library_ms},
     ]
-    idle_text = "not measured" if idle is None else f"{idle:.3f}"
     print(f"summary: SPEECH bf16 batch 1 {N_FRAMES} frames: synthesis {synth_ms:.2f} ms = "
-          f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s, device idle share {idle_text}; K1 {k1_ms:.3f} ms "
-          f"(bound {k1_bound:.4f}), K2 {k2_ms:.4f} ms; all checks passed", flush=True)
+          f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s, device idle share {idle:.3f}, {n_activities} device "
+          f"activities; K1 {k1_ms:.3f} ms (bound {k1_bound:.4f}), K2 {k2_ms:.5f} ms (bound {k2_bound:.5f}); "
+          f"all checks passed", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,7 @@ from ..dsp.windows import hann_periodic
 from ..nn.layers import Conv1DWeightNorm
 from ..nn.subnet import generate_subnet_from_specs
 from ..nn.wavenet import WaveNetAEBlock, resolve_dtype
-from ..ops.oscillator import oscillator, stable_cumsum_and_wrap
+from ..ops.oscillator import oscillate
 from ..ops.pqmf_ops import pqmf_synthesis
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
@@ -270,11 +270,8 @@ class MBExWN(nn.Module):
         phase_offset (B,): absolute phase (mod 1) just before the first
         sample, the carry of chunked synthesis."""
         wt = self.wavetable
-        phase = stable_cumsum_and_wrap(pulse_frequency / wt.sample_rate)
-        if phase_offset is not None:
-            phase = torch.remainder(phase + phase_offset[:, None], 1.0)
-        return oscillator(phase.contiguous(), pulse_frequency.contiguous(), self.wavetables, wt.nominalF0,
-                          wt.F0GridFactor, wt.min_transposition, wt.max_transposition)
+        return oscillate(pulse_frequency, self.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition,
+                         wt.max_transposition, wt.sample_rate, phase_offset=phase_offset)
 
     def fold_pulse_channels(self, pulse_signal: torch.Tensor, noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:

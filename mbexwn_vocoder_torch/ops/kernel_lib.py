@@ -45,9 +45,12 @@ _SIGNATURES = {
     "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # out (host, 2 x 128 bytes), w_dil, w_rs, C, Cp, rows of w_rs
     "mbexwn_wavenet_weight_maps": [_P, _P, _P, _I, _I, _I],
-    # phase, freq, tables, out, n, n_wavetable, n_grid, nominal_f0, min_tr,
+    # f0, tables, phase_offset (or null), out, phase out (or null), chunk scratch,
+    # B, T, chunk size, n_wavetable, n_grid, fp32(1/sr), nominal_f0, min_tr,
     # max_tr, 1/log(grid_factor), stream
-    "mbexwn_oscillator": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _F, _P],
+    "mbexwn_oscillate": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    # grid_sync, blocks, stream: an empty launch, the floor K2 is timed against
+    "mbexwn_floor_launch": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -6,17 +6,21 @@ first use) and skip elsewhere.  On a machine with a card:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 chip_smoke.py holds the kernels against the plain versions at the main
-path's shapes; these cover the edges: batch > 1, ragged time tiles, a
+path's shapes; these cover the edges.  K1: batch > 1, ragged time tiles, a
 dilation wider than the utterance, an utterance shorter than one 128-row
 tile, channel counts that are not multiples of the 64-wide reduction slices
-or of the column chunks, and the two host entries against each other.
+or of the column chunks, and the two host entries against each other.  K2:
+ragged lengths, batch > 1, a phase offset, the phase it returns (bit-equal
+to the plain version's on the card and on the CPU), tables of other sizes
+(one past 48 KB of shared memory), more chunks than CTAs resident at once,
+and one launch per call.
 """
 import numpy as np
 import pytest
 import torch
 
 from mbexwn_vocoder_torch.ops import kernel_lib
-from mbexwn_vocoder_torch.ops.oscillator import oscillator, oscillator_plain, stable_cumsum_and_wrap
+from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
 from mbexwn_vocoder_torch.ops.precision import exact_fp32
 from mbexwn_vocoder_torch.ops.wavenet_stack import (pack_stack_weights, wavenet_layer, wavenet_stack,
                                                      wavenet_stack_plain)
@@ -101,15 +105,39 @@ def test_k1_refuses_what_it_does_not_take(card):
         wavenet_stack(x, cond, weights, (1,))
 
 
-def test_k2_matches_plain(card):
-    g = torch.Generator().manual_seed(1)
-    tables = torch.randn(513, 13, generator=g).to(card)
-    f0 = (40.0 + 560.0 * torch.rand(3, 5001, generator=g)).to(card)
-    phase = stable_cumsum_and_wrap(f0 / 12000.0).contiguous()
-    args = (tables, 46.875, 1.25, 1.0, 1.25 ** 12)
+@pytest.mark.parametrize("B,T,n_wt,n_grid,with_offset", [
+    (3, 5001, 513, 13, False), (1, 76_800, 513, 13, False), (3, 12_345, 513, 13, True), (2, 999, 257, 9, True),
+    (1, 1, 513, 13, True), (1, 20_000, 2049, 13, False), (4, 300_000, 129, 7, True)])
+def test_k2_matches_plain(card, B, T, n_wt, n_grid, with_offset):
+    g = torch.Generator().manual_seed(B * T + n_wt)
+    tables = torch.randn(n_wt, n_grid, generator=g)
+    f0 = 40.0 + 560.0 * torch.rand(B, T, generator=g)
+    offset = torch.rand(B, generator=g) - 0.5 if with_offset else None
+    consts = (46.875, 1.25, 1.0, 1.25 ** (n_grid - 1), 12000.0)
+    on_card = (f0.to(card), tables.to(card), None if offset is None else offset.to(card))
     before = kernel_lib.launches["oscillator"]
-    got = oscillator(phase, f0, *args)
-    ref = oscillator_plain(phase, f0, *args)
+    got, phase = oscillate(on_card[0], on_card[1], *consts, phase_offset=on_card[2], return_phase=True)
     torch.cuda.synchronize()
     assert kernel_lib.launches["oscillator"] - before == 1
+    audio_only = oscillate(on_card[0], on_card[1], *consts, phase_offset=on_card[2])
+    ref, ref_phase = oscillate_plain(on_card[0], on_card[1], *consts, phase_offset=on_card[2], return_phase=True)
+    cpu_phase = oscillate_plain(f0, tables, *consts, phase_offset=offset, return_phase=True)[1]
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["oscillator"] - before == 2
+    assert torch.equal(phase, ref_phase) and torch.equal(phase.cpu(), cpu_phase)
+    assert torch.equal(audio_only, got)
     assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_k2_refuses_what_it_does_not_take(card):
+    f0 = torch.full((2, 100), 100.0, device=card)
+    tables = torch.randn(513, 13, device=card)
+    consts = (46.875, 1.25, 1.0, 1.25 ** 12, 12000.0)
+    with pytest.raises(ValueError, match="does not fit"):
+        oscillate(f0, torch.zeros(8193, 8, device=card), *consts)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        oscillate(f0, torch.randn(6670, device=card)[1:].view(513, 13), *consts)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        oscillate(f0.t().contiguous().t(), tables, *consts)
+    with pytest.raises(ValueError, match="are not"):
+        oscillate(f0, tables, *consts, phase_offset=torch.zeros(3, device=card))

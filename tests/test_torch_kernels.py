@@ -5,8 +5,11 @@ the CPU) and against its plain XLA paths, on the same numpy inputs.
 K1: the dilated gated WaveNet stack (ops/wavenet_stack.py vs
     ops/pallas_wavenet.py), C=8, T=512, the registry's 12-layer dilation set
     with a skip-only tail; rtol/atol 5e-5 as tests/test_pallas_wavenet.py.
-K2: table lookup + grid cross-fade (ops/oscillator.py vs
-    ops/pallas_oscillator.py) on the (513, 13) registry tables, 1e-5.
+K2: the oscillator stage, F0 -> phase -> lookup -> cross-fade
+    (ops/oscillator.py vs the JAX package's stable_cumsum_and_wrap and
+    ops/pallas_oscillator.py) on the (513, 13) registry tables: the lookup
+    1e-5, the whole stage 1e-4 rel-RMS; and the phase arithmetic that the
+    CUDA kernel's parallel fp64 scan relies on, bit for bit.
 On a CPU tensor each wrapper runs its plain version and launches nothing.
 """
 import numpy as np
@@ -164,7 +167,8 @@ def test_k2_plain_matches_pallas_oscillator(registry_oscillator, no_kernel_build
     phase = np.asarray(josc.stable_cumsum_and_wrap(jnp.asarray(f0) / spec.sample_rate))
     consts = (spec.nominalF0, spec.F0GridFactor, spec.min_transposition, spec.max_transposition)
     ref = oscillator_fused(jnp.asarray(phase), jnp.asarray(f0), jnp.asarray(tables), *consts, interpret=True)
-    got = tosc.oscillator(torch.from_numpy(phase.copy()), torch.from_numpy(f0), torch.from_numpy(tables), *consts)
+    got = tosc.oscillator_plain(torch.from_numpy(phase.copy()), torch.from_numpy(f0), torch.from_numpy(tables),
+                                *consts)
     assert tuple(got.shape) == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     # and against the JAX package's default tent-matmul path
@@ -204,13 +208,123 @@ def test_stable_cumsum_and_wrap_matches_jax(T):
     assert np.max(np.minimum(d, 1.0 - d)) <= 1e-5
 
 
+@pytest.mark.parametrize("B,T,with_offset", [(2, 6000, False), (3, 12_345, True)])
+def test_oscillate_plain_matches_jax(registry_oscillator, B, T, with_offset, no_kernel_build):
+    """The whole stage against jitted JAX's phase and the Pallas kernel
+    (interpret mode).  rel-RMS <= 1e-4: the frameworks still sum the phase in
+    another fp32 order (JAX's cumsum accumulates in fp32)."""
+    tables, spec = registry_oscillator
+    rng = np.random.RandomState(B * T)
+    f0 = (40.0 * (600.0 / 40.0) ** rng.rand(B, T)).astype(np.float32)
+    offset = rng.rand(B).astype(np.float32) if with_offset else None
+    consts = (spec.nominalF0, spec.F0GridFactor, spec.min_transposition, spec.max_transposition)
+    phase = jax.jit(lambda x: josc.stable_cumsum_and_wrap(x / spec.sample_rate))(jnp.asarray(f0))
+    if with_offset:
+        phase = jnp.mod(phase + jnp.asarray(offset)[:, None], 1.0)
+    ref = np.asarray(oscillator_fused(phase, jnp.asarray(f0), jnp.asarray(tables), *consts, interpret=True))
+    got, got_phase = tosc.oscillate(torch.from_numpy(f0), torch.from_numpy(tables), *consts, spec.sample_rate,
+                                    phase_offset=None if offset is None else torch.from_numpy(offset),
+                                    return_phase=True)
+    assert got.shape == ref.shape and got_phase.shape == ref.shape
+    rel = np.sqrt(np.mean((got.numpy() - ref) ** 2) / np.mean(ref ** 2))
+    assert rel <= 1e-4, rel
+    d = np.abs(got_phase.numpy() - np.asarray(phase))
+    assert np.max(np.minimum(d, 1.0 - d)) <= 5e-5
+    torch.testing.assert_close(tosc.oscillate(torch.from_numpy(f0), torch.from_numpy(tables), *consts,
+                                              spec.sample_rate, phase_offset=None if offset is None else
+                                              torch.from_numpy(offset)), got, rtol=0, atol=0)
+
+
+def _former_stable_cumsum_and_wrap(velocity, chunk_size=1000):
+    """The formula as it stood with fp32 cumsums (dtype left to PyTorch)."""
+    n_batch, n_time = velocity.shape
+    remainder = n_time % chunk_size
+    if remainder:
+        velocity = torch.nn.functional.pad(velocity, (0, chunk_size - remainder))
+    chunks = velocity.reshape(n_batch, -1, chunk_size)
+    phase = torch.cumsum(chunks, dim=2)
+    offsets = torch.remainder(phase[:, :, -1:], 1.0)
+    offsets = torch.nn.functional.pad(offsets, (0, 0, 1, 0))[:, :-1]
+    offsets = torch.remainder(torch.cumsum(offsets, dim=1), 1.0)
+    return torch.remainder(phase + offsets, 1.0).reshape(n_batch, -1)[:, :n_time]
+
+
+@pytest.mark.parametrize("T", [999, 1000, 12_345])
+def test_stable_cumsum_and_wrap_fp64_same_as_fp32_dtype_on_cpu(T):
+    """On the CPU, an fp32 cumsum already accumulates in fp64: taking both
+    cumsums with dtype=float64 changes no bit of the phase there."""
+    rng = np.random.RandomState(T + 1)
+    f0 = torch.from_numpy(rng.uniform(40.0, 600.0, (2, T)).astype(np.float32))
+    v = tosc.phase_velocity(f0, 12000.0)
+    assert torch.equal(tosc.stable_cumsum_and_wrap(v), _former_stable_cumsum_and_wrap(v))
+
+
+def _wrap(x):
+    """torch.remainder(x, 1) in fp32: fmod, then a negative result moved up by one."""
+    m = np.fmod(x, np.float32(1.0))
+    return np.where(m < 0, m + np.float32(1.0), m).astype(np.float32)
+
+
+def _blocked_phase(f0, sample_rate, chunk=1000, seg=32):
+    """The phase as the CUDA kernel orders its sums: each chunk scanned in
+    fp64 as 32-element segments whose totals are scanned and added back; the
+    chunk totals of a row summed in reverse order; every rounding to fp32 and
+    every wrap where stable_cumsum_and_wrap has them."""
+    v = f0 * np.float32(1.0 / sample_rate)
+    B, T = v.shape
+    n = -(-T // chunk)
+    width = -(-chunk // seg) * seg
+    x = np.zeros((B, n, width))
+    x[:, :, :chunk] = np.pad(v, ((0, 0), (0, n * chunk - T))).reshape(B, n, chunk)
+    local = np.cumsum(x.reshape(B, n, -1, seg), axis=-1)
+    seg_tot = local[..., -1]
+    seg_before = np.concatenate([np.zeros((B, n, 1)), np.cumsum(seg_tot, axis=-1)[..., :-1]], axis=-1)
+    prefix = (local + seg_before[..., None]).reshape(B, n, width)[..., :chunk]
+    s32 = prefix.astype(np.float32)
+    rem = _wrap(prefix[..., chunk - 1].astype(np.float32))
+    prior = np.zeros((B, n))
+    for c in range(n):
+        for k in reversed(range(c)):
+            prior[:, c] += rem[:, k]
+    off = _wrap(prior.astype(np.float32))
+    phase = _wrap(s32 + off[..., None])
+    return phase.reshape(B, n * chunk)[:, :T]
+
+
+@pytest.mark.parametrize("T", [1000, 12_345])
+def test_phase_is_the_same_in_any_summation_order(T):
+    """Every partial sum is exact in fp64 for F0 in 1 Hz - 2 kHz, so the
+    kernel's blocked parallel order gives stable_cumsum_and_wrap's phase bit
+    for bit."""
+    rng = np.random.RandomState(T + 2)
+    f0 = np.exp(rng.uniform(0.0, np.log(2000.0), (2, T))).astype(np.float32)
+    f0[0, :50] = 1.0
+    f0[1, -50:] = 2000.0
+    got = _blocked_phase(f0, 12000.0)
+    ref = tosc.stable_cumsum_and_wrap(tosc.phase_velocity(torch.from_numpy(f0), 12000.0)).numpy()
+    assert got.dtype == ref.dtype and np.array_equal(got, ref)
+
+
+def test_phase_velocity_matches_jitted_jax():
+    """F0 / 12 kHz: jitted JAX multiplies by the fp32 reciprocal, as the port
+    does (eager division differs in the last bit)."""
+    rng = np.random.RandomState(7)
+    f0 = np.concatenate([rng.uniform(1.0, 2000.0, 100_000), np.arange(1, 24_001) * 0.5]).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda x: x / 12000.0)(jnp.asarray(f0)))
+    got = tosc.phase_velocity(torch.from_numpy(f0), 12000.0).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, ref)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(1, 4, 2, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         wavenet_stack(x, torch.zeros(1, 4, 4, device="meta"), [], [])
     with pytest.raises(RuntimeError, match="unsupported device"):
-        tosc.oscillator(torch.zeros(1, 4, device="meta"), torch.zeros(1, 4, device="meta"),
-                        torch.zeros(3, 2, device="meta"), 50.0, 1.25, 1.0, 2.0)
+        tosc.oscillate(torch.zeros(1, 4, device="meta"), torch.zeros(3, 2, device="meta"), 50.0, 1.25, 1.0, 2.0,
+                       12000.0)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tosc.oscillate(torch.zeros(1, 4, device="meta"), torch.zeros(3, 2, device="meta"), 50.0, 1.25, 1.0, 2.0,
+                       12000.0, phase_offset=torch.zeros(1, device="meta"), return_phase=True)
 
 
 # ---- the kernel's operand layout: reduction dimension padded with zeros to a multiple of 64
