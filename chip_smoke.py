@@ -37,9 +37,28 @@ prints no result line:
      warm-up;
   6. one synthesis under torch.profiler: device busy time, the count of
      device activities, idle share and the kernels that take the most
-     device time; a trace with no device activity fails.
-The last lines are a one-line summary of the end-to-end numbers, the card's
-name and power limit, a `kernels` JSON line, and
+     device time; a trace with no device activity fails;
+  7. serving, SPEECH, shipped bf16, full width: 24 requests of 100-1000
+     frames (6 in each of the buckets 128/256/512/1024) served by the
+     blocking loop (`synth_from_mel` per request) and by
+     PipelinedSynthesizer(depth=3) at batch 1 and at batch 8 (and at batch
+     8 in shuffled order): audio-s/s on the host clock (median of 5
+     interleaved rounds), the device idle share (profiler over the set),
+     launches per dispatch group (K1 24, K2 1), and the PyTorch ops the sync
+     debug mode flags; batch 1 must be bit-equal to
+     the blocking loop.  A batch-8 group and BatchSynthesizer on 5 mixed
+     lengths against single requests handed the same noise rows: bf16
+     rel-RMS <= 2e-2, fp32 <= 1e-4.  K1 and K2 against their plain
+     versions on the inputs of the request set's 1024-bucket group (B = 6:
+     6 x 51,200 rows in block 1, 6 x 153,600 oscillator samples) and of the
+     batch-8 group (bucket 512), bf16 and fp32, with phase [2]'s and [3]'s
+     bounds; the kernels line's max_abs_err covers these shapes too.  The
+     quality round trip on the 8 synth_eval_v2 utterances (seed 1099),
+     served at batch 8: mean mel-L1 within 0.15 dB of the registry's
+     quality_report.json;
+The last lines are a one-line summary of the end-to-end numbers, a
+`serving:` JSON line with phase [7]'s numbers, the card's name and power
+limit, a `kernels` JSON line, and
 `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
 """
 from __future__ import annotations
@@ -87,6 +106,28 @@ def k1_work(B: int, T: int, C: int, n_layers: int):
     flop = B * T * C * C * (16.0 * (n_layers - 1) + 14.0)
     weight_elems = n_layers * 8 * C * C - C * C
     return flop, 2.0 * B * T * C + 2.0 * B * T * 2 * C + 2.0 * weight_elems + 4.0 * B * T * C
+
+
+def stack_inputs(inv, mel: np.ndarray, block_index: int, dtype, dev):
+    """The real inputs of WaveNet block `block_index`'s stack for a (B, T, C)
+    log-mel at its bucket length, with the noise the model draws (a
+    generator seeded 0): (x, cond, weights, dilations, the F0 that enters
+    the oscillator)."""
+    import torch
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+
+    model, blk = inv.model, inv.model.block
+    with torch.inference_mode(), exact_fp32():
+        x_mel = torch.from_numpy(mel).to(dev)
+        mell, _ = model.norm_mel_components.normalize_inputs_by_rms(x_mel, mel.shape[1] * inv.hop_size)
+        f0 = blk.generate_f0(mell)
+        x = blk.fold_pulse_channels(blk.oscillate(f0), generator=torch.Generator(device=dev).manual_seed(0))
+        for name in blk.block_names[:block_index]:
+            x = getattr(blk, name)(x, mell)
+        wn = getattr(blk, blk.block_names[block_index]).wavenet
+        started = wn.start(x.to(dtype))
+        cond = wn.cond_linup(wn.cond(mell.to(dtype))).contiguous()
+        return started, cond, wn.stack_weights(dtype), wn.dilations, f0
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -137,18 +178,15 @@ def device_time_ms(fn, iters: int, warmup: int = 3) -> float:
     raise RuntimeError("the host did not get ahead of the card: no device-paced time")
 
 
-def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
-    """Profile one synthesis: device busy time (the union of kernel and copy
-    intervals), the idle share against the untraced synthesis time, and the
-    kernels that take the most device time, and the oscillator kernel's.
-    Returns (idle share, device activities); (None, 0) when the profiler saw
-    no device activity."""
+def device_activity(fn):
+    """Run fn() once under torch.profiler: (device busy ms, the union of kernel
+    and copy intervals; the count of device activities; {name: (ms, n)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        inv.synth_from_mel(mel)
+        fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for ev in prof.events():
@@ -158,9 +196,6 @@ def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
         spans.append((start, end))
         ms, n = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (ms + (end - start) / 1e3, n + 1)
-    if not spans:
-        print("  trace: the profiler recorded no device activity", flush=True)
-        return None, 0
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -169,15 +204,248 @@ def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
             cur_start, cur_end = start, end
         else:
             cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
-    busy_ms = busy_us / 1e3
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    return busy_us / 1e3, len(spans), by_name
+
+
+def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
+    """Profile one synthesis: device busy time, the idle share against the
+    untraced synthesis time, and the kernels that take the most device time,
+    and the oscillator kernel's.  Returns (idle share, device activities);
+    (None, 0) when the profiler saw no device activity."""
+    busy_ms, n_spans, by_name = device_activity(lambda: inv.synth_from_mel(mel))
+    if not n_spans:
+        print("  trace: the profiler recorded no device activity", flush=True)
+        return None, 0
     idle = max(0.0, 1.0 - busy_ms / synth_ms)
-    print(f"  device busy {busy_ms:.3f} ms in {len(spans)} device activities; untraced synthesis "
+    print(f"  device busy {busy_ms:.3f} ms in {n_spans} device activities; untraced synthesis "
           f"{synth_ms:.2f} ms -> device idle share {idle:.3f}", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for name, (ms, n) in ranked[:top] + [kv for kv in ranked[top:] if "oscillat" in kv[0]]:
         print(f"    {ms:9.4f} ms {n:5d}x  {name[:80]}", flush=True)
-    return idle, len(spans)
+    return idle, n_spans
+
+
+SERVE_BUCKETS = ((100, 128), (129, 256), (257, 512), (513, 1000))  # request lengths per bucket, frames
+GROUP_FRAMES = (300, 512)  # the batch-8 group's lengths: bucket 512
+MIXED_FRAMES = (150, 420, 90, 230, 500)  # BatchSynthesizer's five requests: buckets 128, 256 and 512
+
+
+def serving_requests(n_mels: int, per_bucket: int = 6):
+    """The request set of phase [7]: 24 log-mels of 100-1000 frames, 6 in each
+    of the buckets 128/256/512/1024, arriving in runs of one bucket (as from
+    a front end that orders its queue by length); lengths and mels from SEED."""
+    rng = np.random.RandomState(SEED + 7)
+    lengths = [int(rng.randint(lo, hi + 1)) for lo, hi in SERVE_BUCKETS for _ in range(per_bucket)]
+    return [make_mel(T, n_mels, SEED + 100 + i) for i, T in enumerate(lengths)]
+
+
+def phase_serving(inverter, check, dev):
+    """Phase [7]: the serving path, SPEECH, shipped bf16, full width.  The
+    request set three ways (the blocking loop, the pipeline at batch 1 and at
+    batch 8): audio-s/s on the host clock, the device idle share over the set,
+    launches per dispatch group; batch groups against single requests given
+    the same noise rows; the quality round trip on synth_eval_v2.  Returns
+    the serving numbers for the `serving:` line."""
+    import tempfile
+    import warnings
+
+    import torch
+    from mbexwn_vocoder_torch.compat.audio_io import read_wav
+    from mbexwn_vocoder_torch.mel_inverter import edge_pad
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+    from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+    from mbexwn_vocoder_torch.quality import V2_EVAL_SETS, round_trip, summarize
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+    from mbexwn_vocoder_torch.training.synthetic import make_corpus
+
+    inv = inverter("SPEECH", None)
+    blk = inv.model.block
+    n_layers = sum(getattr(blk, n).wavenet.n_layers for n in blk.block_names)
+    mels = serving_requests(inv.mel_channels)
+    audio_s = sum(m.shape[1] for m in mels) * inv.hop_size / inv.srate
+    print(f"  {len(mels)} requests, {audio_s:.2f} s of audio, frames {[m.shape[1] for m in mels]}", flush=True)
+
+    def counted(ps):
+        """ps with a count of its dispatch groups in ps.groups."""
+        ps.groups = 0
+        dispatch = ps._dispatch_group
+
+        def wrapped(group, T_pad):
+            ps.groups += 1
+            return dispatch(group, T_pad)
+
+        ps._dispatch_group = wrapped
+        return ps
+
+    pipes = {"pipelined batch 1": counted(PipelinedSynthesizer(inv.model, inv.length_buckets, depth=3, batch=1)),
+             "pipelined batch 8": counted(PipelinedSynthesizer(inv.model, inv.length_buckets, depth=3, batch=8))}
+
+    # arrival order without runs: coalescing stacks consecutive requests of one bucket only
+    shuffled = [mels[i] for i in np.random.RandomState(SEED + 8).permutation(len(mels))]
+    modes = {"blocking": (None, mels), "pipelined batch 1": (pipes["pipelined batch 1"], mels),
+             "pipelined batch 8": (pipes["pipelined batch 8"], mels),
+             "pipelined batch 8, shuffled arrival": (pipes["pipelined batch 8"], shuffled)}
+
+    def serve(mode):
+        ps, requests = modes[mode]
+        return [inv.synth_from_mel(m) for m in requests] if ps is None else ps.map(requests)
+
+    numbers, outputs = {}, {}
+    for mode, (ps, requests) in modes.items():
+        serve(mode)  # warm-up: cuDNN's choices and the allocators' blocks for these shapes
+        torch.cuda.synchronize()
+        if ps is not None:
+            ps.groups = 0
+        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+        outputs[mode] = serve(mode)
+        counts = dict(kernel_lib.launches)
+        groups = len(requests) if ps is None else ps.groups
+        check(counts == {"wavenet_layer": n_layers * groups, "oscillator": groups},
+              f"{mode}: launches {counts} in {groups} dispatch groups (expected per group wavenet_layer="
+              f"{n_layers}, oscillator=1)")
+        check(all(y.shape == (m.shape[1] * inv.hop_size,) and np.isfinite(y).all()
+                  for y, m in zip(outputs[mode], requests)), f"{mode}: every request finite and of its length")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                serve(mode)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+        busy_ms, n_act, _ = device_activity(lambda: serve(mode))
+        numbers[mode] = {"device_busy_ms": busy_ms, "device_activities": n_act, "dispatch_groups": groups,
+                         "k1_per_group": counts["wavenet_layer"] / groups,
+                         "k2_per_group": counts["oscillator"] / groups, "synchronizing_ops": len(syncs),
+                         "wall_ms_passes": []}
+    same = sum(np.array_equal(a, b) for a, b in zip(outputs["blocking"], outputs["pipelined batch 1"]))
+    check(same == len(mels), f"pipelined batch 1 bit-equal to the blocking loop: {same} of {len(mels)} requests")
+
+    # the host's pace drifts: time the modes in interleaved rounds, the median per mode
+    for _ in range(5):
+        for mode in modes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(mode)
+            numbers[mode]["wall_ms_passes"].append(1e3 * (time.perf_counter() - t0))
+    for mode, nb in numbers.items():
+        wall = float(np.median(nb["wall_ms_passes"]))
+        nb.update(wall_ms=wall, audio_s_per_s=audio_s / (wall / 1e3),
+                  idle_share=max(0.0, 1.0 - nb["device_busy_ms"] / wall))
+        print(f"  {mode}: {nb['audio_s_per_s']:.1f} audio-s/s ({wall:.1f} ms for the set, median of "
+              f"{', '.join(f'{w:.1f}' for w in nb['wall_ms_passes'])}); device busy {nb['device_busy_ms']:.2f} ms "
+              f"in {nb['device_activities']} activities, idle share {nb['idle_share']:.3f}; "
+              f"{nb['dispatch_groups']} dispatch groups, launches per group K1 {nb['k1_per_group']:g} "
+              f"K2 {nb['k2_per_group']:g}; synchronizing ops flagged by the sync debug mode: "
+              f"{nb['synchronizing_ops']}", flush=True)
+
+    def noise_rows(inv_x, group_lengths):
+        """The noise a dispatch group of these mel lengths draws (a generator
+        seeded 0, shape (B, L, 1) on the card), one row per request."""
+        L = inv_x.model.block.wn_input_length(inv_x._bucket_len(max(group_lengths)))
+        g = torch.Generator(device=dev).manual_seed(0)
+        noise = torch.randn((len(group_lengths), L, 1), generator=g, device=dev).cpu().numpy()
+        return [noise[i:i + 1] for i in range(len(group_lengths))]
+
+    rng = np.random.RandomState(SEED + 9)
+    group = [make_mel(int(T), inv.mel_channels, SEED + 200 + i)
+             for i, T in enumerate(rng.randint(GROUP_FRAMES[0], GROUP_FRAMES[1] + 1, 8))]
+    mixed = [make_mel(T, inv.mel_channels, SEED + 300 + i) for i, T in enumerate(MIXED_FRAMES)]
+    for wn_dtype, tol in ((None, 2e-2), ("", 1e-4)):
+        inv_x = inverter("SPEECH", wn_dtype)
+        name = "bf16" if wn_dtype is None else "fp32"
+        T_pad = inv_x._bucket_len(max(m.shape[1] for m in group))
+        with torch.inference_mode(), exact_fp32():
+            xb = torch.from_numpy(np.concatenate([edge_pad(m, T_pad) for m in group])).to(dev)
+            mell, _ = inv_x.model.norm_mel_components.normalize_inputs_by_rms(xb, T_pad * inv_x.hop_size)
+            f0_b = inv_x.model.block.generate_f0(mell)
+            f0_s = torch.cat([inv_x.model.block.generate_f0(mell[i:i + 1]) for i in range(len(group))])
+            df0 = float((f0_b - f0_s).abs().max())
+        got = PipelinedSynthesizer(inv_x.model, inv_x.length_buckets, depth=1, batch=8).map(group)
+        rows = noise_rows(inv_x, [m.shape[1] for m in group])
+        errs = [rel_rms(y, inv_x.synth_from_mel(m, noise=n)) for y, m, n in zip(got, group, rows)]
+        check(max(errs) <= tol, f"{name} batch-8 group (bucket {T_pad}) vs the 8 single requests given its noise "
+                                f"rows: max rel-RMS {max(errs):.3e} (<= {tol:g}); F0 net batch vs single max |dF0| "
+                                f"{df0:.3e} Hz")
+
+        bs = BatchSynthesizer(inv_x.model, length_buckets=inv_x.length_buckets)
+        got = bs.synth_batch([m[0] for m in mixed])
+        noise_of = {}
+        by_bucket = {}
+        for i in sorted(range(len(mixed)), key=lambda i: mixed[i].shape[1]):
+            by_bucket.setdefault(inv_x._bucket_len(mixed[i].shape[1]), []).append(i)
+        for idxs in by_bucket.values():  # at most 8 per bucket here: one chunk each
+            noise_of.update(zip(idxs, noise_rows(inv_x, [mixed[i].shape[1] for i in idxs])))
+        errs = [rel_rms(got[i], inv_x.synth_from_mel(mixed[i], noise=noise_of[i])) for i in range(len(mixed))]
+        check(max(errs) <= tol, f"{name} BatchSynthesizer.synth_batch, frames {[m.shape[1] for m in mixed]} in "
+                                f"{len(by_bucket)} bucket groups, vs single requests given their noise rows: max "
+                                f"rel-RMS {max(errs):.3e} (<= {tol:g})")
+
+    # both kernels against their plain versions at the largest shapes this phase gives them: the
+    # request set's group in its top bucket (B = 6) and the batch-8 group, on the groups' own inputs
+    runs = {}
+    for m in mels:
+        runs.setdefault(inv._bucket_len(m.shape[1]), []).append(m)
+    top = max(runs)
+    cases = ((runs[top], top), (group, inv._bucket_len(max(m.shape[1] for m in group))))
+    k1_max_abs = k2_max_abs = 0.0
+    for wn_dtype, dtype, tol in ((None, torch.bfloat16, 2e-2), ("", torch.float32, 1e-4)):
+        inv_x = inverter("SPEECH", wn_dtype)
+        blk_x = inv_x.model.block
+        wt = blk_x.wavetable
+        consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+        for requests, T_pad in cases:
+            xb = np.concatenate([edge_pad(m, T_pad) for m in requests])
+            for bi in range(len(blk_x.block_names)):
+                x, cond, weights, dils, f0 = stack_inputs(inv_x, xb, bi, dtype, dev)
+                with torch.inference_mode(), exact_fp32():
+                    g = wavenet_stack(x, cond, weights, dils).cpu().numpy()
+                    r = wavenet_stack_plain(x, cond, weights, dils).cpu().numpy()
+                err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
+                if dtype == torch.bfloat16:
+                    k1_max_abs = max(k1_max_abs, max_abs)
+                check(np.isfinite(g).all() and err <= tol,
+                      f"K1 at a serving shape, block {bi} B={x.shape[0]} rows={x.shape[1]} (bucket {T_pad}) "
+                      f"{str(dtype)[6:]}: rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
+            with torch.inference_mode():
+                got, phase = oscillate(f0, blk_x.wavetables, *consts, return_phase=True)
+                ref, ref_phase = oscillate_plain(f0, blk_x.wavetables, *consts, return_phase=True)
+                err, n_diff = float((got - ref).abs().max()), int((phase != ref_phase).sum())
+            k2_max_abs = max(k2_max_abs, err)
+            check(math.isfinite(err) and err <= 1e-5 and n_diff == 0,
+                  f"K2 at a serving shape, B={f0.shape[0]} T={f0.shape[1]} (bucket {T_pad}), F0 of the "
+                  f"{str(dtype)[6:]} F0 net: audio max abs {err:.3e} (<= 1e-5); phase samples differing from "
+                  f"plain {n_diff} (of {f0.numel()})")
+    numbers["kernel_checks"] = {"k1_bf16_max_abs": k1_max_abs, "k2_max_abs": k2_max_abs}
+
+    # the quality gate's round trip, served at batch 8: analysis -> scale_mel -> serve -> re-analysis
+    corpus, seed, style = V2_EVAL_SETS["SPEECH"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = make_corpus(os.path.join(tmp, corpus), n_utterances=8, seed=seed, style=style, quiet=True)
+        sounds = [(os.path.basename(p), *read_wav(p)) for p in paths]
+    rows = round_trip(inv, sounds, depth=3, batch=8)
+    means = summarize(rows)
+    with open(os.path.join(os.path.dirname(inv.config_file), "quality_report.json")) as f:
+        registry = json.load(f)
+    reg = {r["file"]: r["mel_L1_dB"] for r in registry["files"]}
+    print("  mel-L1 dB per file, port / registry: " + ", ".join(f"{r['mel_L1_dB']:.3f}/{reg.get(r['file'])}"
+                                                                for r in rows), flush=True)
+    delta = means["mean_mel_L1_dB"] - registry["mean_mel_L1_dB"]
+    check(len(rows) == 8 and abs(delta) <= 0.15,
+          f"quality round trip, SPEECH bf16, {corpus} (seed {seed}, {len(rows)} files, served at batch 8, "
+          f"{time.perf_counter() - t0:.1f} s): mean mel-L1 {means['mean_mel_L1_dB']:.3f} dB vs the registry's "
+          f"{registry['mean_mel_L1_dB']:.3f} ({delta:+.3f}, |delta| <= 0.15); MCD {means['mean_mcd_dB']} "
+          f"({registry['mean_mcd_dB']}), F0-RMSE {means['mean_f0_rmse_hz']} Hz ({registry['mean_f0_rmse_hz']}), "
+          f"voicing error {means['mean_voicing_err_pct']} % ({registry['mean_voicing_err_pct']})")
+    numbers["quality"] = {**means, "registry_mean_mel_L1_dB": registry["mean_mel_L1_dB"]}
+    return numbers
 
 
 def main() -> int:
@@ -242,21 +510,6 @@ def main() -> int:
             inverters[key] = MELInverter(model_id, device=device)
         return inverters[key]
 
-    def stack_inputs(inv, block_index: int, dtype):
-        """The real inputs of WaveNet block `block_index`'s stack for `mel`."""
-        model, blk = inv.model, inv.model.block
-        with torch.inference_mode(), exact_fp32():
-            x_mel = torch.from_numpy(mel).to(dev)
-            mell, _ = model.norm_mel_components.normalize_inputs_by_rms(x_mel, N_FRAMES * inv.hop_size)
-            f0 = blk.generate_f0(mell)
-            x = blk.fold_pulse_channels(blk.oscillate(f0), generator=torch.Generator(device=dev).manual_seed(0))
-            for name in blk.block_names[:block_index]:
-                x = getattr(blk, name)(x, mell)
-            wn = getattr(blk, blk.block_names[block_index]).wavenet
-            started = wn.start(x.to(dtype))
-            cond = wn.cond_linup(wn.cond(mell.to(dtype))).contiguous()
-            return started, cond, wn.stack_weights(dtype), wn.dilations
-
     # ---- 2. K1 vs plain
     print("[2] K1 wavenet_layer vs plain (blocks 0 and 1, 512 frames)", flush=True)
     k1_err = {}
@@ -264,7 +517,7 @@ def main() -> int:
         inv = inverter(model_id, "")
         for block_index in range(len(inv.model.block.block_names)):
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x, cond, weights, dils = stack_inputs(inv, block_index, dtype)
+                x, cond, weights, dils, _ = stack_inputs(inv, mel, block_index, dtype, dev)
                 with torch.inference_mode(), exact_fp32():
                     got = wavenet_stack(x, cond, weights, dils)
                     ref = wavenet_stack_plain(x, cond, weights, dils)
@@ -276,7 +529,7 @@ def main() -> int:
                       f"K1 {model_id} block {block_index} C={x.shape[-1]} rows={x.shape[1]} {str(dtype)[6:]}: "
                       f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
     inv = inverter("VOICE", "")
-    x, cond, weights, dils = stack_inputs(inv, 0, torch.bfloat16)
+    x, cond, weights, dils, _ = stack_inputs(inv, mel, 0, torch.bfloat16, dev)
     with torch.inference_mode(), exact_fp32():
         x2 = torch.cat([x, x[:, :37]], dim=1)
         c2 = torch.cat([cond, cond[:, :37]], dim=1)
@@ -355,7 +608,7 @@ def main() -> int:
     blk = inv.model.block
     k1_ms = k1_plain_ms = k1_flop = k1_bytes = 0.0
     for bi in range(len(blk.block_names)):
-        x, cond, weights, dils = stack_inputs(inv, bi, torch.bfloat16)
+        x, cond, weights, dils, _ = stack_inputs(inv, mel, bi, torch.bfloat16, dev)
         B, T, C = x.shape
         with torch.inference_mode(), exact_fp32():
             ms = cuda_time_ms(lambda: wavenet_stack(x, cond, weights, dils), iters=10)
@@ -436,6 +689,12 @@ def main() -> int:
     idle, n_activities = trace_synthesis(inv, mel, synth_ms)
     check(n_activities > 0, f"trace: {n_activities} device activities in one synthesis")
 
+    # ---- 7. serving
+    print("[7] serving (SPEECH, shipped bf16, full width)", flush=True)
+    serving = phase_serving(inverter, check, dev)
+    k1_max_abs = max(k1_max_abs, serving["kernel_checks"]["k1_bf16_max_abs"])
+    k2_err = max(k2_err, serving["kernel_checks"]["k2_max_abs"])
+
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
         return 1
@@ -454,6 +713,7 @@ def main() -> int:
           f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s, device idle share {idle:.3f}, {n_activities} device "
           f"activities; K1 {k1_ms:.3f} ms (bound {k1_bound:.4f}), K2 {k2_ms:.5f} ms (bound {k2_bound:.5f}); "
           f"all checks passed", flush=True)
+    print("serving: " + json.dumps(serving), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

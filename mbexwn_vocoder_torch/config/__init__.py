@@ -1,3 +1,3 @@
-from .config_utils import read_config
+from .config_utils import modify_config, read_config
 
-__all__ = ["read_config"]
+__all__ = ["modify_config", "read_config"]

@@ -1,11 +1,14 @@
 """YAML config reading with the registry's include syntax.
 
-Copy of what `read_config` needs from the JAX package's
-config/config_utils.py: cross-file includes ``<@CONFIG_DIR@/file:key:...>``,
-env/user expansion, dtype-name mapping and ``__defaults__`` fill-in.
+Copy of what `read_config` and `modify_config` need from the JAX
+package's config/config_utils.py: cross-file includes
+``<@CONFIG_DIR@/file:key:...>``, env/user expansion, dtype-name mapping,
+``__defaults__`` fill-in, and the command-line override mini-language
+(``a:b:[i]:key=val``) that `view_mel -a` takes.
 """
 from __future__ import annotations
 
+import ast
 import os
 import re
 from copy import deepcopy
@@ -32,6 +35,26 @@ _DTYPE_NAMES = {
     "float32": np.float32,
     "None": None,
 }
+
+_WORD_VALUES = {"none": None, "null": None, "true": True, "false": False}
+
+
+def coerce_scalar(text: str):
+    """Interpret an override-value string as the most specific Python value.
+
+    Word forms of None/bool win first; anything that parses as a Python
+    literal (int, float, list, dict, quoted string) is taken literally;
+    everything else stays a plain string.
+    """
+    stripped = text.strip()
+    lowered = stripped.lower()
+    if lowered in _WORD_VALUES:
+        return _WORD_VALUES[lowered]
+    try:
+        return ast.literal_eval(stripped)
+    except (ValueError, SyntaxError, MemoryError, RecursionError):
+        return text
+
 
 _INCLUDE_MARKER = "@CONFIG_DIR@"
 
@@ -109,3 +132,115 @@ def read_config(config_file, config_base_dir=None):
             chunks.append(stream.read())
     raw = yaml.safe_load("\n".join(chunks))
     return _expand_defaults(_resolve_node(raw, base_dir))
+
+
+# CLI override mini-language  (``a:b:[i]:key=val``)
+
+_BRACKET_OPEN = {"{": "}", "[": "]", "<": ">"}
+_BRACKET_CLOSE = {close: opener for opener, close in _BRACKET_OPEN.items()}
+_INDEX_FORM = re.compile(r"^\s*\[\s*(-?\d+)\s*\]\s*$")
+
+
+def _split_path(expression: str):
+    """Split an override expression on ':' outside of {}/[]/<> nesting."""
+    depth = {opener: 0 for opener in _BRACKET_OPEN}
+    segments = []
+    start = 0
+    for pos, char in enumerate(expression):
+        if char in _BRACKET_OPEN:
+            depth[char] += 1
+        elif char in _BRACKET_CLOSE:
+            opener = _BRACKET_CLOSE[char]
+            depth[opener] -= 1
+            if depth[opener] < 0:
+                raise RuntimeError(f"config::override: unbalanced '{char}' in {expression!r}")
+        elif char == ":" and not any(depth.values()):
+            segments.append(expression[start:pos])
+            start = pos + 1
+    segments.append(expression[start:])
+    return segments
+
+
+def _coerce_or_include(value_text: str, base_dir: str):
+    """An override value is either ``<file[:keys]>`` (load + walk) or a
+    literal to coerce."""
+    if value_text.startswith("<"):
+        if not value_text.endswith(">"):
+            raise RuntimeError(f"config::override: unterminated file reference {value_text!r}")
+        spec = value_text[1:-1].replace(_INCLUDE_MARKER, base_dir or "")
+        return deepcopy(_load_include(spec, base_dir))
+    return coerce_scalar(value_text)
+
+
+def _assign(cursor, key_text: str, value, path: str):
+    index_match = _INDEX_FORM.match(key_text)
+    if isinstance(cursor, list) and index_match:
+        index = int(index_match.group(1))
+        if index < 0:
+            index = len(cursor)
+        while len(cursor) <= index:
+            cursor.append(None)
+        cursor[index] = value
+    elif isinstance(cursor, dict) and key_text in cursor:
+        cursor[key_text] = value
+    else:
+        raise RuntimeError(
+            f"config::override: {path!r} assigns to key '{key_text}' which does not exist in {cursor}"
+        )
+
+
+def apply_override(config, expression: str, base_dir: str):
+    """Apply one nest-aware override expression: descend through plain keys
+    and ``[i]`` indices, perform every ``key=value`` assignment at the
+    current cursor."""
+    cursor = config
+    segments = _split_path(expression)
+    for position, segment in enumerate(segments):
+        if not segment:
+            continue
+        if "=" in segment:
+            key_text, value_text = segment.split("=", 1)
+            value = _coerce_or_include(value_text, base_dir)
+            _assign(cursor, key_text, value, expression)
+            continue
+        index_match = _INDEX_FORM.match(segment)
+        if index_match:
+            cursor = cursor[int(index_match.group(1))]
+            continue
+        if position == len(segments) - 1:
+            raise RuntimeError(
+                f"config::override: {expression!r} ends on key '{segment}' with nothing to assign "
+                f"(missing '=')"
+            )
+        if not (isinstance(cursor, dict) and segment in cursor):
+            raise RuntimeError(f"config::override: {expression!r} walks through missing key '{segment}'")
+        cursor = cursor[segment]
+
+
+def modify_config(hparams, config_args, config_base_dir=None):
+    """Apply a list of override expressions to the config tree (in place).
+
+    Two forms are accepted: the ``path:key=value`` mini-language, and the
+    legacy ``path:key:value`` spelling without '='.
+    """
+    if config_args is None:
+        return hparams
+    base_dir = config_base_dir if config_base_dir is not None else _default_base_dir()
+
+    for expression in config_args:
+        if "=" in expression:
+            apply_override(hparams, expression, base_dir)
+            continue
+        # legacy form: plain ':' split, last element is the value
+        parts = expression.split(":")
+        if len(parts) < 2:
+            raise RuntimeError(f"config::override: {expression!r} carries neither '=' nor a ':'-separated value")
+        cursor = hparams
+        for key in parts[:-2]:
+            cursor = cursor[key]
+        if parts[-2] not in cursor:
+            raise RuntimeError(
+                f"config::override: {expression!r} assigns to key '{parts[-2]}' which does not exist in {cursor}"
+            )
+        cursor[parts[-2]] = coerce_scalar(parts[-1])
+    return hparams

@@ -1,9 +1,12 @@
-"""Slaney-style mel scale, implemented from the published Slaney
-Auditory-Toolbox formulas: the band centres NormMelComponents needs.  The
-mel filterbank of the JAX package's dsp/mel.py waits for mel analysis
-(ROADMAP.md queue 1, item 9).
+"""Slaney-style mel scale and mel filterbank, implemented from the published
+Slaney Auditory-Toolbox formulas (no librosa dependency): the band centres
+NormMelComponents needs and the filterbank of the mel analysis front end.
+Copy of the JAX package's dsp/mel.py (librosa-compatible, htk=False,
+norm='slaney').
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -47,3 +50,61 @@ def mel_frequencies(n_mels: int, fmin: float = 0.0, fmax: float = 11025.0, htk: 
     max_mel = hz_to_mel(fmax, htk=htk)
     mels = np.linspace(min_mel, max_mel, n_mels)
     return mel_to_hz(mels, htk=htk)
+
+
+def _mel_basis(sr, n_fft, n_mels, fmin, fmax, htk=False, norm="slaney", dtype=np.float32):
+    """Triangular mel filterbank (rows = mel bands, cols = FFT bins)."""
+    if fmax is None:
+        fmax = float(sr) / 2
+    n_bins = 1 + n_fft // 2
+    fftfreqs = np.linspace(0.0, float(sr) / 2.0, n_bins, endpoint=True)
+    mel_f = mel_frequencies(n_mels + 2, fmin=fmin, fmax=fmax, htk=htk)
+
+    fdiff = np.diff(mel_f)
+    ramps = np.subtract.outer(mel_f, fftfreqs)
+
+    lower = -ramps[:-2] / fdiff[:-1][:, np.newaxis]
+    upper = ramps[2:] / fdiff[1:][:, np.newaxis]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+
+    if norm == "slaney":
+        # area-normalize each triangle to constant energy per band
+        enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
+        weights *= enorm[:, np.newaxis]
+    elif norm is not None:
+        raise ValueError(f"unsupported mel norm {norm}")
+
+    return weights.astype(dtype)
+
+
+@lru_cache(30, typed=True)
+def mel_filter(sr, n_fft, n_mels, fmin, fmax, dtype=np.dtype("float32"), centered=False, norm=True):
+    """Mel filterbank with the reference's `centered` variant.
+
+    centered=True places the centers of the bordering bands on fmin/fmax
+    instead of their edges (reference: preprocess.py:58-67).
+
+    reference: MBExWN_NVoc/vocoder/model/preprocess.py:52-74
+    """
+    norm_arg = "slaney" if norm else None
+    if centered:
+        mel_freqs = mel_frequencies(n_mels=n_mels, fmin=fmin, fmax=fmax, htk=False)
+        lower_half_band = mel_freqs[1] - mel_freqs[0]
+        upper_half_band = mel_freqs[-1] - mel_freqs[-2]
+        return _mel_basis(
+            sr=sr,
+            n_fft=n_fft,
+            n_mels=n_mels,
+            fmin=fmin - lower_half_band,
+            fmax=fmax + upper_half_band,
+            htk=False,
+            norm=norm_arg,
+            dtype=dtype,
+        )
+    return _mel_basis(
+        sr=sr, n_fft=n_fft, n_mels=n_mels, fmin=fmin, fmax=fmax, htk=False, norm=norm_arg, dtype=dtype
+    )
+
+
+# alias mirroring the reference's public name
+get_mel_filter = mel_filter

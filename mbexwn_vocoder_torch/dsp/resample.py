@@ -1,11 +1,15 @@
-"""Kaiser FIR sizing rule shared by the wavetable pulse design.
+"""Polyphase FIR resampling with a Kaiser-designed anti-aliasing low-pass,
+and the Kaiser FIR sizing rule it shares with the wavetable pulse design.
 
-Copy of the sizing half of the JAX package's dsp/resample.py (the
-resampler itself is an analysis-side tool this package does not need yet).
+Copy of the JAX package's dsp/resample.py (host side: the analysis front
+end, the CLIs and wavetable initialisation).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import scipy.signal as ss
 
 # longest anti-aliasing filter we are willing to design before trading
 # stop-band attenuation for length (one back-off step = -6 dB)
@@ -36,3 +40,27 @@ def kaiser_fir_length(stop_att_db: float, trans_width_rad: float):
         else:
             break
     return half_len, kaiser_beta_for_attenuation(att), att
+
+
+def resample(x, sr_in, sr_out, stop_att=70, axis=0, trans_width_normed=0.1, fir_filt=None):
+    """Rational-rate resampling of x from sr_in to sr_out Hz.
+
+    The anti-aliasing filter is designed on first use and returned so callers
+    resampling many signals at the same rate pair can reuse it via fir_filt.
+    Returns (resampled_signal, fir_filter).
+    """
+    sr_in = int(sr_in)
+    sr_out = int(sr_out)
+    common = math.gcd(sr_in, sr_out)
+    up, down = sr_out // common, sr_in // common
+
+    if fir_filt is None:
+        # transition width in rad/sample at the lower of the two rates
+        trans_width_rad = 2 * np.pi * min(1.0, sr_out / sr_in) * trans_width_normed
+        half_len, beta, _ = kaiser_fir_length(stop_att, trans_width_rad)
+        fir_filt = ss.firwin(
+            (half_len * 2 + 1) * up,
+            cutoff=(1 - trans_width_normed) / max(up, down),
+            window=("kaiser", beta),
+        ).astype(x.dtype if x.dtype == np.float32 else np.float64, copy=False)
+    return ss.resample_poly(x, up, down, axis=axis, window=fir_filt), fir_filt

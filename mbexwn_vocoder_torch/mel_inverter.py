@@ -5,7 +5,9 @@ Counterpart of the JAX package's mel_inverter.py.  Loads a model directory
 model's convention, and synthesises on one device: the card by default
 (`device="cuda"`), the CPU only when the caller asks for it.  Mels are
 edge-padded to length buckets and the padded audio tail is trimmed, as in
-the JAX package, so a serving loop sees a few shapes only.
+the JAX package, so a serving loop sees a few shapes only
+(`bucket_len`, `edge_pad`, shared with serving.py).  `generate_mel_from_snd`
+is the mel analysis of audio, the round trip of the quality checks.
 """
 from __future__ import annotations
 
@@ -18,22 +20,34 @@ import torch
 from scipy.interpolate import interp1d
 
 from . import get_config_file
+from .analysis import compute_mel_spectrogram_internal
 from .compat.params_io import flatten, load_params, params_from_jax
 from .config import read_config
+from .dsp.db import log_to_db
+from .dsp.resample import resample
 from .models.factory import create_model
 from .ops.conv import fold_weight_norm
+from .platform import resolve_device
 
 _DEF_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
-log_to_db = 20 * np.log10(np.exp(1))
 
 
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device to run on; a CUDA device without a card raises (no silent
-    fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return device
+def bucket_len(T: int, length_buckets) -> int:
+    """The smallest bucket >= T (sorted buckets); T itself beyond the largest."""
+    for b in length_buckets:
+        if T <= b:
+            return b
+    return T
+
+
+def edge_pad(mell: np.ndarray, T_pad: int) -> np.ndarray:
+    """(B, T, C) -> (B, T_pad, C), repeating the last frame.  The model is
+    convolutional, so the padded frames reach only the tail that is trimmed
+    after synthesis."""
+    T = mell.shape[1]
+    if T_pad == T:
+        return mell
+    return np.concatenate([mell, np.repeat(mell[:, -1:], T_pad - T, axis=1)], axis=1)
 
 
 class MELInverter:
@@ -118,10 +132,7 @@ class MELInverter:
     # ------------------------------------------------------------ synthesis
 
     def _bucket_len(self, T: int) -> int:
-        for b in self.length_buckets:
-            if T <= b:
-                return b
-        return T
+        return bucket_len(T, self.length_buckets)
 
     def noise_shape(self, scaled_mell: np.ndarray):
         """Shape of the noise channel `synth_from_mel` draws for this mel
@@ -145,17 +156,39 @@ class MELInverter:
         is otherwise the same for every call (a generator seeded 0)."""
         T = scaled_mell.shape[1]
         T_pad = self._bucket_len(T)
-        if T_pad != T:
-            # edge-pad with the last frame; only the trimmed tail sees it
-            pad = np.repeat(scaled_mell[:, -1:], T_pad - T, axis=1)
-            mell_in = np.concatenate([scaled_mell, pad], axis=1)
-        else:
-            mell_in = scaled_mell
+        mell_in = edge_pad(scaled_mell, T_pad)
         x = torch.from_numpy(np.ascontiguousarray(mell_in, dtype=np.float32)).to(self.device)
         nz = None if noise is None else torch.from_numpy(np.array(noise, dtype=np.float32)).to(self.device)
         with torch.inference_mode():
             y = self.model.infer(x, synth_length=T_pad * self.hop_size, noise=nz)
         return y[:, : T * self.hop_size].cpu().numpy().ravel()
+
+    def generate_mel_from_snd(self, snd, srate) -> Dict:
+        """The `.mell` dict of the model's own mel analysis of `snd` (the
+        round trip of the `-v` report and the quality gate), resampled to
+        the model's rate first if `srate` differs.  Host NumPy."""
+        data_dict = {
+            "nfft": self.fft_size,
+            "hoplen": self.hop_size,
+            "winlen": self.win_len,
+            "nmels": self.mel_channels,
+            "sr": self.srate,
+            "fmin": self.fmin,
+            "fmax": self.fmax,
+            "lin_spec_offset": self.lin_amp_off,
+            "lin_spec_scale": self.lin_amp_scale,
+            "log_spec_offset": 0.0,
+            "log_spec_scale": self.mel_amp_scale,
+            "time_axis": 1,
+        }
+        if srate != self.srate:
+            snd, _ = resample(snd, srate, self.srate, axis=-1)
+        if len(snd.shape) == 1:
+            snd = np.array(snd)[np.newaxis]
+        mel_ref, *_ = compute_mel_spectrogram_internal(
+            snd, preprocess_config=self.preprocess_config, band_limit=None, dtype=np.float32, do_post=False)
+        data_dict["mell"] = mel_ref[0].T
+        return data_dict
 
     # -------------------------------------------------------------- loading
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dsp.db import log_to_db
 from ..dsp.pqmf import pqmf_filters
 from ..dsp.wavetable import WavetableSpec, build_wavetable_grid
 from ..dsp.windows import hann_periodic
@@ -32,8 +33,6 @@ from ..ops.oscillator import oscillate
 from ..ops.pqmf_ops import pqmf_synthesis
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
-
-log_to_db = 20 * np.log10(np.exp(1))
 
 # config keys that only the trainer reads; inference accepts and ignores them
 _TRAINING_ONLY_KEYS = {

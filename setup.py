@@ -27,6 +27,10 @@ setup(
             "mbexwn_train=mbexwn_vocoder_tpu.cli.train:cli",
             "mbexwn_convert_checkpoint=mbexwn_vocoder_tpu.cli.convert_checkpoint:cli",
             "mbexwn_export_model=mbexwn_vocoder_tpu.cli.export_model:cli",
+            # the PyTorch / H100 port (mbexwn_vocoder_torch)
+            "mbexwn_torch_generate_mel=mbexwn_vocoder_torch.cli.generate_mel:cli",
+            "mbexwn_torch_resynth_mel=mbexwn_vocoder_torch.cli.resynth_mel:cli",
+            "mbexwn_torch_view_mel=mbexwn_vocoder_torch.cli.view_mel:cli",
         ]
     },
 )

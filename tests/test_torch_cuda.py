@@ -13,7 +13,11 @@ or of the column chunks, and the two host entries against each other.  K2:
 ragged lengths, batch > 1, a phase offset, the phase it returns (bit-equal
 to the plain version's on the card and on the CPU), tables of other sizes
 (one past 48 KB of shared memory), more chunks than CTAs resident at once,
-and one launch per call.
+and one launch per call.  Serving (SPEECH's registry weights, full width):
+the pipeline at batch 1 bit-equal to the blocking loop, a group's dispatch
+free of host-device synchronisation, a batch of 8 against single requests
+handed the same noise rows, and BatchSynthesizer at B = 8 in the 2048
+bucket against the plain K1 path (the largest shapes the kernels see).
 """
 import numpy as np
 import pytest
@@ -141,3 +145,96 @@ def test_k2_refuses_what_it_does_not_take(card):
         oscillate(f0.t().contiguous().t(), tables, *consts)
     with pytest.raises(ValueError, match="are not"):
         oscillate(f0, tables, *consts, phase_offset=torch.zeros(3, device=card))
+
+
+# ---- serving on the card: the registry's SPEECH at full width (fp32 unless a test says otherwise)
+
+def _mel(T, seed):
+    rng = np.random.RandomState(seed)
+    band, t = np.arange(80)[None, :], np.arange(T)[:, None]
+    return (-2.0 - 0.06 * band + np.sin(2 * np.pi * t / 53.0) + 0.3 * rng.randn(T, 80))[None].astype(np.float32)
+
+
+def _noise_rows(inv, lengths, device):
+    """The noise a dispatch group of these lengths draws: a generator seeded
+    0, shape (B, L, 1) on the card; one row per request."""
+    L = inv.model.block.wn_input_length(inv._bucket_len(max(lengths)))
+    noise = torch.randn((len(lengths), L, 1), generator=torch.Generator(device=device).manual_seed(0),
+                        device=device).cpu().numpy()
+    return [noise[i:i + 1] for i in range(len(lengths))]
+
+
+def _rel(a, b):
+    return float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2) / np.mean(b.astype(np.float64) ** 2)))
+
+
+def test_pipelined_batch1_equals_blocking(card):
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+
+    inv = MELInverter("SPEECH")
+    mels = [_mel(T, i) for i, T in enumerate((100, 300, 64, 250, 129))]
+    before = dict(kernel_lib.launches)
+    got = PipelinedSynthesizer(inv.model, inv.length_buckets, depth=3, batch=1).map(mels)
+    assert kernel_lib.launches["oscillator"] - before["oscillator"] == len(mels)
+    assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 24 * len(mels)
+    for m, y in zip(mels, got):
+        assert np.array_equal(y, inv.synth_from_mel(m))
+
+
+def test_pipelined_dispatch_does_not_synchronize(card):
+    """Enqueueing a group (copy in, synthesis, copy out, event) runs no
+    PyTorch op that waits for the card."""
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+
+    inv = MELInverter("SPEECH")
+    ps = PipelinedSynthesizer(inv.model, inv.length_buckets, depth=2, batch=4)
+    group = [(ps._prep(_mel(T, i))[0], T) for i, T in enumerate((200, 256, 180))]
+    ps._collect(*ps._dispatch_group(group, 256))  # warm-up
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = ps._dispatch_group(group, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [y.shape for y in ps._collect(*inflight)] == [(T * 300,) for _, T in group]
+
+
+@pytest.mark.parametrize("dtype,tol", [("", 1e-4), (None, 2e-2)])
+def test_batch8_matches_singles_with_their_noise_rows(card, monkeypatch, dtype, tol):
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        if dtype is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, dtype)
+    inv = MELInverter("SPEECH")
+    mels = [_mel(T, 10 + i) for i, T in enumerate((65, 128, 100, 77, 128, 90, 111, 70))]
+    got = PipelinedSynthesizer(inv.model, inv.length_buckets, depth=2, batch=8).map(mels)
+    rows = _noise_rows(inv, [m.shape[1] for m in mels], card)
+    errs = [_rel(y, inv.synth_from_mel(m, noise=n)) for y, m, n in zip(got, mels, rows)]
+    assert max(errs) <= tol, errs
+
+
+def test_batch_synthesizer_b8_bucket2048_matches_plain_k1(card, monkeypatch):
+    """Eight utterances in the 2048 bucket, fp32: 8 x 102,400 rows in WaveNet
+    block 1 and 8 x 307,200 samples of oscillator (2,464 chunks), against the
+    same synthesis with K1 replaced by its plain version (same noise)."""
+    import mbexwn_vocoder_torch.nn.wavenet as wavenet
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+
+    inv = MELInverter("SPEECH")
+    mels = [_mel(T, 20 + i)[0] for i, T in enumerate((2048, 1900, 1500, 2000, 1100, 1700, 2048, 1300))]
+    bs = BatchSynthesizer(inv.model, length_buckets=(2048,))
+    before = kernel_lib.launches["wavenet_layer"]
+    got = bs.synth_batch(mels)
+    assert kernel_lib.launches["wavenet_layer"] - before == 24
+    monkeypatch.setattr(wavenet, "wavenet_stack", wavenet_stack_plain)
+    ref = bs.synth_batch(mels)
+    assert kernel_lib.launches["wavenet_layer"] - before == 24
+    for y, r, m in zip(got, ref, mels):
+        assert y.shape == r.shape == (m.shape[0] * 300,) and np.isfinite(y).all()
+        assert _rel(y, r) <= 1e-4

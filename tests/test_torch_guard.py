@@ -17,9 +17,16 @@ from mbexwn_vocoder_torch.config import read_config
 from mbexwn_vocoder_torch.mel_inverter import MELInverter
 from mbexwn_vocoder_torch.models import create_model
 from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
+from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mbexwn_vocoder_torch"
+PORT_TOOLS = sorted((REPO / "tools").glob("torch_*.py")) + [REPO / "tools" / "quality_eval_torch.py"]
+_BLOCK_JAX = ("import sys\n"
+              "sys.modules['jax'] = None\n"
+              "sys.modules['jaxlib'] = None\n"
+              "sys.modules['mbexwn_vocoder_tpu'] = None\n")
 
 
 def _port_modules():
@@ -27,10 +34,7 @@ def _port_modules():
 
 
 def test_every_module_imports_with_jax_blocked():
-    code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['jaxlib'] = None\n"
-            "sys.modules['mbexwn_vocoder_tpu'] = None\n"
+    code = (_BLOCK_JAX +
             "import importlib\n"
             f"for name in {_port_modules()!r}:\n"
             "    importlib.import_module(name)\n"
@@ -49,7 +53,7 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + PORT_TOOLS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "mbexwn_vocoder_tpu")]
@@ -64,8 +68,37 @@ def test_no_kernel_is_built_at_import():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_default_to_the_card():
-    assert inspect.signature(MELInverter.__init__).parameters["device"].default == "cuda"
+def test_cli_entry_points_run_with_jax_blocked():
+    """`python -m` of each CLI (resynth_mel lists the models; the others
+    print their help) and the quality tool (as far as its model, which
+    needs the card unless MBEXWN_PLATFORM=cpu) import nothing of JAX."""
+    code = (_BLOCK_JAX +
+            "import runpy\n"
+            "for mod, argv in (('resynth_mel', []), ('generate_mel', ['-h']), ('view_mel', ['-h'])):\n"
+            "    sys.argv = [mod] + argv\n"
+            "    try:\n"
+            "        runpy.run_module('mbexwn_vocoder_torch.cli.' + mod, run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, (mod, e.code)\n"
+            "sys.argv = ['quality_eval_torch.py', '--model', 'SPEECH']\n"
+            "try:\n"
+            "    runpy.run_path('tools/quality_eval_torch.py', run_name='__main__')\n"
+            "except (RuntimeError, SystemExit) as e:\n"
+            "    print(type(e).__name__, e)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k] is not None)\n"
+            "print('ok')\n")
+    env = {k: v for k, v in __import__("os").environ.items() if k != "MBEXWN_PLATFORM"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+    assert "MBExWN_TPU_VOICE_WNCHA340_24kHz" in out.stdout
+    if not torch.cuda.is_available():
+        assert "RuntimeError no CUDA device" in out.stdout
+
+
+@pytest.mark.parametrize("entry", [MELInverter.__init__, PipelinedSynthesizer.__init__, BatchSynthesizer.__init__])
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 def test_no_silent_cpu_fallback():
@@ -77,6 +110,11 @@ def test_no_silent_cpu_fallback():
         MELInverter("SPEECH")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MELInverter()
+    model = torch.nn.Linear(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelinedSynthesizer(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchSynthesizer(model)
 
 
 def _speech_hparams():
