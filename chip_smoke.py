@@ -56,10 +56,36 @@ prints no result line:
      quality round trip on the 8 synth_eval_v2 utterances (seed 1099),
      served at batch 8: mean mel-L1 within 0.15 dB of the registry's
      quality_report.json;
+  8. streaming, SPEECH, full width (`parallel.streaming.StreamingSynthesizer`
+     on models from `models.create_registry_model`; "sigma-0" is the shipped
+     model with its noise channel at zero and no mel RMS normalisation, the
+     model chunked output can equal one-shot output with):
+     (a) K1's causal taps against the plain version on the causal model's
+     stack inputs: SPEECH blocks 0 and 1 at 512 frames and at the live span
+     of 50 frames (32 + 16 + 2), fp32 <= 1e-4 and bf16 <= 2e-2 rel-RMS, and
+     VOICE block 0 at 512 frames in bf16;
+     (b) long form at the JAX package's bench setting (4800 frames = 60 s,
+     chunk 512, halo 48): synth, synth_batched and synth_scan (interior)
+     within 2e-3 of one-shot infer in fp32 (bf16 printed against 2e-2); K2
+     in one synth pass bit-equal in phase to its plain version, chunk by
+     chunk, with no phase jump at a chunk boundary (<= 1e-3 cycles); then
+     audio-s/s of the three modes with the shipped SPEECH model in bf16
+     (host clock with the readback, median of 5 interleaved rounds after a
+     warm pass) with device busy time and idle share;
+     (c) live, force_causal sigma-0 SPEECH, halo 32, halo_right 2: in fp32
+     stream() with slabs of 1/4/7 frames bit-equal to each other and to
+     synth(), within 1e-3 of one-shot, halo_right=1 beyond 1e-3, and after
+     warm() at most one chunk shape warm() did not run; in bf16 at chunks
+     of 4/8/16/32 frames the latency from the call for a chunk to its audio
+     on the host (median and p95 of 30 steady chunks), the launches per
+     chunk (K1 24, K2 1), and one steady chunk's device busy time and idle
+     share (torch.profiler).  The plain stack never sees a CUDA tensor in (b)
+     and (c).
 The last lines are a one-line summary of the end-to-end numbers, a
-`serving:` JSON line with phase [7]'s numbers, the card's name and power
-limit, a `kernels` JSON line, and
-`{"ok": true, "device": {...}}`.  Needs no network and no JAX.
+`serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
+with phase [8]'s, the card's name and power limit, a `kernels` JSON line
+(its launches: the main path of [4], SPEECH bf16, plus the live streams of
+[8](c)), and `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
 """
 from __future__ import annotations
 
@@ -108,18 +134,19 @@ def k1_work(B: int, T: int, C: int, n_layers: int):
     return flop, 2.0 * B * T * C + 2.0 * B * T * 2 * C + 2.0 * weight_elems + 4.0 * B * T * C
 
 
-def stack_inputs(inv, mel: np.ndarray, block_index: int, dtype, dev):
-    """The real inputs of WaveNet block `block_index`'s stack for a (B, T, C)
-    log-mel at its bucket length, with the noise the model draws (a
-    generator seeded 0): (x, cond, weights, dilations, the F0 that enters
-    the oscillator)."""
+def stack_inputs(model, mel: np.ndarray, block_index: int, dtype, dev):
+    """The real inputs of WaveNet block `block_index`'s stack in `model` (a
+    PaNWaveNet) for a (B, T, C) log-mel at its bucket length, with the noise
+    the model draws (a generator seeded 0): (x, cond, weights, dilations, the
+    F0 that enters the oscillator)."""
     import torch
     from mbexwn_vocoder_torch.ops.precision import exact_fp32
 
-    model, blk = inv.model, inv.model.block
+    blk = model.block
     with torch.inference_mode(), exact_fp32():
-        x_mel = torch.from_numpy(mel).to(dev)
-        mell, _ = model.norm_mel_components.normalize_inputs_by_rms(x_mel, mel.shape[1] * inv.hop_size)
+        mell = torch.from_numpy(mel).to(dev)
+        if model.norm_mel_components is not None:
+            mell, _ = model.norm_mel_components.normalize_inputs_by_rms(mell, mel.shape[1] * model.spect_hop_size)
         f0 = blk.generate_f0(mell)
         x = blk.fold_pulse_channels(blk.oscillate(f0), generator=torch.Generator(device=dev).manual_seed(0))
         for name in blk.block_names[:block_index]:
@@ -403,7 +430,7 @@ def phase_serving(inverter, check, dev):
         for requests, T_pad in cases:
             xb = np.concatenate([edge_pad(m, T_pad) for m in requests])
             for bi in range(len(blk_x.block_names)):
-                x, cond, weights, dils, f0 = stack_inputs(inv_x, xb, bi, dtype, dev)
+                x, cond, weights, dils, f0 = stack_inputs(inv_x.model, xb, bi, dtype, dev)
                 with torch.inference_mode(), exact_fp32():
                     g = wavenet_stack(x, cond, weights, dils).cpu().numpy()
                     r = wavenet_stack_plain(x, cond, weights, dils).cpu().numpy()
@@ -445,6 +472,244 @@ def phase_serving(inverter, check, dev):
           f"({registry['mean_mcd_dB']}), F0-RMSE {means['mean_f0_rmse_hz']} Hz ({registry['mean_f0_rmse_hz']}), "
           f"voicing error {means['mean_voicing_err_pct']} % ({registry['mean_voicing_err_pct']})")
     numbers["quality"] = {**means, "registry_mean_mel_L1_dB": registry["mean_mel_L1_dB"]}
+    return numbers
+
+
+LONG_FRAMES, LONG_CHUNK, LONG_HALO = 4800, 512, 48  # 60 s, the JAX package's long-form setting (bench.py)
+LIVE_CHUNKS, LIVE_HALO, LIVE_HALO_RIGHT = (4, 8, 16, 32), 32, 2  # tools/bench_latency.py's sweep
+LIVE_FRAMES = 200  # the live checks' signal: 2.5 s
+SIGMA0 = dict(pp_mod_subnet_noise_channel_sigma=0, normalize_rms_from_mell=False)
+
+
+def registry_variant(model_id: str, wn_dtype, dev, **overrides):
+    """A registry model with config keys overridden and its shipped weights
+    (`create_registry_model`), with the WaveNet/subnet compute dtype forced
+    as `inverter` forces it (an empty value is fp32; None keeps bf16)."""
+    from mbexwn_vocoder_torch.models import create_registry_model
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        if wn_dtype is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = wn_dtype
+    return create_registry_model(model_id, **overrides).to(dev)
+
+
+def phase_streaming(inverter, check, dev):
+    """Phase [8]: streaming, SPEECH, full width.  (a) K1's causal taps against
+    the plain version; (b) long-form synth / synth_batched / synth_scan
+    against one-shot and K2's phase across chunk boundaries, then their
+    audio-s/s with the shipped model; (c) live causal stream(): bit-equal
+    across slab sizes and to synth(), the halo_right guard, warm(), and the
+    per-chunk latency and launches at chunks 4/8/16/32.  Returns the numbers
+    for the `streaming:` line."""
+    import torch
+    import mbexwn_vocoder_torch.models.mbexwn as mbexwn_module
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops import wavenet_stack as ws
+    from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
+
+    numbers = {"k1_causal": [], "long_form": {}, "live": {}}
+
+    def one_shot(model, mel):
+        with torch.inference_mode():
+            y = model.infer(torch.from_numpy(mel).to(dev), synth_length=mel.shape[1] * model.spect_hop_size)
+        return y.cpu().numpy()
+
+    # (a) K1 causal against its plain version on the card, on the causal models' own stack inputs
+    print("  (a) K1 causal taps vs plain", flush=True)
+    speech_c32 = registry_variant("SPEECH", "", dev, force_causal=True, **SIGMA0)
+    voice_c32 = registry_variant("VOICE", "", dev, force_causal=True)
+    live_span = LIVE_HALO + 16 + LIVE_HALO_RIGHT
+    cases = [(speech_c32, "SPEECH", frames, bi, dtype) for frames in (N_FRAMES, live_span) for bi in (0, 1)
+             for dtype in (torch.float32, torch.bfloat16)] + [(voice_c32, "VOICE", N_FRAMES, 0, torch.bfloat16)]
+    k1_max_abs = 0.0
+    for model, name, frames, bi, dtype in cases:
+        check(getattr(model.block, model.block.block_names[bi]).wavenet.causal, f"{name} block {bi} is causal")
+        x, cond, weights, dils, _ = stack_inputs(model, make_mel(frames, 80, SEED + 30), bi, dtype, dev)
+        with torch.inference_mode(), exact_fp32():
+            g = ws.wavenet_stack(x, cond, weights, dils, causal=True).cpu().numpy()
+            r = ws.wavenet_stack_plain(x, cond, weights, dils, causal=True).cpu().numpy()
+        err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        if dtype == torch.bfloat16:
+            k1_max_abs = max(k1_max_abs, max_abs)
+        numbers["k1_causal"].append({"model": name, "frames": frames, "block": bi, "rows": x.shape[1], "C": x.shape[2],
+                                     "dtype": str(dtype)[6:], "rel_rms": err, "max_abs": max_abs})
+        check(np.isfinite(g).all() and err <= tol,
+              f"K1 causal {name} block {bi} {frames} frames (rows {x.shape[1]}, C={x.shape[2]}) {str(dtype)[6:]}: "
+              f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
+    numbers["k1_causal_bf16_max_abs"] = k1_max_abs
+
+    # from here on the plain stack must never see a CUDA tensor: count what reaches it
+    plain_on_card = [0]
+    real_plain = ws.wavenet_stack_plain
+
+    def counting_plain(x, *args, **kwargs):
+        plain_on_card[0] += int(x.is_cuda)
+        return real_plain(x, *args, **kwargs)
+
+    ws.wavenet_stack_plain = counting_plain
+    try:
+        # (b) long form at the JAX package's setting: 60 s, chunk 512, halo 48
+        print(f"  (b) long form: {LONG_FRAMES} frames, chunk {LONG_CHUNK}, halo {LONG_HALO}", flush=True)
+        mel_long = make_mel(LONG_FRAMES, 80, SEED + 40)
+        hop, sr = speech_c32.spect_hop_size, speech_c32.sample_rate
+        audio_s = LONG_FRAMES * hop / sr
+        modes = ("synth", "synth_batched", "synth_scan")
+        interior = slice(LONG_HALO * hop, (LONG_FRAMES - LONG_HALO) * hop)  # synth_scan's edges see replicated halos
+        for wn_dtype, label, tol in (("", "fp32", 2e-3), (None, "bf16", 2e-2)):
+            model = registry_variant("SPEECH", wn_dtype, dev, **SIGMA0)
+            y_one = one_shot(model, mel_long)
+            ss = StreamingSynthesizer(model, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, device=dev)
+            for mode in modes:
+                y = getattr(ss, mode)(mel_long)
+                part = interior if mode == "synth_scan" else slice(None)
+                err = rel_rms(y[:, part], y_one[:, part])
+                # the error's growth along the utterance: first and last chunk (inside the interior)
+                first = slice(LONG_HALO * hop, LONG_CHUNK * hop)
+                last = slice((LONG_FRAMES - LONG_CHUNK) * hop, (LONG_FRAMES - LONG_HALO) * hop)
+                ends = (rel_rms(y[:, first], y_one[:, first]), rel_rms(y[:, last], y_one[:, last]))
+                numbers["long_form"].setdefault(mode, {}).update({f"rel_rms_vs_one_shot_{label}": err,
+                                                                  f"rel_rms_first_last_chunk_{label}": ends})
+                what = (f"{mode} {label} vs one-shot infer{' (interior)' if mode == 'synth_scan' else ''}, sigma-0 "
+                        f"SPEECH: rel-RMS {err:.3e} (first / last chunk {ends[0]:.3e} / {ends[1]:.3e})")
+                if label == "fp32":
+                    check(y.shape == y_one.shape and np.isfinite(y).all() and err <= tol, f"{what} (<= {tol:g})")
+                else:  # bf16 is reported: the F0 net sums a bf16 convolution in a shape-dependent order
+                    print(f"  report {what} (bound {tol:g}: {'within' if err <= tol else 'BEYOND'})", flush=True)
+            if label == "fp32":
+                # K2 inside one synth pass: its phase bit-equal to the plain version's, chunk by chunk,
+                # and continuous across the chunk boundaries
+                calls = []
+
+                def recording(f0, tables, *consts, phase_offset=None, **_):
+                    audio, phase = oscillate(f0, tables, *consts, phase_offset=phase_offset, return_phase=True)
+                    ref, ref_phase = oscillate_plain(f0, tables, *consts, phase_offset=phase_offset,
+                                                     return_phase=True)
+                    calls.append((f0.cpu().numpy(), phase.cpu().numpy(), float((audio - ref).abs().max()),
+                                  int((phase != ref_phase).sum())))
+                    return audio
+
+                mbexwn_module.oscillate = recording
+                try:
+                    ss.synth(mel_long)
+                finally:
+                    mbexwn_module.oscillate = oscillate
+                bounds = ss._bounds(LONG_FRAMES)
+                stp, rate = ss.stp, ss.pulse_rate
+                jumps = []
+                for (t0, t1, lo, _), (_, phase, _, _), (f0n, phase_n, _, _), nxt in zip(bounds, calls, calls[1:],
+                                                                                      bounds[1:]):
+                    end = phase[0, (t1 - lo) * stp - 1]
+                    start = phase_n[0, (nxt[0] - nxt[2]) * stp]
+                    d = (float(start) - float(end) - float(f0n[0, (nxt[0] - nxt[2]) * stp]) / rate) % 1.0
+                    jumps.append(min(d, 1.0 - d))
+                n_diff = sum(c[3] for c in calls)
+                audio_err = max(c[2] for c in calls)
+                numbers["long_form"]["k2_phase_samples_differing"] = n_diff
+                numbers["long_form"]["k2_boundary_phase_jump_max"] = max(jumps)
+                check(len(calls) == len(bounds) and n_diff == 0 and audio_err <= 1e-5 and max(jumps) <= 1e-3,
+                      f"K2 in one fp32 synth pass ({len(calls)} chunks): phase samples differing from plain {n_diff}, "
+                      f"audio max abs {audio_err:.3e} (<= 1e-5); largest phase jump at a chunk boundary "
+                      f"{max(jumps):.3e} cycles (<= 1e-3)")
+
+        shipped = inverter("SPEECH", None).model
+        ss = StreamingSynthesizer(shipped, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, device=dev)
+        walls = {mode: [] for mode in modes}
+        for mode in modes:
+            getattr(ss, mode)(mel_long)  # warm pass
+        for _ in range(5):
+            for mode in modes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                getattr(ss, mode)(mel_long)
+                walls[mode].append(1e3 * (time.perf_counter() - t0))
+        for mode in modes:
+            busy_ms, n_act, _ = device_activity(lambda: getattr(ss, mode)(mel_long))
+            wall = float(np.median(walls[mode]))
+            nb = numbers["long_form"][mode]
+            nb.update(wall_ms=wall, wall_ms_passes=walls[mode], audio_s_per_s=audio_s / (wall / 1e3),
+                      device_busy_ms=busy_ms, device_activities=n_act, idle_share=max(0.0, 1.0 - busy_ms / wall))
+            print(f"  {mode} (shipped SPEECH, bf16): {nb['audio_s_per_s']:.1f} audio-s/s ({wall:.1f} ms for "
+                  f"{audio_s:.0f} s, median of {', '.join(f'{w:.1f}' for w in walls[mode])}); device busy "
+                  f"{busy_ms:.2f} ms in {n_act} activities, idle share {nb['idle_share']:.3f}", flush=True)
+
+        # (c) live, causal, at bench_latency's sweep
+        print(f"  (c) live: causal SPEECH, halo {LIVE_HALO}, halo_right {LIVE_HALO_RIGHT}", flush=True)
+        mel_live = make_mel(LIVE_FRAMES, 80, SEED + 50)
+        y_one = one_shot(speech_c32, mel_live)
+        ss = StreamingSynthesizer(speech_c32, chunk_frames=16, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
+                                  device=dev)
+        outs = {slab: np.concatenate(list(ss.stream(mel_live[:, i:i + slab] for i in range(0, LIVE_FRAMES, slab))),
+                                     axis=1) for slab in (1, 4, 7)}
+        y_synth = ss.synth(mel_live)
+        err = rel_rms(outs[1], y_one)
+        same = all(np.array_equal(outs[1], o) for o in outs.values()) and np.array_equal(outs[1], y_synth)
+        ss1 = StreamingSynthesizer(speech_c32, chunk_frames=16, halo_frames=LIVE_HALO, halo_right=1, device=dev)
+        err1 = rel_rms(ss1.synth(mel_live), y_one)
+        numbers["live"]["fp32_rel_rms_vs_one_shot"] = err
+        numbers["live"]["fp32_rel_rms_halo_right_1"] = err1
+        check(same and outs[1].shape == y_one.shape and err <= 1e-3 and err1 > 1e-3,
+              f"stream() fp32, chunk 16, slabs of 1/4/7 frames bit-equal to each other and to synth(): {same}; "
+              f"rel-RMS vs one-shot {err:.3e} (<= 1e-3); with halo_right=1 {err1:.3e} (> 1e-3)")
+        ss = StreamingSynthesizer(speech_c32, chunk_frames=16, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
+                                  device=dev)
+        ss.warm()
+        warmed = set(ss.programs)
+        list(ss.stream(mel_live[:, i:i + 4] for i in range(0, LIVE_FRAMES, 4)))
+        check(len(ss.programs - warmed) <= 1, f"after warm() ({len(warmed)} shapes) stream() ran "
+                                              f"{len(ss.programs - warmed)} other chunk shape(s) (<= 1)")
+
+        live16 = registry_variant("SPEECH", None, dev, force_causal=True, **SIGMA0)
+        n_layers = sum(getattr(live16.block, n).wavenet.n_layers for n in live16.block.block_names)
+        live_launches = {"wavenet_layer": 0, "oscillator": 0}
+        for c in LIVE_CHUNKS:
+            ss = StreamingSynthesizer(live16, chunk_frames=c, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
+                                      device=dev)
+            ss.warm()
+            n_chunks = -(-LIVE_HALO // c) + 31
+            mel = make_mel(n_chunks * c, 80, SEED + 60 + c)
+            stream = ss.stream(mel[:, i:i + c] for i in range(0, n_chunks * c, c))
+            latencies, chunks = [], []
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            while True:
+                t0 = time.perf_counter()
+                audio = next(stream, None)
+                if audio is None:
+                    break
+                latencies.append(1e3 * (time.perf_counter() - t0))
+                chunks.append(audio)
+            counts = dict(kernel_lib.launches)
+            check(all(a.shape == (1, c * hop) and np.isfinite(a).all() for a in chunks),
+                  f"live chunk {c} bf16: {len(chunks)} finite audio chunks of {c * hop} samples")
+            for k in live_launches:
+                live_launches[k] += counts[k]
+            steady = latencies[-31:-1]  # the last 30 chunks with the full left halo (the tail flush excluded)
+            row = {"chunk_frames": c, "audio_ms": 1e3 * c * hop / sr, "lookahead_ms": 1e3 * LIVE_HALO_RIGHT * hop / sr,
+                   "latency_ms_p50": float(np.median(steady)), "latency_ms_p95": float(np.percentile(steady, 95)),
+                   "chunks": len(latencies), "k1_per_chunk": counts["wavenet_layer"] / len(latencies),
+                   "k2_per_chunk": counts["oscillator"] / len(latencies)}
+            numbers["live"][f"chunk_{c}"] = row
+            check(counts == {"wavenet_layer": n_layers * len(latencies), "oscillator": len(latencies)},
+                  f"live chunk {c} bf16: {len(latencies)} chunks, launches {counts} (expected per chunk "
+                  f"wavenet_layer={n_layers}, oscillator=1)")
+            # one steady chunk as stream() emits it (upload, chunk program, readback) under the profiler
+            span = mel[:, : LIVE_HALO + c + LIVE_HALO_RIGHT]
+            carry = torch.zeros((1,), dtype=torch.float64, device=dev)
+            busy_ms, n_act, _ = device_activity(lambda: ss._chunk(ss._to_device(span), carry, LIVE_HALO, c)[0].cpu())
+            row.update(device_busy_ms=busy_ms, device_activities=n_act,
+                       idle_share=max(0.0, 1.0 - busy_ms / row["latency_ms_p50"]))
+            print(f"  live chunk {c} frames ({row['audio_ms']:.1f} ms of audio, +{row['lookahead_ms']:.1f} ms "
+                  f"lookahead): latency host call -> audio on host median {row['latency_ms_p50']:.2f} ms, p95 "
+                  f"{row['latency_ms_p95']:.2f} ms (30 steady chunks); one chunk busies the card {busy_ms:.3f} ms "
+                  f"in {n_act} device activities, idle share {row['idle_share']:.3f}", flush=True)
+    finally:
+        ws.wavenet_stack_plain = real_plain
+    numbers["live"]["launches"] = live_launches
+    check(plain_on_card[0] == 0, f"the plain stack was called on a CUDA tensor {plain_on_card[0]} times in [8](b)-(c)")
     return numbers
 
 
@@ -517,7 +782,7 @@ def main() -> int:
         inv = inverter(model_id, "")
         for block_index in range(len(inv.model.block.block_names)):
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x, cond, weights, dils, _ = stack_inputs(inv, mel, block_index, dtype, dev)
+                x, cond, weights, dils, _ = stack_inputs(inv.model, mel, block_index, dtype, dev)
                 with torch.inference_mode(), exact_fp32():
                     got = wavenet_stack(x, cond, weights, dils)
                     ref = wavenet_stack_plain(x, cond, weights, dils)
@@ -529,7 +794,7 @@ def main() -> int:
                       f"K1 {model_id} block {block_index} C={x.shape[-1]} rows={x.shape[1]} {str(dtype)[6:]}: "
                       f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
     inv = inverter("VOICE", "")
-    x, cond, weights, dils, _ = stack_inputs(inv, mel, 0, torch.bfloat16, dev)
+    x, cond, weights, dils, _ = stack_inputs(inv.model, mel, 0, torch.bfloat16, dev)
     with torch.inference_mode(), exact_fp32():
         x2 = torch.cat([x, x[:, :37]], dim=1)
         c2 = torch.cat([cond, cond[:, :37]], dim=1)
@@ -608,7 +873,7 @@ def main() -> int:
     blk = inv.model.block
     k1_ms = k1_plain_ms = k1_flop = k1_bytes = 0.0
     for bi in range(len(blk.block_names)):
-        x, cond, weights, dils, _ = stack_inputs(inv, mel, bi, torch.bfloat16, dev)
+        x, cond, weights, dils, _ = stack_inputs(inv.model, mel, bi, torch.bfloat16, dev)
         B, T, C = x.shape
         with torch.inference_mode(), exact_fp32():
             ms = cuda_time_ms(lambda: wavenet_stack(x, cond, weights, dils), iters=10)
@@ -695,17 +960,26 @@ def main() -> int:
     k1_max_abs = max(k1_max_abs, serving["kernel_checks"]["k1_bf16_max_abs"])
     k2_err = max(k2_err, serving["kernel_checks"]["k2_max_abs"])
 
+    # ---- 8. streaming
+    print("[8] streaming (SPEECH, full width)", flush=True)
+    t0 = time.perf_counter()
+    streaming = phase_streaming(inverter, check, dev)
+    streaming["seconds"] = time.perf_counter() - t0
+    streaming["card"] = card
+    k1_max_abs = max(k1_max_abs, streaming["k1_causal_bf16_max_abs"])
+    launches = {k: main_launches[k] + streaming["live"]["launches"][k] for k in main_launches}
+
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
         return 1
 
     kernels = [
         {"name": "wavenet_layer", "route": "cuda", "source": "mbexwn_vocoder_torch/csrc/wavenet_layer.cu",
-         "replaces": "mbexwn_vocoder_tpu/ops/pallas_wavenet.py:106", "launches": main_launches["wavenet_layer"],
+         "replaces": "mbexwn_vocoder_tpu/ops/pallas_wavenet.py:106", "launches": launches["wavenet_layer"],
          "max_abs_err": k1_max_abs, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "oscillator", "route": "cuda", "source": "mbexwn_vocoder_torch/csrc/oscillator.cu",
-         "replaces": "mbexwn_vocoder_tpu/ops/pallas_oscillator.py:49", "launches": main_launches["oscillator"],
+         "replaces": "mbexwn_vocoder_tpu/ops/pallas_oscillator.py:49", "launches": launches["oscillator"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": library_ms},
     ]
@@ -714,6 +988,7 @@ def main() -> int:
           f"activities; K1 {k1_ms:.3f} ms (bound {k1_bound:.4f}), K2 {k2_ms:.5f} ms (bound {k2_bound:.5f}); "
           f"all checks passed", flush=True)
     print("serving: " + json.dumps(serving), flush=True)
+    print("streaming: " + json.dumps(streaming), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,18 @@
 // Replaces the TPU kernel mbexwn_vocoder_tpu/ops/pallas_wavenet.py
 // (fused_wavenet_group, body _group_kernel, driven by fused_wavenet_stack).
 // Per layer, for x (B, T, C) and the shared conditioning slab cond (B, T, 2C):
-//   y    = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b_dil + cond[t]    (C -> 2C)
+//   y    = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b_dil + cond[t]    (C -> 2C; SAME)
+//   y    = x[t-2d] W0 + x[t-d] W1 + x[t] W2 + b_dil + cond[t]   (C -> 2C; causal)
 //   g    = tanh(y[:, :C]) * sigmoid(y[:, C:])                  (rounded to the operand type)
 //   rs   = g W_rs + b_rs                                        (C -> 2C)
 //   x'   = x + rs[:, :C]        (rounded to the operand type; rows outside [0, T) are zero)
 //   skip += rs[:, C:]           (fp32, in place)
 // A skip-only last layer (skip_only = 1) has W_rs (C, C) and b_rs (C,), all
 // skip columns: it reads no res weights, does no res half of the second
-// product and writes no x'.
+// product and writes no x'.  SAME and causal differ only in the row of x
+// each tap reads, (tap + tap0) * d with tap0 = -1 or -2: a runtime argument
+// (a row coordinate of a TMA box, or of the fp32 kernel's loads), not a
+// template instance.
 //
 // Operand layout.  The reduction dimension is padded with zeros to Cp, a
 // multiple of 64 (320 stays 320, 340 becomes 384): x and x' are (B, T, Cp),
@@ -53,8 +57,9 @@
 //     the consumers on a second one.  A stage's products stay in flight
 //     while the next stage is waited for (wgmma.wait_group 1);
 //   - x is a 3-D tensor map (Cp, T, B): the tap tiles are loaded at rows
-//     t0-d, t0, t0+d and TMA zero-fills rows outside [0, T), which is the
-//     SAME padding, without bleeding into the next utterance of the batch;
+//     t0-d, t0, t0+d (causal: t0-2d, t0-d, t0) and TMA zero-fills rows
+//     outside [0, T), which is the SAME (causal) padding, without bleeding
+//     into the next utterance of the batch;
 //   - wgmma.mma_async m64nPk16 (bf16 x bf16 -> fp32), A and B from shared
 //     memory; the gated tile (128 x Cp bf16) is written from the accumulator
 //     fragments in the same swizzled layout and is the A operand of the
@@ -135,7 +140,7 @@ template <bool kSkipOnly>
 __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
     const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w_dil,
     const float* __restrict__ b_dil, const float* __restrict__ w_rs, const float* __restrict__ b_rs,
-    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int d) {
+    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int d, int tap0) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);  // [kDepth][kLdA]
   float* Bs = As + kDepth * kLdA;              // [kDepth][kLdB]
@@ -152,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
   for (int c0 = 0; c0 < C; c0 += kPairs) {
     float acc[4][4] = {};
     for (int tap = 0; tap < 3; ++tap) {
-      const int shift = (tap - 1) * d;
+      const int shift = (tap + tap0) * d;
       for (int ci0 = 0; ci0 < C; ci0 += kDepth) {
         for (int i = tid; i < kRows * kDepth; i += kThreads) {
           const int r = i / kDepth, kk = i % kDepth;
@@ -279,7 +284,9 @@ int pairs_per_chunk(int C, int Cp) {
 struct LayerArgs {
   const bf16* b_dil;
   const bf16* b_rs;
-  int T_len, C, Cp, Ch, d, n_ring;  // Ch: columns between the two halves of cond
+  // Ch: columns between the two halves of cond; tap0: the first tap's row offset in dilations, -1
+  // (SAME) or -2 (causal)
+  int T_len, C, Cp, Ch, d, tap0, n_ring;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
@@ -441,7 +448,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1) wavenet_layer_bf16(const __gr
             const uint32_t full = full_s + 8 * stage;
             const uint32_t dst = ring_s + stage * kStageBytes;
             mbar_expect_tx(full, kStageBytes);
-            tma_load_3d(dst, &map_x, full, kb * kStageK, t0 + (tap - 1) * a.d, b);
+            tma_load_3d(dst, &map_x, full, kb * kStageK, t0 + (tap + a.tap0) * a.d, b);
             tma_load_2d(dst + kXTileBytes, &map_wd, full, tap * a.Cp + kb * kStageK, c0);
             tma_load_2d(dst + kXTileBytes + kHalfBytes, &map_wd, full, tap * a.Cp + kb * kStageK, C + c0);
             if (++stage == n_ring) { stage = 0; phase ^= 1; }
@@ -781,7 +788,7 @@ int launch_bf16(const BufMaps& in, const BufMaps& out, const SharedMaps& sh, con
 struct Layer {
   const void *w_dil, *b_dil, *w_rs, *b_rs;
   const CUtensorMap* wmaps;  // bf16 only
-  int d, skip_only;
+  int d, skip_only, tap0;    // tap0: the first tap's offset in dilations, -1 (SAME) or -2 (causal)
 };
 
 // dtype: 0 = fp32 operands (FMA), 1 = bf16 operands (tensor cores); fp32
@@ -798,10 +805,11 @@ int launch_layer(int dtype, const Layer& l, const void* x_in, const void* cond, 
     kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(x_in), static_cast<const float*>(cond), static_cast<const float*>(l.w_dil),
         static_cast<const float*>(l.b_dil), static_cast<const float*>(l.w_rs), static_cast<const float*>(l.b_rs),
-        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, l.d);
+        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, l.d, l.tap0);
     return cuda_fail(cudaGetLastError());
   }
-  const LayerArgs args = {static_cast<const bf16*>(l.b_dil), static_cast<const bf16*>(l.b_rs), T_len, C, Cp, Ch, l.d, 0};
+  const LayerArgs args = {static_cast<const bf16*>(l.b_dil), static_cast<const bf16*>(l.b_rs), T_len, C, Cp, Ch, l.d,
+                          l.tap0, 0};
   if (pairs_per_chunk(C, Cp) == 88)
     return l.skip_only ? launch_bf16<88, true>(*in, *out, *sh, l.wmaps, args, B, s)
                        : launch_bf16<88, false>(*in, *out, *sh, l.wmaps, args, B, s);
@@ -833,12 +841,14 @@ extern "C" int mbexwn_wavenet_weight_maps(void* out, const void* w_dil, const vo
 
 // One layer: x_in, x_out (B, T, Cp), cond (B, T, 2 Ch) with its halves at
 // columns 0 and Ch, skip (B, T, C) fp32, weights as in the note above.
-// skip_only: W_rs is (C, Cp) and x_out is not written.  Returns the launches
-// enqueued (1) or a negative error.
+// skip_only: W_rs is (C, Cp) and x_out is not written.  causal: taps at
+// t-2d, t-d, t.  Returns the launches enqueued (1) or a negative error.
 extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* cond, const void* w_dil,
                                     const void* b_dil, const void* w_rs, const void* b_rs, void* x_out, void* skip,
-                                    int B, int T_len, int C, int Cp, int Ch, int d, int skip_only, void* stream) {
-  if (bad_shape(dtype, B, T_len, C, Cp, Ch)) return cuda_fail(cudaErrorInvalidValue);
+                                    int B, int T_len, int C, int Cp, int Ch, int d, int skip_only, int causal,
+                                    void* stream) {
+  if (bad_shape(dtype, B, T_len, C, Cp, Ch) || (causal != 0 && causal != 1))
+    return cuda_fail(cudaErrorInvalidValue);
   CUtensorMap wmaps[2];
   BufMaps in, out;
   SharedMaps sh;
@@ -848,7 +858,7 @@ extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* con
     if (int e = encode_buf_maps(&out, x_out, B, T_len, C, Cp)) return e;
     if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch)) return e;
   }
-  const Layer l = {w_dil, b_dil, w_rs, b_rs, wmaps, d, skip_only};
+  const Layer l = {w_dil, b_dil, w_rs, b_rs, wmaps, d, skip_only, causal ? -2 : -1};
   const int e = launch_layer(dtype, l, x_in, cond, x_out, skip, &in, &out, &sh, B, T_len, C, Cp, Ch,
                              static_cast<cudaStream_t>(stream));
   return e ? e : 1;
@@ -858,15 +868,16 @@ extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* con
 // x_bufs[(i + 1) % 2]; the caller has put x into x_bufs[0] and zeros into
 // skip and into the pad columns of both buffers.  The per-layer arrays hold
 // n_layers device pointers (weight_maps: n_layers x 2 tensor maps in host
-// memory from mbexwn_wavenet_weight_maps, bf16 only).  Enqueues on `stream`,
-// allocates and synchronises nothing.  Returns the launches enqueued or a
-// negative error.
+// memory from mbexwn_wavenet_weight_maps, bf16 only).  causal: every
+// layer's taps at t-2d, t-d, t.  Enqueues on `stream`, allocates and
+// synchronises nothing.  Returns the launches enqueued or a negative error.
 extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void* x_buf1, const void* cond,
                                     const void* const* w_dil, const void* const* b_dil, const void* const* w_rs,
                                     const void* const* b_rs, const int* dils, const int* skip_only,
                                     const void* weight_maps, void* skip, int B, int T_len, int C, int Cp, int Ch,
-                                    void* stream) {
-  if (bad_shape(dtype, B, T_len, C, Cp, Ch) || n_layers < 0) return cuda_fail(cudaErrorInvalidValue);
+                                    int causal, void* stream) {
+  if (bad_shape(dtype, B, T_len, C, Cp, Ch) || n_layers < 0 || (causal != 0 && causal != 1))
+    return cuda_fail(cudaErrorInvalidValue);
   void* bufs[2] = {x_buf0, x_buf1};
   BufMaps maps[2];  // of the two ping-pong buffers
   SharedMaps sh;
@@ -878,7 +889,7 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
   }
   for (int i = 0; i < n_layers; ++i) {
     if (dtype == 1) memcpy(wmaps, static_cast<const unsigned char*>(weight_maps) + i * sizeof(wmaps), sizeof(wmaps));
-    const Layer l = {w_dil[i], b_dil[i], w_rs[i], b_rs[i], wmaps, dils[i], skip_only[i]};
+    const Layer l = {w_dil[i], b_dil[i], w_rs[i], b_rs[i], wmaps, dils[i], skip_only[i], causal ? -2 : -1};
     if (int e = launch_layer(dtype, l, bufs[i % 2], cond, bufs[(i + 1) % 2], skip, &maps[i % 2], &maps[(i + 1) % 2], &sh, B,
                              T_len, C, Cp, Ch, static_cast<cudaStream_t>(stream)))
       return e;

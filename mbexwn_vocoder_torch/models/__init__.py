@@ -1,5 +1,6 @@
-from .factory import create_model
+from .factory import create_model, create_registry_model, load_registry_weights
 from .mbexwn import MBExWN
 from .pan_wavenet import NormMelComponents, PaNWaveNet
 
-__all__ = ["create_model", "MBExWN", "NormMelComponents", "PaNWaveNet"]
+__all__ = ["create_model", "create_registry_model", "load_registry_weights", "MBExWN", "NormMelComponents",
+           "PaNWaveNet"]

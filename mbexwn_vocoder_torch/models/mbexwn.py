@@ -8,8 +8,11 @@ tensor or a `torch.Generator`: the JAX package draws
 `jax.random.normal(PRNGKey(0))`, a stream torch cannot reproduce, so a test
 that compares the two draws the noise once and hands it to both.
 
-Config branches the registry models do not use raise NotImplementedError
-naming the ROADMAP item that will port them.
+`force_causal` (the mode of live streaming, parallel/streaming.py) moves
+every pad to the left: CAUSAL subnets and CAUSAL WaveNet stacks, with the
+same parameters as the non-causal model.  Config branches the registry
+models do not use raise NotImplementedError naming the ROADMAP item that
+will port them.
 """
 from __future__ import annotations
 
@@ -105,8 +108,6 @@ class MBExWN(nn.Module):
             raise TypeError(f"MBExWN: unexpected config keys {sorted(unknown)}")
         if pp_subnet_training_only:
             _not_ported("pp_subnet_training_only (training)", "12")
-        if force_causal:
-            _not_ported("force_causal synthesis", "10")
         if ps_off or not ps_use_stft:
             _not_ported("the multiband-gain branch (ps_use_stft: false / ps_off)", "13")
         if pulse_channels_use_pqmf:
@@ -146,7 +147,7 @@ class MBExWN(nn.Module):
         if pp_subnet:
             self.pp_subnet, _ = generate_subnet_from_specs(
                 pp_subnet, base_name="PulsPar", in_channels=self.mel_channels, final_n_channels=1, final_nks=1,
-                final_activation=pp_activation, pad_to_valid=pp_subnet_use_valid_padding,
+                final_activation=pp_activation, force_causal=force_causal, pad_to_valid=pp_subnet_use_valid_padding,
                 target_ups=self.spect_to_pulse_upsampling_factor,
                 remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
 
@@ -185,7 +186,8 @@ class MBExWN(nn.Module):
 
         self.ps_subnet, _ = generate_subnet_from_specs(
             ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
-            final_n_channels=ps_max_ceps_coefs, final_activation=None, pad_to_valid=ps_subnet_use_valid_padding,
+            final_n_channels=ps_max_ceps_coefs, final_activation=None, force_causal=force_causal,
+            pad_to_valid=ps_subnet_use_valid_padding,
             remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
         # 30 log-spaced half-hamming cepstral windows, one per F0 step
         windows, log10f0 = [], []
@@ -206,6 +208,8 @@ class MBExWN(nn.Module):
 
         # WaveNet blocks
         pp_mod = copy.deepcopy(pp_mod_subnet)
+        if force_causal:
+            pp_mod["padding"] = "CAUSAL"
         self.pp_mod_subnet_noise_channel_sigma = pp_mod_subnet_noise_channel_sigma
         n_channels = pp_mod.pop("n_channels")
         cond_lin = pp_mod.pop("cond_lin_upsampling", 16)
@@ -332,16 +336,18 @@ class MBExWN(nn.Module):
     def forward(self, mel: torch.Tensor, F0: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full synthesis: (B, T_mel, mel_channels) -> (B, T_mel*hop) audio."""
-        pulse_frequency = self.generate_f0(mel)
-        f0 = F0 if F0 is not None else pulse_frequency
+        """Full synthesis: (B, T_mel, mel_channels) -> (B, T_mel*hop) audio.
+        A given F0 (B, T_mel*spect_to_pulse_ups) replaces the F0 net's, which
+        is then not run."""
+        f0 = F0 if F0 is not None else self.generate_f0(mel)
         excitation = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset)
         win, hop = self.stft_win_size, self.spect_hop_size
         padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))
         source_stft = stft(padded, win, hop, self.fft_size, self.stft_window)[:, : mel.shape[1]]
         signal_stft = source_stft * self.generate_specenv(mel, f0)
         signal = istft(signal_stft, win, hop, self.fft_size, self.istft_window)
-        return signal[:, win // 2: win // 2 + pulse_frequency.shape[1] * self.F0_down_sampling_factor]
+        n_pulse = mel.shape[1] * self.spect_to_pulse_upsampling_factor
+        return signal[:, win // 2: win // 2 + n_pulse * self.F0_down_sampling_factor]
 
     def output_length(self, T_mel: int) -> int:
         return T_mel * self.spect_hop_size

@@ -38,15 +38,13 @@ class Conv1DWeightNorm(nn.Module):
         self.strides = strides
         self.dilation_rate = dilation_rate
         self.padding = padding.upper()
-        if self.padding == "CAUSAL":
-            raise NotImplementedError("CAUSAL stacks are not ported (ROADMAP.md queue 1, item 10)")
         # glorot-uniform placeholder; real weights come from load_state_dict
         limit = math.sqrt(6.0 / (kernel_size * (in_channels + filters)))
         self.weight = nn.Parameter(torch.empty(filters, in_channels, kernel_size).uniform_(-limit, limit))
         self.bias = nn.Parameter(torch.zeros(filters)) if use_bias else None
 
     def out_length(self, in_len: int) -> int:
-        if self.padding == "SAME":
+        if self.padding in ("SAME", "CAUSAL"):
             return -(-in_len // self.strides)
         k_eff = (self.kernel_size - 1) * self.dilation_rate + 1
         return (in_len - k_eff) // self.strides + 1

@@ -8,6 +8,8 @@ Counterpart of the JAX package's nn/subnet.py.  Spec grammar:
 followed by a final 1x1 conv to `final_n_channels`, an optional
 missing-upsampling linear interp to reach `target_ups`, and an optional
 final activation.  Padding layers are SYMMETRIC, or EDGE with pad_to_valid.
+With force_causal every pad goes to the left: padding layers pad (lo + hi,
+0) and the convs that pad themselves use CAUSAL padding.
 The JAX package's opt-in fused tail is not ported (ROADMAP.md queue 1,
 item 13).
 """
@@ -30,11 +32,11 @@ def get_missing_upsampling_factor(target_ups, total_ups, base_name):
     return up
 
 
-def _pad_layer(ks, base_name, ii, pad_to_valid):
+def _pad_layer(ks, base_name, ii, force_causal, pad_to_valid):
     lo = (ks - 1) // 2 + ((ks - 1) % 2)
     hi = (ks - 1) // 2
-    return Pad1d(padding_size=(lo, hi), padding_type="EDGE" if pad_to_valid else "SYMMETRIC",
-                 name=base_name + f"_Pad_{ii}")
+    return Pad1d(padding_size=(lo + hi, 0) if force_causal else (lo, hi),
+                 padding_type="EDGE" if pad_to_valid else "SYMMETRIC", name=base_name + f"_Pad_{ii}")
 
 
 def generate_subnet_from_specs(
@@ -53,14 +55,13 @@ def generate_subnet_from_specs(
     **_,
 ) -> Tuple[Sequential, int]:
     """Returns (Sequential module, total upsampling factor)."""
-    if force_causal:
-        raise NotImplementedError("force_causal subnets are not ported (ROADMAP.md queue 1, item 10)")
     if not use_prelu or remove_inactive_pad_layers:
         raise NotImplementedError("leaky-ReLU subnets and remove_inactive_pad_layers are not ported "
                                   "(ROADMAP.md queue 1, item 13)")
     total_ups = 1
     layers: List[nn.Module] = []
     ch = in_channels
+    default_padding = "CAUSAL" if force_causal else "SAME"
 
     def pad_active(ks):
         return ((ks - 1) // 2 + ((ks - 1) % 2)) > 0
@@ -84,17 +85,18 @@ def generate_subnet_from_specs(
                     up = spec[2]
 
             if linear_up:
-                layers.append(_pad_layer(ks, base_name, ii, pad_to_valid))
+                layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
                 layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", name=base_name + f"_Layer_{ii}"))
                 layers.append(LinInterpLayer(up, num_pad_end=1, drop_last=True,
                                              name=base_name + f"_LinUpLayer_{ii}"))
             elif up > 1:
                 if pad_to_valid and pad_active(ks):
-                    layers.append(_pad_layer(ks, base_name, ii, True))
-                layers.append(Conv1DUpDownSample(ch, nf, kernel_size=ks, padding="VALID" if pad_to_valid else "SAME",
+                    layers.append(_pad_layer(ks, base_name, ii, force_causal, True))
+                layers.append(Conv1DUpDownSample(ch, nf, kernel_size=ks,
+                                                 padding="VALID" if pad_to_valid else default_padding,
                                                  factor=up, up_sample=True, name=base_name + f"_Layer_{ii}"))
             else:
-                layers.append(_pad_layer(ks, base_name, ii, pad_to_valid))
+                layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
                 layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", name=base_name + f"_Layer_{ii}"))
             ch = nf
             layers.append(Activation("prelu", alpha=alpha, channels=ch, name=base_name + f"_ActLayer_{ii}"))
@@ -102,9 +104,9 @@ def generate_subnet_from_specs(
 
         if final_nks is not None:
             if pad_to_valid and pad_active(final_nks):
-                layers.append(_pad_layer(final_nks, base_name, ii, True))
+                layers.append(_pad_layer(final_nks, base_name, ii, force_causal, True))
             layers.append(Conv1DWeightNorm(ch, final_n_channels, final_nks,
-                                           padding="VALID" if pad_to_valid else "SAME",
+                                           padding="VALID" if pad_to_valid else default_padding,
                                            name=base_name + "_Layer_final"))
             if (target_ups is not None) and total_ups != target_ups:
                 up = get_missing_upsampling_factor(target_ups, total_ups, base_name)

@@ -1,4 +1,4 @@
-"""Dilated gated WaveNet stack with mel conditioning (non-causal).
+"""Dilated gated WaveNet stack with mel conditioning (SAME or CAUSAL).
 
 Counterpart of the JAX package's nn/wavenet.py (`WaveNetAE`,
 `WaveNetAEBlock`).  The start, conditioning, end and up/down convs are plain
@@ -8,7 +8,8 @@ tensor and runs the plain version on a CPU tensor.
 
 Scope is the registry's configuration: one channel group, conditioning
 shared by all layers through the sub-pixel + linear upsampling path, kernel
-size 3, SAME padding.  The other branches raise NotImplementedError.
+size 3, SAME or CAUSAL padding (a CAUSAL stack's taps read t-2d, t-d and t;
+the kernel takes either).  The other branches raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -72,14 +73,15 @@ class WaveNetAE(nn.Module):
         if disable_conditioning or cond_conv_upsampling is None or pre_cond_layer_channels:
             raise NotImplementedError("only the shared upsampled conditioning path is ported; per-layer "
                                       "conditioning waits (ROADMAP.md queue 1, item 13)")
-        if padding.upper() != "SAME":
-            raise NotImplementedError("CAUSAL WaveNet stacks are not ported (ROADMAP.md queue 1, item 10)")
+        if padding.upper() not in ("SAME", "CAUSAL"):
+            raise ValueError(f"WaveNetAE: padding must be SAME or CAUSAL, got {padding}")
         if kernel_size != 3:
             raise NotImplementedError("the WaveNet stack is ported for kernel size 3 only (ROADMAP.md queue 1, item 13)")
         self.name = name
         self.n_channels = n_channels
         self.n_layers = n_layers
         self.activation = activation
+        self.causal = padding.upper() == "CAUSAL"
         self.compute_dtype = resolve_dtype(compute_dtype)
         conv_kw = dict(use_weight_norm=use_weight_norm, use_equalized_lr=use_equalized_lr)
 
@@ -132,7 +134,8 @@ class WaveNetAE(nn.Module):
         cond = self.cond_linup(self.cond(spect))
         if cond.shape[1] != started.shape[1]:
             raise RuntimeError(f"conditioning length {cond.shape[1]} != stack length {started.shape[1]}")
-        skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation)
+        skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation,
+                             causal=self.causal)
         return self.end(skip.to(started.dtype)).to(in_dtype)
 
 

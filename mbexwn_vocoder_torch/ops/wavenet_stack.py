@@ -1,5 +1,6 @@
 """The dilated gated WaveNet stack: per layer
-    y  = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b + cond        (C -> 2C)
+    y  = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b + cond        (C -> 2C; SAME)
+    y  = x[t-2d] W0 + x[t-d] W1 + x[t] W2 + b + cond       (C -> 2C; causal)
     g  = tanh(y[:C]) * sigmoid(y[C:])
     rs = g W_rs + b_rs                                      (C -> 2C)
     x <- x + rs[:C]  (zero outside [0, T)),   skip += rs[C:]
@@ -137,9 +138,10 @@ def gate(activation: str, half_act: torch.Tensor, half_sigmoid: torch.Tensor) ->
 
 
 def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
-                        dils: Sequence[int], activation: str = "gtu") -> torch.Tensor:
+                        dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
     """(B, T, C) x, (B, T, 2C) cond -> (B, T, C) fp32 skip sum, in plain PyTorch
-    (fp32 products of the operand-dtype values).  Takes the layers as listed
+    (fp32 products of the operand-dtype values); `causal` shifts the taps to
+    t-2d, t-d, t (the pad goes left).  Takes the layers as listed
     in the module docstring or packed, and x with C or Cp columns: it reads
     the first C columns of x and of the weights' reduction dimension only, so
     padded and unpadded operands go through the very same arithmetic (the pad
@@ -154,7 +156,7 @@ def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: Stac
     cond32 = cond.float()
     skip = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
     for (wd, bd, wr, br), d in zip(layers, dils):
-        xp = F.pad(x.float(), (0, 0, d, d))
+        xp = F.pad(x.float(), (0, 0, 2 * d, 0) if causal else (0, 0, d, d))
         wd = wd[..., :C].float()
         y = (xp[:, :T] @ wd[:, 0].t() + xp[:, d : d + T] @ wd[:, 1].t() + xp[:, 2 * d : 2 * d + T] @ wd[:, 2].t()
              + bd.float() + cond32)
@@ -197,7 +199,7 @@ def _check_kernel_dtype(fn: str, dtype: torch.dtype, C: int) -> None:
 
 def wavenet_layer(x_in: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b_dil: torch.Tensor,
                   w_rs: torch.Tensor, b_rs: torch.Tensor, x_out: torch.Tensor, skip: torch.Tensor,
-                  dilation: int) -> None:
+                  dilation: int, causal: bool = False) -> None:
     """Launch one layer of the CUDA kernel in the kernel's operand layout:
     x_in and x_out (B, T, Cp) with zeros in the pad columns, cond (B, T, 2C),
     w_dil (2C, 3, Cp), w_rs (2C or C, Cp), skip (B, T, C) fp32.  Writes
@@ -226,20 +228,22 @@ def wavenet_layer(x_in: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b
     cond, Ch = _kernel_cond(cond)
     n = lib.mbexwn_wavenet_layer(_KERNEL_DTYPES[dtype], x_in.data_ptr(), cond.data_ptr(), w_dil.data_ptr(),
                                  b_dil.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(), x_out.data_ptr(),
-                                 skip.data_ptr(), B, T, C, Cp, Ch, int(dilation), int(n_rs == C), stream)
+                                 skip.data_ptr(), B, T, C, Cp, Ch, int(dilation), int(n_rs == C), int(causal),
+                                 stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(n, "wavenet_layer")
 
 
 def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
-                  dils: Sequence[int], activation: str = "gtu") -> torch.Tensor:
+                  dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
     """(B, T, C) x and (B, T, 2C) cond in the operand dtype (fp32 or bf16),
     weights as listed in the module docstring or packed by
-    `pack_stack_weights` -> (B, T, C) fp32 skip sum.  CUDA tensors go through
+    `pack_stack_weights` -> (B, T, C) fp32 skip sum; `causal` selects the
+    taps t-2d, t-d, t in place of t-d, t, t+d.  CUDA tensors go through
     the kernel: x is copied once into a zero-padded (B, T, Cp) buffer, the
     layers ping-pong between that and a second one, and one host call
     enqueues them all.  CPU tensors take the plain version."""
     if x.device.type == "cpu":
-        return wavenet_stack_plain(x, cond, layer_weights, dils, activation)
+        return wavenet_stack_plain(x, cond, layer_weights, dils, activation, causal)
     if x.device.type != "cuda":
         raise RuntimeError(f"wavenet_stack: unsupported device {x.device}")
     if activation != "gtu":
@@ -268,6 +272,6 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
     count = kernel_lib.library().mbexwn_wavenet_stack(
         _KERNEL_DTYPES[x.dtype], n, bufs[0].data_ptr(), bufs[1].data_ptr(), cond.data_ptr(), *ptrs,
         (ctypes.c_int * n)(*[int(d) for d in dils]), skip_only, None if maps is None else maps.data_ptr(),
-        skip.data_ptr(), B, T, C, Cp, Ch, torch.cuda.current_stream(x.device).cuda_stream)
+        skip.data_ptr(), B, T, C, Cp, Ch, int(causal), torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(count, "wavenet_layer")
     return skip

@@ -18,6 +18,10 @@ the pipeline at batch 1 bit-equal to the blocking loop, a group's dispatch
 free of host-device synchronisation, a batch of 8 against single requests
 handed the same noise rows, and BatchSynthesizer at B = 8 in the 2048
 bucket against the plain K1 path (the largest shapes the kernels see).
+Streaming: K1's causal taps against the plain version (ragged batches, both
+host entries), and synth_batched and stream() of a full-width causal SPEECH
+on the card against the same with K1 replaced by its plain version and
+against the CPU.
 """
 import numpy as np
 import pytest
@@ -90,6 +94,38 @@ def test_k1_stack_entry_equals_layer_entry(card, dtype):
     assert torch.equal(whole, skip)
     # the pad columns of the ping-pong buffers are still zero
     assert not bufs[..., C:].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C,B,T,dils", [(8, 2, 100, (1, 2, 64, 128)), (340, 2, 391, (1, 64, 16, 4)),
+                                        (320, 3, 257, (32, 2, 64)), (320, 1, 50, (64, 1))])
+def test_k1_causal_matches_plain(card, C, B, T, dils, dtype, tol):
+    x, cond, weights = _case(C, B, T, dils, dtype, card, seed=5)
+    before = kernel_lib.launches["wavenet_layer"]
+    with exact_fp32():
+        got = wavenet_stack(x, cond, weights, dils, causal=True)
+        ref = wavenet_stack_plain(x, cond, weights, dils, causal=True)
+        same = wavenet_stack_plain(x, cond, weights, dils)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before == len(dils)
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert torch.isfinite(got).all() and rel <= tol, rel
+    assert float(torch.sqrt(torch.mean((got - same) ** 2) / torch.mean(same ** 2))) > 10 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_causal_stack_entry_equals_layer_entry(card, dtype):
+    C, B, T, dils = 320, 2, 300, (1, 64, 4, 16, 2)
+    x, cond, weights = _case(C, B, T, dils, dtype, card, seed=6)
+    packed = pack_stack_weights(weights)
+    whole = wavenet_stack(x, cond, packed, dils, causal=True)
+    bufs = torch.zeros((2, B, T, packed.C_pad), dtype=dtype, device=card)
+    bufs[0, :, :, :C] = x
+    skip = torch.zeros((B, T, C), dtype=torch.float32, device=card)
+    for i, ((wd, bd, wr, br), d) in enumerate(zip(packed, dils)):
+        wavenet_layer(bufs[i % 2], cond, wd, bd, wr, br, bufs[(i + 1) % 2], skip, d, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, skip)
 
 
 def test_k1_leaves_its_input_alone(card):
@@ -238,3 +274,38 @@ def test_batch_synthesizer_b8_bucket2048_matches_plain_k1(card, monkeypatch):
     for y, r, m in zip(got, ref, mels):
         assert y.shape == r.shape == (m.shape[0] * 300,) and np.isfinite(y).all()
         assert _rel(y, r) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["synth_batched", "stream"])
+def test_causal_streaming_on_the_card(card, monkeypatch, mode):
+    """Full-width causal SPEECH with the noise channel off (the shipped
+    weights, `create_registry_model`), fp32, 150 frames in chunks of 32 with
+    halo 32 and halo_right 2, B = 2: on the card against the same with K1
+    replaced by its plain version (1e-4) and against the CPU (1e-3, the
+    card-vs-CPU budget of a whole synthesis)."""
+    import mbexwn_vocoder_torch.nn.wavenet as wavenet
+    from mbexwn_vocoder_torch.models import create_registry_model
+    from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
+
+    kw = dict(force_causal=True, pp_mod_subnet_noise_channel_sigma=0, normalize_rms_from_mell=False)
+    geometry = dict(chunk_frames=32, halo_frames=32, halo_right=2)
+    mel = np.concatenate([_mel(150, 30), _mel(150, 31)])
+
+    def run(ss):
+        if mode == "stream":
+            return np.concatenate(list(ss.stream(mel[:, i:i + 5] for i in range(0, 150, 5))), axis=1)
+        return ss.synth_batched(mel)
+
+    ss = StreamingSynthesizer(create_registry_model("SPEECH", **kw), device=card, **geometry)
+    before = dict(kernel_lib.launches)
+    got = run(ss)
+    n_chunks = -(-150 // 32)
+    groups = n_chunks if mode == "stream" else 3  # synth_batched: one batch per chunk shape
+    assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 24 * groups
+    assert kernel_lib.launches["oscillator"] - before["oscillator"] == groups
+    cpu = run(StreamingSynthesizer(create_registry_model("SPEECH", **kw), device="cpu", **geometry))
+    monkeypatch.setattr(wavenet, "wavenet_stack", wavenet_stack_plain)
+    plain = run(ss)
+    assert got.shape == plain.shape == cpu.shape == (2, 150 * 300) and np.isfinite(got).all()
+    assert _rel(got, plain) <= 1e-4
+    assert _rel(got, cpu) <= 1e-3

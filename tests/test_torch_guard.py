@@ -18,6 +18,7 @@ from mbexwn_vocoder_torch.mel_inverter import MELInverter
 from mbexwn_vocoder_torch.models import create_model
 from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+from mbexwn_vocoder_torch.parallel.streaming import StreamingSynthesizer
 from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -96,7 +97,8 @@ def test_cli_entry_points_run_with_jax_blocked():
         assert "RuntimeError no CUDA device" in out.stdout
 
 
-@pytest.mark.parametrize("entry", [MELInverter.__init__, PipelinedSynthesizer.__init__, BatchSynthesizer.__init__])
+@pytest.mark.parametrize("entry", [MELInverter.__init__, PipelinedSynthesizer.__init__, BatchSynthesizer.__init__,
+                                   StreamingSynthesizer.__init__])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -115,6 +117,13 @@ def test_no_silent_cpu_fallback():
         PipelinedSynthesizer(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchSynthesizer(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingSynthesizer(model)
+
+
+def test_streaming_over_a_mesh_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        StreamingSynthesizer(torch.nn.Linear(1, 1), device="cpu", mesh=object())
 
 
 def _speech_hparams():
@@ -122,7 +131,6 @@ def _speech_hparams():
 
 
 @pytest.mark.parametrize("edit,item", [
-    (lambda mc: mc.update(force_causal=True), "item 10"),
     (lambda mc: mc.update(ps_use_stft=False), "item 13"),
     (lambda mc: mc.update(pulse_channels_use_pqmf=True), "item 13"),
     (lambda mc: mc["wavetable_config"].update(use_sinusoid_as_fun=True), "item 13"),
@@ -140,8 +148,7 @@ def test_unported_branches_raise(edit, item):
 
 def test_unported_wavenet_branches_raise():
     base = dict(n_channels=8, n_out_channels=4, cond_conv_upsampling=1)
-    for kw, item in ((dict(padding="CAUSAL"), "item 10"), (dict(cond_conv_upsampling=None), "item 13"),
-                     (dict(kernel_size=5), "item 13")):
+    for kw, item in ((dict(cond_conv_upsampling=None), "item 13"), (dict(kernel_size=5), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             WaveNetAE(3, 5, **{**base, **kw})
 

@@ -41,7 +41,8 @@ def _close(got, ref, rtol=RTOL, atol=1e-6):
 @pytest.mark.parametrize("padding,width,stride,dilation,T", [
     ("SAME", 3, 1, 1, 37), ("SAME", 3, 1, 4, 37), ("SAME", 4, 1, 2, 37), ("SAME", 3, 2, 1, 37),
     ("SAME", 5, 3, 1, 40), ("SAME", 1, 1, 1, 16), ("VALID", 3, 1, 2, 37), ("VALID", 4, 2, 1, 37),
-    ("CAUSAL", 3, 1, 8, 37),
+    ("CAUSAL", 3, 1, 8, 37), ("CAUSAL", 3, 2, 1, 37), ("CAUSAL", 4, 3, 2, 40), ("CAUSAL", 5, 2, 3, 41),
+    ("CAUSAL", 1, 1, 1, 16),
 ])
 def test_conv1d_matches_jax(padding, width, stride, dilation, T):
     rng = np.random.RandomState(width * 100 + stride * 10 + dilation)
@@ -84,7 +85,8 @@ def _load(module, jax_params):
     module.load_state_dict(state, strict=True)
 
 
-@pytest.mark.parametrize("up_sample,factor,padding", [(True, 2, "SAME"), (True, 5, "VALID"), (False, 2, "SAME")])
+@pytest.mark.parametrize("up_sample,factor,padding", [(True, 2, "SAME"), (True, 5, "VALID"), (False, 2, "SAME"),
+                                                       (True, 2, "CAUSAL"), (False, 2, "CAUSAL")])
 def test_conv_up_down_sample_matches_jax(up_sample, factor, padding):
     x = np.random.RandomState(3).randn(2, 12, 6).astype(np.float32)
     jlayer = jl.Conv1DUpDownSample(8, kernel_size=3, up_sample=up_sample, factor=factor, padding=padding)
@@ -96,6 +98,19 @@ def test_conv_up_down_sample_matches_jax(up_sample, factor, padding):
     got = tlayer(_t(x))
     assert tuple(got.shape) == ref.shape and tlayer.out_length(12) == ref.shape[1]
     _close(got.detach(), ref)
+
+
+@pytest.mark.parametrize("padding", ["SAME", "CAUSAL", "VALID"])
+@pytest.mark.parametrize("stride,dilation", [(1, 1), (1, 4), (2, 1), (3, 2)])
+def test_conv_out_length_matches_jax(padding, stride, dilation):
+    """out_length: SAME and CAUSAL give ceil(T / stride), VALID the valid
+    positions, as the JAX layer reports and as the conv produces."""
+    x = np.random.RandomState(13).randn(1, 23, 3).astype(np.float32)
+    jlayer = jl.Conv1DWeightNorm(4, kernel_size=3, strides=stride, dilation_rate=dilation, padding=padding)
+    tlayer = tl.Conv1DWeightNorm(3, 4, 3, strides=stride, dilation_rate=dilation, padding=padding)
+    for T in (1, 7, 23):
+        assert tlayer.out_length(T) == jlayer.out_length(T)
+    assert tlayer(_t(x)).shape[1] == tlayer.out_length(23)
 
 
 @pytest.mark.parametrize("name", ["prelu", "leaky_relu", "soft_sigmoid", "soft_sqrt", "tanh", "sigmoid", "linear"])
