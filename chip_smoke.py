@@ -66,29 +66,41 @@ prints no result line:
      VOICE block 0 at 512 frames in bf16;
      (b) long form at the JAX package's bench setting (4800 frames = 60 s,
      chunk 512, halo 48): synth, synth_batched and synth_scan (interior)
-     within 2e-3 of one-shot infer in fp32 (bf16 printed against 2e-2); K2
-     in one synth pass bit-equal in phase to its plain version, chunk by
-     chunk, with no phase jump at a chunk boundary (<= 1e-3 cycles); then
+     within 2e-3 of one-shot infer in fp32 in every chunk (bf16 printed
+     against 2e-2); each pass's launches (K1 24 and K2 1 per chunk or
+     batched group, counts set to 0 just before it) and K1 against its
+     plain version on the inputs of every stack shape the pass gave it
+     (spans of 560/608/240 frames at B=1, the batched group of 8 x 608),
+     fp32 <= 1e-4 and bf16 <= 2e-2; K2 in one synth and one synth_scan pass
+     bit-equal in phase to its plain version, chunk by chunk, with no phase
+     jump at a chunk boundary (<= 1e-3 cycles), and each chunk's end phase
+     and interior F0 against the one-shot's (printed); then one counted pass and the
      audio-s/s of the three modes with the shipped SPEECH model in bf16
      (host clock with the readback, median of 5 interleaved rounds after a
      warm pass) with device busy time and idle share;
-     (c) live, force_causal sigma-0 SPEECH, halo 32, halo_right 2: in fp32
-     stream() with slabs of 1/4/7 frames bit-equal to each other and to
-     synth(), within 1e-3 of one-shot, halo_right=1 beyond 1e-3, and after
-     warm() at most one chunk shape warm() did not run; in bf16 at chunks
-     of 4/8/16/32 frames the latency from the call for a chunk to its audio
+     (c) live, force_causal sigma-0 SPEECH, halo 32, halo_right 2: K1
+     against plain on every stack shape a live stream gives it (the spans of
+     the left-halo ramp up to 38/42/50/66 frames at chunks 4/8/16/32), fp32
+     and bf16; in fp32 stream() with slabs of 1/4/7 frames bit-equal to
+     each other and to synth(), within 1e-3 of one-shot, halo_right=1
+     beyond 1e-3, and after warm() at most one chunk shape warm() did not
+     run; in bf16 at chunks of 4/8/16/32 frames the latency from the call
+     for a chunk to its audio
      on the host (median and p95 of 30 steady chunks), the launches per
      chunk (K1 24, K2 1), and one steady chunk's device busy time and idle
-     share (torch.profiler).  The plain stack never sees a CUDA tensor in (b)
-     and (c).
+     share (torch.profiler).  The model's stack calls in (b) and (c) never
+     reach the plain stack with a CUDA tensor (the comparisons call it
+     directly).
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, the card's name and power limit, a `kernels` JSON line
-(its launches: the main path of [4], SPEECH bf16, plus the live streams of
-[8](c)), and `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
+(its launches: the main path of [4], SPEECH bf16, plus one pass of each
+long-form mode of [8](b) and the live streams of [8](c), each counted from
+0 just before it), and `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -495,14 +507,70 @@ def registry_variant(model_id: str, wn_dtype, dev, **overrides):
     return create_registry_model(model_id, **overrides).to(dev)
 
 
+@contextlib.contextmanager
+def recording_k1(store: dict):
+    """A context in which the model's stack calls (nn/wavenet.py's
+    `wavenet_stack`) run as before and the first call of each (shape, dtype,
+    causal) keeps a copy of its inputs in `store`, so that the kernel can be
+    held against its plain version at the shapes a path gave it, after the
+    path ran and its launch counts were read."""
+    import mbexwn_vocoder_torch.nn.wavenet as wn_module
+
+    real = wn_module.wavenet_stack
+
+    def recording(x, cond, weights, dils, activation="gtu", causal=False):
+        key = (tuple(x.shape), str(x.dtype)[6:], bool(causal))
+        if key not in store:
+            store[key] = (x.clone(), cond.clone(), weights, tuple(dils), activation)
+        return real(x, cond, weights, dils, activation, causal=causal)
+
+    wn_module.wavenet_stack = recording
+    try:
+        yield store
+    finally:
+        wn_module.wavenet_stack = real
+
+
+def hold_k1(store: dict, plain, check, what: str):
+    """K1 against `plain`, its plain version, on every input set in `store`
+    (`recording_k1`), which it empties: fp32 rel-RMS <= 1e-4, bf16 <= 2e-2,
+    one check line for the lot.  Returns (a row per input set, the largest
+    bf16 max abs error)."""
+    import torch
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack
+
+    rows, bad = [], []
+    for (shape, dtype, causal), (x, cond, weights, dils, activation) in sorted(store.items()):
+        with torch.inference_mode(), exact_fp32():
+            g = wavenet_stack(x, cond, weights, dils, activation, causal=causal).cpu().numpy()
+            r = plain(x, cond, weights, dils, activation, causal).cpu().numpy()
+        err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
+        rows.append({"B": shape[0], "rows": shape[1], "C": shape[2], "dtype": dtype, "causal": causal,
+                     "rel_rms": err, "max_abs": max_abs})
+        if not (np.isfinite(g).all() and err <= (1e-4 if dtype == "float32" else 2e-2)):
+            bad.append(rows[-1])
+    store.clear()
+    worst = {d: max((r["rel_rms"] for r in rows if r["dtype"] == d), default=None) for d in ("float32", "bfloat16")}
+    shapes = sorted({(r["B"], r["rows"]) for r in rows})
+    check(bool(rows) and not bad,
+          f"K1 vs plain at the {what} path's {len(rows)} stack input sets (B x rows: "
+          f"{', '.join(f'{b_}x{t_}' for b_, t_ in shapes)}; C={rows[0]['C'] if rows else '-'}): worst rel-RMS "
+          f"fp32 {worst['float32']} (<= 1e-4), bf16 {worst['bfloat16']} (<= 2e-2); failing {bad}")
+    return rows, max((r["max_abs"] for r in rows if r["dtype"] == "bfloat16"), default=0.0)
+
+
 def phase_streaming(inverter, check, dev):
     """Phase [8]: streaming, SPEECH, full width.  (a) K1's causal taps against
     the plain version; (b) long-form synth / synth_batched / synth_scan
-    against one-shot and K2's phase across chunk boundaries, then their
-    audio-s/s with the shipped model; (c) live causal stream(): bit-equal
-    across slab sizes and to synth(), the halo_right guard, warm(), and the
-    per-chunk latency and launches at chunks 4/8/16/32.  Returns the numbers
-    for the `streaming:` line."""
+    against one-shot, chunk by chunk, with each pass's launch counts and K1
+    against its plain version at every stack shape the pass gave it, K2's
+    phase across chunk boundaries and the chunk-end phase against the
+    one-shot phase, then one counted pass and the audio-s/s of each mode
+    with the shipped model; (c) K1 against plain at every live chunk span,
+    then live causal stream(): bit-equal across slab sizes and to synth(),
+    the halo_right guard, warm(), and the per-chunk latency and launches at
+    chunks 4/8/16/32.  Returns the numbers for the `streaming:` line."""
     import torch
     import mbexwn_vocoder_torch.models.mbexwn as mbexwn_module
     from mbexwn_vocoder_torch.ops import kernel_lib
@@ -511,12 +579,16 @@ def phase_streaming(inverter, check, dev):
     from mbexwn_vocoder_torch.ops.precision import exact_fp32
     from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
 
-    numbers = {"k1_causal": [], "long_form": {}, "live": {}}
+    numbers = {"k1_causal": [], "k1_long_form": [], "k1_live": [], "long_form": {}, "live": {}}
+    k1_bf16_max_abs = [0.0]
 
     def one_shot(model, mel):
         with torch.inference_mode():
             y = model.infer(torch.from_numpy(mel).to(dev), synth_length=mel.shape[1] * model.spect_hop_size)
         return y.cpu().numpy()
+
+    def n_stack_layers(model):
+        return sum(getattr(model.block, n).wavenet.n_layers for n in model.block.block_names)
 
     # (a) K1 causal against its plain version on the card, on the causal models' own stack inputs
     print("  (a) K1 causal taps vs plain", flush=True)
@@ -525,7 +597,6 @@ def phase_streaming(inverter, check, dev):
     live_span = LIVE_HALO + 16 + LIVE_HALO_RIGHT
     cases = [(speech_c32, "SPEECH", frames, bi, dtype) for frames in (N_FRAMES, live_span) for bi in (0, 1)
              for dtype in (torch.float32, torch.bfloat16)] + [(voice_c32, "VOICE", N_FRAMES, 0, torch.bfloat16)]
-    k1_max_abs = 0.0
     for model, name, frames, bi, dtype in cases:
         check(getattr(model.block, model.block.block_names[bi]).wavenet.causal, f"{name} block {bi} is causal")
         x, cond, weights, dils, _ = stack_inputs(model, make_mel(frames, 80, SEED + 30), bi, dtype, dev)
@@ -535,13 +606,12 @@ def phase_streaming(inverter, check, dev):
         err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         if dtype == torch.bfloat16:
-            k1_max_abs = max(k1_max_abs, max_abs)
+            k1_bf16_max_abs[0] = max(k1_bf16_max_abs[0], max_abs)
         numbers["k1_causal"].append({"model": name, "frames": frames, "block": bi, "rows": x.shape[1], "C": x.shape[2],
                                      "dtype": str(dtype)[6:], "rel_rms": err, "max_abs": max_abs})
         check(np.isfinite(g).all() and err <= tol,
               f"K1 causal {name} block {bi} {frames} frames (rows {x.shape[1]}, C={x.shape[2]}) {str(dtype)[6:]}: "
               f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
-    numbers["k1_causal_bf16_max_abs"] = k1_max_abs
 
     # from here on the plain stack must never see a CUDA tensor: count what reaches it
     plain_on_card = [0]
@@ -551,6 +621,11 @@ def phase_streaming(inverter, check, dev):
         plain_on_card[0] += int(x.is_cuda)
         return real_plain(x, *args, **kwargs)
 
+    def held(store, what, key):
+        rows, max_abs = hold_k1(store, real_plain, check, what)
+        numbers[key] += rows
+        k1_bf16_max_abs[0] = max(k1_bf16_max_abs[0], max_abs)
+
     ws.wavenet_stack_plain = counting_plain
     try:
         # (b) long form at the JAX package's setting: 60 s, chunk 512, halo 48
@@ -559,68 +634,126 @@ def phase_streaming(inverter, check, dev):
         hop, sr = speech_c32.spect_hop_size, speech_c32.sample_rate
         audio_s = LONG_FRAMES * hop / sr
         modes = ("synth", "synth_batched", "synth_scan")
-        interior = slice(LONG_HALO * hop, (LONG_FRAMES - LONG_HALO) * hop)  # synth_scan's edges see replicated halos
+        n_layers = n_stack_layers(speech_c32)
+
+        def chunk_programs(ss, mode):
+            """The chunk programs one pass of `mode` enqueues: a chunk, or a batched group, each K1 x n_layers + K2."""
+            bounds = ss._bounds(LONG_FRAMES)
+            if mode == "synth_batched":
+                return len({(hi - lo, t0 - lo, t1 - t0) for t0, t1, lo, hi in bounds})
+            return len(bounds) if mode == "synth" else -(-LONG_FRAMES // LONG_CHUNK)
+
+        def counted(ss, mode, what, store=None):
+            """One pass of `mode` with the launch counts set to 0 just before and read just after."""
+            kernel_lib.reset_launch_counts()
+            if store is None:
+                y = getattr(ss, mode)(mel_long)
+            else:
+                with recording_k1(store):
+                    y = getattr(ss, mode)(mel_long)
+            counts = dict(kernel_lib.launches)
+            n = chunk_programs(ss, mode)
+            check(counts == {"wavenet_layer": n_layers * n, "oscillator": n} and np.isfinite(y).all()
+                  and y.shape == (1, LONG_FRAMES * hop),
+                  f"{mode} {what}: finite audio of {LONG_FRAMES * hop} samples; launches {counts} for {n} chunk "
+                  f"programs (expected wavenet_layer {n_layers}, oscillator 1 each)")
+            return y, counts
+
         for wn_dtype, label, tol in (("", "fp32", 2e-3), (None, "bf16", 2e-2)):
             model = registry_variant("SPEECH", wn_dtype, dev, **SIGMA0)
             y_one = one_shot(model, mel_long)
             ss = StreamingSynthesizer(model, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, device=dev)
+            bounds = ss._bounds(LONG_FRAMES)
             for mode in modes:
-                y = getattr(ss, mode)(mel_long)
-                part = interior if mode == "synth_scan" else slice(None)
-                err = rel_rms(y[:, part], y_one[:, part])
-                # the error's growth along the utterance: first and last chunk (inside the interior)
-                first = slice(LONG_HALO * hop, LONG_CHUNK * hop)
-                last = slice((LONG_FRAMES - LONG_CHUNK) * hop, (LONG_FRAMES - LONG_HALO) * hop)
-                ends = (rel_rms(y[:, first], y_one[:, first]), rel_rms(y[:, last], y_one[:, last]))
+                store = {}
+                y, counts = counted(ss, mode, f"{label} sigma-0", store)
+                # synth_scan's edge chunks see replicated halos: its interior only
+                lo_f, hi_f = (LONG_HALO, LONG_FRAMES - LONG_HALO) if mode == "synth_scan" else (0, LONG_FRAMES)
+                err = rel_rms(y[:, lo_f * hop: hi_f * hop], y_one[:, lo_f * hop: hi_f * hop])
+                per_chunk = [rel_rms(y[:, max(t0, lo_f) * hop: min(t1, hi_f) * hop],
+                                     y_one[:, max(t0, lo_f) * hop: min(t1, hi_f) * hop]) for t0, t1, _, _ in bounds]
                 numbers["long_form"].setdefault(mode, {}).update({f"rel_rms_vs_one_shot_{label}": err,
-                                                                  f"rel_rms_first_last_chunk_{label}": ends})
+                                                                  f"rel_rms_per_chunk_{label}": per_chunk,
+                                                                  f"launches_{label}": counts})
                 what = (f"{mode} {label} vs one-shot infer{' (interior)' if mode == 'synth_scan' else ''}, sigma-0 "
-                        f"SPEECH: rel-RMS {err:.3e} (first / last chunk {ends[0]:.3e} / {ends[1]:.3e})")
+                        f"SPEECH: rel-RMS {err:.3e}, per chunk {' '.join(f'{e:.2e}' for e in per_chunk)}")
                 if label == "fp32":
-                    check(y.shape == y_one.shape and np.isfinite(y).all() and err <= tol, f"{what} (<= {tol:g})")
+                    check(max(per_chunk) <= tol, f"{what} (every chunk <= {tol:g})")
                 else:  # bf16 is reported: the F0 net sums a bf16 convolution in a shape-dependent order
-                    print(f"  report {what} (bound {tol:g}: {'within' if err <= tol else 'BEYOND'})", flush=True)
+                    print(f"  report {what} (bound {tol:g}: {'within' if max(per_chunk) <= tol else 'BEYOND'})",
+                          flush=True)
+                held(store, f"{mode} {label}", "k1_long_form")
             if label == "fp32":
-                # K2 inside one synth pass: its phase bit-equal to the plain version's, chunk by chunk,
-                # and continuous across the chunk boundaries
-                calls = []
+                # K2 inside one synth and one synth_scan pass: its phase bit-equal to the plain version's,
+                # chunk by chunk, continuous across the chunk boundaries, and at each chunk's end against
+                # the one-shot phase
+                blk, stp, rate = model.block, ss.stp, ss.osc_rate
+                wt = blk.wavetable
+                with torch.inference_mode(), exact_fp32():
+                    f0_one = ss._model_f0(torch.from_numpy(mel_long).to(dev))
+                    phase_one = oscillate_plain(f0_one, blk.wavetables, wt.nominalF0, wt.F0GridFactor,
+                                                wt.min_transposition, wt.max_transposition, wt.sample_rate,
+                                                return_phase=True)[1][0].cpu().numpy()
+                f0_one = f0_one[0].cpu().numpy()
 
-                def recording(f0, tables, *consts, phase_offset=None, **_):
-                    audio, phase = oscillate(f0, tables, *consts, phase_offset=phase_offset, return_phase=True)
-                    ref, ref_phase = oscillate_plain(f0, tables, *consts, phase_offset=phase_offset,
-                                                     return_phase=True)
-                    calls.append((f0.cpu().numpy(), phase.cpu().numpy(), float((audio - ref).abs().max()),
-                                  int((phase != ref_phase).sum())))
-                    return audio
+                def cycles(a, b):
+                    d = (float(a) - float(b)) % 1.0
+                    return min(d, 1.0 - d)
 
-                mbexwn_module.oscillate = recording
-                try:
-                    ss.synth(mel_long)
-                finally:
-                    mbexwn_module.oscillate = oscillate
-                bounds = ss._bounds(LONG_FRAMES)
-                stp, rate = ss.stp, ss.pulse_rate
-                jumps = []
-                for (t0, t1, lo, _), (_, phase, _, _), (f0n, phase_n, _, _), nxt in zip(bounds, calls, calls[1:],
-                                                                                      bounds[1:]):
-                    end = phase[0, (t1 - lo) * stp - 1]
-                    start = phase_n[0, (nxt[0] - nxt[2]) * stp]
-                    d = (float(start) - float(end) - float(f0n[0, (nxt[0] - nxt[2]) * stp]) / rate) % 1.0
-                    jumps.append(min(d, 1.0 - d))
-                n_diff = sum(c[3] for c in calls)
-                audio_err = max(c[2] for c in calls)
-                numbers["long_form"]["k2_phase_samples_differing"] = n_diff
-                numbers["long_form"]["k2_boundary_phase_jump_max"] = max(jumps)
-                check(len(calls) == len(bounds) and n_diff == 0 and audio_err <= 1e-5 and max(jumps) <= 1e-3,
-                      f"K2 in one fp32 synth pass ({len(calls)} chunks): phase samples differing from plain {n_diff}, "
-                      f"audio max abs {audio_err:.3e} (<= 1e-5); largest phase jump at a chunk boundary "
-                      f"{max(jumps):.3e} cycles (<= 1e-3)")
+                for mode in ("synth", "synth_scan"):
+                    calls = []
+
+                    def recording(f0, tables, *consts, phase_offset=None, **_):
+                        audio, phase = oscillate(f0, tables, *consts, phase_offset=phase_offset, return_phase=True)
+                        ref, ref_phase = oscillate_plain(f0, tables, *consts, phase_offset=phase_offset,
+                                                         return_phase=True)
+                        calls.append((f0.cpu().numpy(), phase.cpu().numpy(), float((audio - ref).abs().max()),
+                                      int((phase != ref_phase).sum())))
+                        return audio
+
+                    mbexwn_module.oscillate = recording
+                    try:
+                        getattr(ss, mode)(mel_long)
+                    finally:
+                        mbexwn_module.oscillate = oscillate
+                    # (t0, t1, the chunk's first interior sample in its span) of every chunk
+                    chunks = ([(t0, t1, (t0 - lo) * stp) for t0, t1, lo, _ in bounds] if mode == "synth" else
+                              [(t0, min(t0 + LONG_CHUNK, LONG_FRAMES), LONG_HALO * stp)
+                               for t0 in range(0, LONG_FRAMES, LONG_CHUNK)])
+                    jumps, end_gaps, f0_gaps = [], [], []
+                    for k, ((t0, t1, left), (f0c, phase, _, _)) in enumerate(zip(chunks, calls)):
+                        last = left + (t1 - t0) * stp - 1
+                        end_gaps.append(cycles(phase[0, last], phase_one[t1 * stp - 1]))
+                        f0_gaps.append(float(np.max(np.abs(f0c[0, left: last + 1] - f0_one[t0 * stp: t1 * stp]))))
+                        if k + 1 < len(calls):
+                            f0n, phase_n, nleft = calls[k + 1][0], calls[k + 1][1], chunks[k + 1][2]
+                            jumps.append(cycles(phase_n[0, nleft] - phase[0, last], f0n[0, nleft] / rate))
+                    n_diff = sum(c[3] for c in calls)
+                    audio_err = max(c[2] for c in calls)
+                    numbers["long_form"][mode].update(k2_phase_samples_differing=n_diff,
+                                                      k2_boundary_phase_jump_max=max(jumps),
+                                                      chunk_end_phase_vs_one_shot_cycles=end_gaps,
+                                                      interior_f0_vs_one_shot_max_abs_hz=f0_gaps)
+                    check(len(calls) == len(chunks) and n_diff == 0 and audio_err <= 1e-5 and max(jumps) <= 1e-3,
+                          f"K2 in one fp32 {mode} pass ({len(calls)} chunks): phase samples differing from plain "
+                          f"{n_diff}, audio max abs {audio_err:.3e} (<= 1e-5); largest phase jump at a chunk "
+                          f"boundary {max(jumps):.3e} cycles (<= 1e-3)")
+                    print(f"  fp32 {mode}: phase at each chunk's end vs the one-shot phase (cycles) "
+                          f"{' '.join(f'{g:.2e}' for g in end_gaps)}; interior F0 vs the one-shot F0, max abs (Hz) "
+                          f"{' '.join(f'{g:.2e}' for g in f0_gaps)}", flush=True)
 
         shipped = inverter("SPEECH", None).model
         ss = StreamingSynthesizer(shipped, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, device=dev)
         walls = {mode: [] for mode in modes}
         for mode in modes:
             getattr(ss, mode)(mel_long)  # warm pass
+        long_launches = {"wavenet_layer": 0, "oscillator": 0}
+        for mode in modes:  # the long-form path as a user runs it: one counted pass per mode
+            _, counts = counted(ss, mode, "shipped bf16")
+            numbers["long_form"][mode]["launches"] = counts
+            for k in long_launches:
+                long_launches[k] += counts[k]
+        numbers["long_form"]["launches"] = long_launches
         for _ in range(5):
             for mode in modes:
                 torch.cuda.synchronize()
@@ -640,6 +773,16 @@ def phase_streaming(inverter, check, dev):
         # (c) live, causal, at bench_latency's sweep
         print(f"  (c) live: causal SPEECH, halo {LIVE_HALO}, halo_right {LIVE_HALO_RIGHT}", flush=True)
         mel_live = make_mel(LIVE_FRAMES, 80, SEED + 50)
+        live16 = registry_variant("SPEECH", None, dev, force_causal=True, **SIGMA0)
+        for c in LIVE_CHUNKS:  # K1 against plain at every span a live stream of this chunk size gives it
+            for model, label in ((speech_c32, "fp32"), (live16, "bf16")):
+                store = {}
+                with recording_k1(store):
+                    StreamingSynthesizer(model, chunk_frames=c, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
+                                         device=dev).synth(mel_live)
+                check(all(key[2] for key in store), f"live chunk {c} {label}: every stack call is causal")
+                held(store, f"live chunk {c} {label} (spans up to {LIVE_HALO + c + LIVE_HALO_RIGHT} frames)",
+                     "k1_live")
         y_one = one_shot(speech_c32, mel_live)
         ss = StreamingSynthesizer(speech_c32, chunk_frames=16, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
                                   device=dev)
@@ -663,8 +806,6 @@ def phase_streaming(inverter, check, dev):
         check(len(ss.programs - warmed) <= 1, f"after warm() ({len(warmed)} shapes) stream() ran "
                                               f"{len(ss.programs - warmed)} other chunk shape(s) (<= 1)")
 
-        live16 = registry_variant("SPEECH", None, dev, force_causal=True, **SIGMA0)
-        n_layers = sum(getattr(live16.block, n).wavenet.n_layers for n in live16.block.block_names)
         live_launches = {"wavenet_layer": 0, "oscillator": 0}
         for c in LIVE_CHUNKS:
             ss = StreamingSynthesizer(live16, chunk_frames=c, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
@@ -709,6 +850,7 @@ def phase_streaming(inverter, check, dev):
     finally:
         ws.wavenet_stack_plain = real_plain
     numbers["live"]["launches"] = live_launches
+    numbers["k1_bf16_max_abs"] = k1_bf16_max_abs[0]
     check(plain_on_card[0] == 0, f"the plain stack was called on a CUDA tensor {plain_on_card[0]} times in [8](b)-(c)")
     return numbers
 
@@ -966,8 +1108,11 @@ def main() -> int:
     streaming = phase_streaming(inverter, check, dev)
     streaming["seconds"] = time.perf_counter() - t0
     streaming["card"] = card
-    k1_max_abs = max(k1_max_abs, streaming["k1_causal_bf16_max_abs"])
-    launches = {k: main_launches[k] + streaming["live"]["launches"][k] for k in main_launches}
+    k1_max_abs = max(k1_max_abs, streaming["k1_bf16_max_abs"])
+    # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
+    # long-form mode ([8](b), shipped model) and the live streams ([8](c))
+    launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
+                for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)

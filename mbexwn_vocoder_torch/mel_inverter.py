@@ -21,10 +21,12 @@ from scipy.interpolate import interp1d
 
 from . import get_config_file
 from .analysis import compute_mel_spectrogram_internal
+from .compat.params_io import flatten, load_params, params_from_jax
 from .config import read_config
 from .dsp.db import log_to_db
 from .dsp.resample import resample
-from .models.factory import create_model, load_registry_weights
+from .models.factory import create_model
+from .ops.conv import fold_weight_norm
 from .platform import resolve_device
 
 _DEF_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
@@ -202,7 +204,8 @@ class MELInverter:
             raise FileNotFoundError(f"no weights.npz in {model_dir}")
         if verbose:
             print(f"restore from {weights_npz}", file=sys.stderr)
-        load_registry_weights(model, weights_npz)
+        state = params_from_jax(flatten(fold_weight_norm(load_params(weights_npz))))
+        model.block.load_state_dict(state, strict=True)
         self.model = model.eval().to(self.device)
 
         self.mel_channels = self.preprocess_config["mel_channels"]

@@ -1,6 +1,5 @@
-from .factory import create_model, create_registry_model, load_registry_weights
+from .factory import create_model, create_registry_model
 from .mbexwn import MBExWN
 from .pan_wavenet import NormMelComponents, PaNWaveNet
 
-__all__ = ["create_model", "create_registry_model", "load_registry_weights", "MBExWN", "NormMelComponents",
-           "PaNWaveNet"]
+__all__ = ["create_model", "create_registry_model", "MBExWN", "NormMelComponents", "PaNWaveNet"]

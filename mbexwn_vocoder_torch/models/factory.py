@@ -1,6 +1,6 @@
-"""Model factory: only the mbexwn family exists.  `load_registry_weights`
-loads a registry checkpoint; `create_registry_model` builds a registry
-model with config keys overridden and its shipped weights."""
+"""Model factory: only the mbexwn family exists.  `create_registry_model`
+builds a registry model with config keys overridden and its shipped
+weights."""
 from __future__ import annotations
 
 import os
@@ -22,30 +22,22 @@ def create_model(hparams, training_config, preprocess_config, name="myWaveGlow",
                               f"Only mbexwn_config is currently supported.")
 
 
-def load_registry_weights(model: PaNWaveNet, weights_npz: str) -> None:
-    """Load a registry `weights.npz` (weight norm folded) into `model`.
-
-    A model built with the noise channel off (pp_mod_subnet_noise_channel_sigma
-    0) takes a checkpoint trained with one: the noise is the last input
-    column of WaveNet block 0's folded start kernel, and dropping that column
-    gives the shipped model with its noise channel at zero."""
-    flat = flatten(fold_weight_norm(load_params(weights_npz)))
-    blk = model.block
-    start = f"{blk.block_names[0]}/wavenet/start/kernel"
-    if not blk.pp_mod_subnet_noise_channel_sigma and flat[start].shape[1] == blk.wn_in_channels + 1:
-        flat[start] = flat[start][:, :-1]
-    blk.load_state_dict(params_from_jax(flat), strict=True)
-
-
 def create_registry_model(model_id_or_path: str, **mbexwn_overrides) -> PaNWaveNet:
     """A registry model (id or directory) with keys of its `mbexwn_config`
     overridden (e.g. force_causal=True, pp_mod_subnet_noise_channel_sigma=0,
     normalize_rms_from_mell=False) and its shipped weights, on the CPU in
-    eval mode.  Causal padding and the noise channel's removal change no
-    other parameter, so every such variant takes the shipped checkpoint."""
+    eval mode.  Causal padding changes no parameter.  With the noise channel
+    overridden off (sigma 0) block 0's folded start kernel loses its last
+    input column, the noise's: the shipped model with its noise at zero."""
     config_file = get_config_file(model_id_or_path)
     hparams = read_config(config_file)
     hparams["mbexwn_config"].update(mbexwn_overrides)
     model, _ = create_model(hparams, hparams["training_config"], hparams["preprocess_config"])
-    load_registry_weights(model, os.path.join(os.path.dirname(config_file), "weights.npz"))
+    flat = flatten(fold_weight_norm(load_params(os.path.join(os.path.dirname(config_file), "weights.npz"))))
+    blk = model.block
+    start = f"{blk.block_names[0]}/wavenet/start/kernel"
+    noise_off = "pp_mod_subnet_noise_channel_sigma" in mbexwn_overrides and not blk.pp_mod_subnet_noise_channel_sigma
+    if noise_off and flat[start].shape[1] == blk.wn_in_channels + 1:
+        flat[start] = flat[start][:, :-1]
+    blk.load_state_dict(params_from_jax(flat), strict=True)
     return model.eval()

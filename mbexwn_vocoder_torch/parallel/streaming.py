@@ -9,13 +9,20 @@ geometry, edge conventions and outputs:
   audio outside [t0, t1) is dropped;
 - the oscillator phase is a prefix sum over the whole utterance.  The phase
   at a chunk's left edge (the carry) is accumulated in fp64 mod 1 from each
-  chunk's interior F0 and handed to the chunk as fp32; inside the chunk the
-  offset is mod(carry - left-halo increment, 1) in fp32, from the span's
-  own F0, and goes to the oscillator kernel as its `phase_offset`;
+  chunk's interior phase increments and handed to the chunk as fp32; inside
+  the chunk the offset is mod(carry - left-halo increment, 1) in fp32, from
+  the span's own F0, and goes to the oscillator kernel as its
+  `phase_offset`.  The increments are the oscillator's own, F0 times the
+  fp32 reciprocal of its rate (`ops.oscillator.phase_velocity`): summing
+  F0 / rate instead (the JAX package's carry) misses the oscillator's
+  integral by the reciprocal's rounding, 1.07e-8 of it at 12 kHz, which
+  over a minute of speech moves the late chunks' phase ~2e-4 cycles from
+  the one-shot phase;
 - `synth` runs the chunks one after another, `synth_batched` stacks all
-  chunks of one shape into one device batch (B x n_chunks rows) with the
-  carries from a first F0-only pass, `synth_scan` enqueues every chunk of
-  one uniform span back to back against one full-length F0 contour, and
+  chunks of one shape into one device batch (B x n_chunks rows), with the
+  carries from the groups' F0, which the synthesis then takes as given,
+  `synth_scan` enqueues every chunk of one uniform span back to back
+  against one full-length F0 contour, and
   `stream` consumes mel slabs as they arrive and yields a chunk's audio as
   soon as `halo_right` frames past its end are in.
 
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.oscillator import phase_velocity
 from ..ops.padding import pad1d
 from ..ops.precision import exact_fp32
 from ..platform import resolve_device
@@ -68,6 +76,12 @@ def _mod1_sum(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
         x = F.pad(x, (0, pad))
     partial = torch.remainder(x.reshape(B, -1, block).sum(dim=2), 1.0)
     return torch.remainder(partial.sum(dim=1), 1.0)
+
+
+def _phase_increment(f0: torch.Tensor, rate: float) -> torch.Tensor:
+    """(B, T) F0 -> (B,) fp64: the phase (cycles, not wrapped) the oscillator
+    integrates over it, the sum of its own fp32 increments."""
+    return phase_velocity(f0, rate).double().sum(dim=1)
 
 
 def _edge_pad_time(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -95,7 +109,7 @@ class StreamingSynthesizer:
         blk = self.model.block
         self.stp = blk.spect_to_pulse_upsampling_factor
         self.hop = blk.spect_hop_size
-        self.pulse_rate = blk.pulse_rate
+        self.osc_rate = blk.wavetable.sample_rate  # the rate the oscillator integrates F0 at
         self.programs: Set[tuple] = set()
 
     # ---------------------------------------------------------------- pieces
@@ -105,12 +119,9 @@ class StreamingSynthesizer:
 
     @exact_fp32()
     @torch.inference_mode()
-    def _infer(self, mel: torch.Tensor, **kwargs) -> torch.Tensor:
-        return self.model.infer(mel.contiguous(), synth_length=mel.shape[1] * self.hop, **kwargs)
-
     def _one_shot(self, mell: np.ndarray) -> np.ndarray:
         """A signal no longer than one chunk and its halo: one synthesis."""
-        return self._infer(self._to_device(mell)).cpu().numpy()
+        return self.model.infer(self._to_device(mell), synth_length=mell.shape[1] * self.hop).cpu().numpy()
 
     def _model_f0(self, mel: torch.Tensor) -> torch.Tensor:
         """The F0 contour the model synthesises `mel` (B, T, C) with: the F0
@@ -124,12 +135,6 @@ class StreamingSynthesizer:
 
     @exact_fp32()
     @torch.inference_mode()
-    def _f0(self, mel: torch.Tensor) -> torch.Tensor:
-        self.programs.add(("f0", mel.shape[1]))
-        return self._model_f0(mel)
-
-    @exact_fp32()
-    @torch.inference_mode()
     def _chunk(self, mel_span: torch.Tensor, carry: torch.Tensor, left: int, inner: int):
         """The chunk program: mel span (B, span, C) on the device and the
         carry (B,) fp64, the phase (mod 1) just before frame t0 -> (audio of
@@ -139,11 +144,11 @@ class StreamingSynthesizer:
         stp, hop = self.stp, self.hop
         mel_span = mel_span.contiguous()
         f0 = self._model_f0(mel_span)
-        left_inc = f0[:, : left * stp].sum(dim=1) / self.pulse_rate
+        left_inc = phase_velocity(f0[:, : left * stp], self.osc_rate).sum(dim=1)
         offset = torch.remainder(carry.float() - left_inc, 1.0)
         y = self.model.infer(mel_span, synth_length=span * hop, F0=f0, phase_offset=offset)
-        f0_interior = f0[:, left * stp: (left + inner) * stp]
-        carry = torch.remainder(carry + f0_interior.double().sum(dim=1) / self.pulse_rate, 1.0)
+        carry = torch.remainder(carry + _phase_increment(f0[:, left * stp: (left + inner) * stp], self.osc_rate),
+                                1.0)
         return y[:, left * hop: (left + inner) * hop], carry
 
     def _bounds(self, T: int) -> List[Tuple[int, int, int, int]]:
@@ -171,49 +176,49 @@ class StreamingSynthesizer:
             outs.append(audio)
         return torch.cat(outs, dim=1).cpu().numpy()
 
+    @exact_fp32()
+    @torch.inference_mode()
     def synth_batched(self, mell: np.ndarray) -> np.ndarray:
         """Every chunk in one batched call per chunk shape instead of one after
-        another: a first F0-only pass over the spans gives every chunk's
-        carry (fp64 mod 1 on the host), then the chunks of each (span, left,
-        inner) shape synthesise as one device batch of B * n_chunks rows."""
+        another: the chunks of each (span, left, inner) shape form one device
+        batch of B * n_chunks rows.  One F0 pass per group gives every
+        chunk's carry (fp64 mod 1, on the device) and offset, and the
+        synthesis takes that F0 as given, so the F0 net runs once a chunk."""
         B, T, C = mell.shape
         if T <= self.chunk_frames + self.halo_frames:
             return self._one_shot(mell)
         stp, hop = self.stp, self.hop
         bounds = self._bounds(T)
-
-        # pass 1: F0 over each span shape.  The interior contour feeds the
-        # carries; the span's own left-halo integral is what the oscillator
-        # inside the chunk integrates, so the offset cancels exactly that.
-        f0_interior: List[Optional[np.ndarray]] = [None] * len(bounds)
-        f0_left_inc: List[Optional[np.ndarray]] = [None] * len(bounds)
-        span_groups: Dict[int, list] = {}
-        for idx, (t0, t1, lo, hi) in enumerate(bounds):
-            span_groups.setdefault(hi - lo, []).append(idx)
-        for span, idxs in span_groups.items():
-            mel_spans = np.stack([mell[:, bounds[i][2]: bounds[i][3]] for i in idxs], axis=0)
-            f0s = self._f0(self._to_device(mel_spans.reshape(-1, span, C))).cpu().numpy().reshape(len(idxs), B, -1)
-            for row, i in enumerate(idxs):
-                t0, t1, lo, _ = bounds[i]
-                f0 = f0s[row]
-                f0_interior[i] = f0[:, (t0 - lo) * stp: (t1 - lo) * stp]
-                f0_left_inc[i] = np.sum(f0[:, : (t0 - lo) * stp].astype(np.float64), axis=1) / self.pulse_rate
-        carries = [np.zeros((B,), dtype=np.float64)]
-        for f0i in f0_interior[:-1]:
-            carries.append(np.mod(carries[-1] + np.sum(f0i.astype(np.float64), axis=1) / self.pulse_rate, 1.0))
-        offsets = [np.mod(c - inc, 1.0).astype(np.float32) for c, inc in zip(carries, f0_left_inc)]
-
-        # pass 2: one batched synthesis per (span, left, inner)
-        out = torch.empty((B, T * hop), dtype=torch.float32, device=self.device)
         groups: Dict[Tuple[int, int, int], list] = {}
         for idx, (t0, t1, lo, hi) in enumerate(bounds):
             groups.setdefault((hi - lo, t0 - lo, t1 - t0), []).append(idx)
+
+        # the F0 of each group; a chunk's interior increments feed the carries,
+        # its left-halo increments (what the oscillator inside the chunk
+        # integrates before t0) the offset that cancels them
+        inputs, interior_inc, left_inc = {}, [None] * len(bounds), [None] * len(bounds)
+        for (span, left, inner), idxs in groups.items():
+            mel_spans = self._to_device(np.stack([mell[:, bounds[i][2]: bounds[i][3]] for i in idxs], axis=0)
+                                        .reshape(-1, span, C))
+            self.programs.add(("f0", span))
+            f0 = self._model_f0(mel_spans)
+            f0_rows = f0.reshape(len(idxs), B, -1)
+            for row, i in enumerate(idxs):
+                interior_inc[i] = _phase_increment(f0_rows[row, :, left * stp: (left + inner) * stp], self.osc_rate)
+                left_inc[i] = _phase_increment(f0_rows[row, :, : left * stp], self.osc_rate)
+            inputs[(span, left, inner)] = (mel_spans, f0)
+        carry = torch.zeros((B,), dtype=torch.float64, device=self.device)
+        offsets = []
+        for inc_left, inc_interior in zip(left_inc, interior_inc):
+            offsets.append(torch.remainder(carry - inc_left, 1.0).float())
+            carry = torch.remainder(carry + inc_interior, 1.0)
+
+        out = torch.empty((B, T * hop), dtype=torch.float32, device=self.device)
         for (span, left, inner), idxs in groups.items():
             self.programs.add(("batched", span, left, inner))
-            mel_spans = np.stack([mell[:, bounds[i][2]: bounds[i][3]] for i in idxs], axis=0)
-            offs = np.stack([offsets[i] for i in idxs], axis=0)  # (n_i, B)
-            y = self._infer(self._to_device(mel_spans.reshape(-1, span, C)),
-                            phase_offset=self._to_device(offs.reshape(-1)))
+            mel_spans, f0 = inputs[(span, left, inner)]
+            y = self.model.infer(mel_spans, synth_length=span * hop, F0=f0,
+                                 phase_offset=torch.cat([offsets[i] for i in idxs]))
             ys = y[:, left * hop: (left + inner) * hop].reshape(len(idxs), B, inner * hop)
             for row, i in enumerate(idxs):
                 out[:, bounds[i][0] * hop: bounds[i][1] * hop] = ys[row]
@@ -238,23 +243,24 @@ class StreamingSynthesizer:
         c, h, hr = self.chunk_frames, self.halo_frames, self.halo_right
         if T <= c + h:
             return self._one_shot(mell)
-        stp, hop, rate = self.stp, self.hop, self.pulse_rate
+        stp, hop, rate = self.stp, self.hop, self.osc_rate
         n_chunks = -(-T // c)
         span = c + h + hr
         self.programs.add(("scan", n_chunks, B))
         mel_halo = self._to_device(np.pad(mell, ((0, 0), (h, n_chunks * c - T + hr), (0, 0)), mode="edge"))
         f0_full = self._model_f0(self._to_device(mell))
         f0_full = _edge_pad_time(f0_full, 0, n_chunks * c * stp - f0_full.shape[1])
-        # block sums mod 1, then an exclusive cumsum mod 1: each chunk's start phase
-        blocks = (f0_full / rate).reshape(B, n_chunks, c, stp)
-        inc = torch.remainder(torch.remainder(blocks.sum(dim=3), 1.0).sum(dim=2), 1.0)
-        starts = F.pad(torch.remainder(torch.cumsum(inc, dim=1), 1.0), (1, 0))[:, :-1]
+        # each chunk's increment (fp64, mod 1), then an exclusive cumsum mod 1: each chunk's start
+        # phase.  (The JAX package sums fp32 blocks of up to ~256 cycles here, whose fp32 spacing is
+        # 3e-5 cycles.)
+        inc = torch.remainder(_phase_increment(f0_full.reshape(B * n_chunks, c * stp), rate), 1.0)
+        starts = F.pad(torch.remainder(torch.cumsum(inc.reshape(B, n_chunks), dim=1), 1.0), (1, 0))[:, :-1]
         f0_haloed = _edge_pad_time(f0_full, h * stp, hr * stp)
         out = torch.empty((B, n_chunks * c * hop), dtype=torch.float32, device=self.device)
         for i in range(n_chunks):
             mel_span = mel_halo[:, i * c: i * c + span].contiguous()
             f0_span = f0_haloed[:, i * c * stp: (i * c + span) * stp].contiguous()
-            offset = torch.remainder(starts[:, i] - _mod1_sum(f0_span[:, : h * stp] / rate), 1.0)
+            offset = torch.remainder(starts[:, i] - _mod1_sum(phase_velocity(f0_span[:, : h * stp], rate)), 1.0).float()
             y = self.model.infer(mel_span, synth_length=span * hop, F0=f0_span, phase_offset=offset)
             out[:, i * c * hop: (i + 1) * c * hop] = y[:, h * hop: (h + c) * hop]
         return out[:, : T * hop].cpu().numpy()

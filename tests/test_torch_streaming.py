@@ -147,6 +147,26 @@ def test_synth_batched_multi_utterance(models):
         np.testing.assert_allclose(y_all[b: b + 1], ss.synth_batched(mell[b: b + 1]), rtol=1e-3, atol=1e-3)
 
 
+def test_f0_net_runs_once_a_chunk(models, monkeypatch):
+    """synth_batched runs the F0 net once per chunk group and synthesises
+    with that F0 (one F0 pass for each of its 3 groups); synth runs it once
+    per chunk."""
+    _, _, model = models
+    blk = model.block
+    calls = []
+    real = blk.generate_f0
+    monkeypatch.setattr(blk, "generate_f0", lambda mel: calls.append(tuple(mel.shape)) or real(mel))
+    mell = _mel(13, B=2)
+    ss = StreamingSynthesizer(model, chunk_frames=32, halo_frames=16, device="cpu")
+    ss.synth_batched(mell)
+    groups = [k for k in ss.programs if k[0] == "batched"]
+    assert len(calls) == len(groups) == 3
+    assert sorted(calls) == sorted((2, span, 80) for _, span, _, _ in groups)  # one chunk a group, B = 2
+    calls.clear()
+    ss.synth(mell)
+    assert len(calls) == len(ss._bounds(T))
+
+
 def test_synth_scan_multi_utterance(models):
     """synth_scan with B > 1 equals the same utterances run one by one."""
     _, _, model = models
@@ -209,6 +229,33 @@ def test_sigma0_registry_model_is_the_shipped_model_with_zero_noise():
     with torch.inference_mode():
         got = model.infer(torch.from_numpy(mel), synth_length=16 * HOP).numpy().ravel()
     assert rel_rms(got, ref) <= 1e-6
+
+
+def test_carry_follows_the_oscillator_phase():
+    """The carry of 60 s of F0 at 12 kHz, summed chunk by chunk (chunks of
+    512 frames), stays within 5e-5 cycles of the oscillator's one-shot
+    phase at every chunk end: it sums the oscillator's own increments (F0
+    times the fp32 reciprocal of the rate).  F0 / rate, the JAX package's
+    carry, drifts beyond 1e-4 cycles by the end (the reciprocal's rounding,
+    1.07e-8 of the phase)."""
+    from mbexwn_vocoder_torch.ops.oscillator import phase_velocity, stable_cumsum_and_wrap
+    from mbexwn_vocoder_torch.parallel.streaming import _phase_increment
+
+    rate, n, chunk = 12000.0, 60 * 12000, 512 * 150
+    rng = np.random.RandomState(0)
+    f0 = torch.from_numpy((200 + 160 * np.abs(np.sin(np.cumsum(rng.randn(n)) * 1e-3))).astype(np.float32)[None])
+    phase = stable_cumsum_and_wrap(phase_velocity(f0, rate))[0].double().numpy()
+    carry = divided = 0.0
+    err_carry, err_divided = [], []
+    for t0 in range(0, n, chunk):
+        t1 = min(n, t0 + chunk)
+        carry = (carry + float(_phase_increment(f0[:, t0:t1], rate)[0])) % 1.0
+        divided = (divided + float(f0[0, t0:t1].double().sum()) / rate) % 1.0
+        for value, errs in ((carry, err_carry), (divided, err_divided)):
+            d = (value - phase[t1 - 1]) % 1.0
+            errs.append(min(d, 1.0 - d))
+    assert max(err_carry) <= 5e-5
+    assert err_divided[-1] > 1e-4
 
 
 @pytest.mark.parametrize("T_inc", [1000, 2400, 4097])
