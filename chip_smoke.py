@@ -90,13 +90,38 @@ prints no result line:
      chunk (K1 24, K2 1), and one steady chunk's device busy time and idle
      share (torch.profiler).  The model's stack calls in (b) and (c) never
      reach the plain stack with a CUDA tensor (the comparisons call it
-     directly).
+     directly);
+  9. training (`training.Trainer`, the differentiable route: the WaveNet
+     layer by layer and `oscillate_plain`; neither kernel has a backward
+     pass):
+     (a) K1 and K2 raise on CUDA inputs that require grad;
+     (b) the CPU tests' tiny configuration (SPEECH with a 16-channel,
+     2-layer WaveNet), one set of params, injected draws, fp32: the card's
+     loss within 1e-5 of the CPU's, every gradient leaf within 1e-4 rel-RMS
+     or 10x its fp32 rounding (fp32 against fp64 on the same device) where
+     that is coarser, leaves under 1e-6 of the largest norm within 1e-7;
+     (c) full width: SPEECH as shipped (C = 320, 2 x 12 layers) from its
+     weights.npz in the trainable form, bf16 compute, its training_config
+     (Adam 1e-4; the four-resolution STFT, NPOW and mel losses; F0 loss,
+     teacher forcing, coherence), segments of 24,000 samples (81 frames),
+     batch 32 (or the largest that fits, the cut printed) of synth_utterance
+     audio through the port's analysis front end: 20 steps on that batch,
+     every loss finite and the loss falling (mean of the last 5 below the
+     mean of the first 5); step time, median of 10 steps after 2 warm-up
+     steps, by CUDA events and by the host clock, beside the WaveNet's
+     forward + backward bound (3 x K1's operations at 989 TFLOP/s); peak
+     memory; one step's device busy time and idle share (torch.profiler);
+     (d) the trained model folded, written with save_params and loaded by
+     MELInverter on the card: a 512-frame synthesis finite, with 24 K1 and 1
+     K2 launches.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
-with phase [8]'s, the card's name and power limit, a `kernels` JSON line
-(its launches: the main path of [4], SPEECH bf16, plus one pass of each
-long-form mode of [8](b) and the live streams of [8](c), each counted from
-0 just before it), and `{"ok": true, "device": {...}}`.  Needs no network and no JAX.
+with phase [8]'s, a `training:` JSON line with phase [9]'s, the card's name
+and power limit, a `kernels` JSON line (its launches: the main path of
+[4], SPEECH bf16, plus one pass of each long-form mode of [8](b), the live
+streams of [8](c) and the reloaded model's synthesis of [9](d), each
+counted from 0 just before it), and `{"ok": true, "device": {...}}`.
+Needs no network and no JAX.
 """
 from __future__ import annotations
 
@@ -855,6 +880,240 @@ def phase_streaming(inverter, check, dev):
     return numbers
 
 
+TRAIN_SEGMENT, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 24_000, 32, 20, 2, 10
+
+
+def tiny_training_hparams():
+    """The CPU parity tests' tiny configuration: SPEECH with a 16-channel,
+    2-layer WaveNet, F0 loss, teacher forcing 0.5 and coherence 0.1."""
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.config import read_config
+
+    hp = read_config(get_config_file("SPEECH"))
+    mc = hp["mbexwn_config"]
+    mc["pp_mod_subnet"].update(n_channels=16, n_layers=2, n_out_channels=8)
+    mc.update(normalize_rms_from_mell=False, pp_F0_loss_weight=1.0, pp_teacher_forcing_schedule={"initial": 0.5},
+              stft_coh_loss_weight=0.1)
+    return hp
+
+
+def hold_gradient_leaves(got, ref, got64, ref64):
+    """Gradients `got` against `ref` leaf by leaf: rel-RMS <= 1e-4, or <= 10x
+    the leaf's fp32 rounding (each side's fp32 against its fp64 gradient)
+    where that is coarser; leaves under 1e-6 of the largest norm within 1e-7
+    absolute.  Returns (failing leaves, worst (rel-RMS, leaf), the leaves held
+    to their rounding)."""
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(np.sqrt(float(((a - b) ** 2).sum()) / max(float((b ** 2).sum()), 1e-300)))
+
+    largest = max(float(v.double().norm()) for v in ref.values())
+    bad, rows, widened = [], [], []
+    for name, r in ref.items():
+        g = got[name]
+        if float(r.double().norm()) < 1e-6 * largest:
+            err = float((g.cpu() - r.cpu()).abs().max())
+            ok = err <= 1e-7
+        else:
+            err = rel(g, r)
+            rounding = max(rel(r, ref64[name]), rel(g, got64[name]))
+            ok = err <= max(1e-4, 10 * rounding)
+            if ok and err > 1e-4:
+                widened.append((name, err, rounding))
+        rows.append((err, name))
+        if not ok:
+            bad.append((name, err))
+    return bad, max(rows), widened
+
+
+def training_batch(preprocess_config, batch: int, seed: int):
+    """`batch` segments of synthetic speech (synth_utterance, one seeded
+    generator) with their log-mel from the port's analysis front end and
+    their F0 contour at the sample rate."""
+    from mbexwn_vocoder_torch.analysis import compute_mel_spectrogram_internal
+    from mbexwn_vocoder_torch.training.synthetic import synth_utterance
+
+    rng = np.random.RandomState(seed)
+    sr = preprocess_config["sample_rate"]
+    audio, f0, mel = [], [], []
+    for _ in range(batch):
+        a, f = synth_utterance(rng, duration_s=TRAIN_SEGMENT / sr, sr=sr)
+        a, f = a[:TRAIN_SEGMENT], f[:TRAIN_SEGMENT]
+        mell, _ = compute_mel_spectrogram_internal(a[None], preprocess_config=preprocess_config, do_post=True)
+        audio.append(a)
+        f0.append(f)
+        mel.append(mell[0])
+    return {"audio": np.stack(audio).astype(np.float32), "mel": np.stack(mel).astype(np.float32),
+            "F0": np.stack(f0).astype(np.float32)}
+
+
+def phase_training(check, dev):
+    """Phase [9]: the training step on the card.  (a) the kernels' refusal
+    under grad; (b) the tiny configuration's loss and gradients on the card
+    against the CPU's; (c) full-width SPEECH: 20 steps on one batch, step
+    time, peak memory and idle share; (d) the trained model exported and
+    synthesised through the kernels.  Returns the numbers for the
+    `training:` line."""
+    import tempfile
+
+    import torch
+    import yaml
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.compat.params_io import params_to_jax, save_params
+    from mbexwn_vocoder_torch.config import read_config
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.models import create_model, create_registry_model
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.oscillator import oscillate
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack
+    from mbexwn_vocoder_torch.training.trainer import Trainer
+
+    numbers = {}
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):  # (b) in fp32, then (c) as shipped: bf16
+        os.environ[var] = ""
+
+    # (a) the kernels refuse grad: they have no backward pass
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, 256, 320), generator=g, device=dev, requires_grad=True)
+    cond = torch.randn((1, 256, 640), generator=g, device=dev)
+    weights = [(torch.randn((640, 3, 320), generator=g, device=dev) * 0.03, torch.zeros(640, device=dev),
+                torch.randn((320, 320), generator=g, device=dev) * 0.05, torch.zeros(320, device=dev))]
+    f0 = torch.full((1, 12_000), 150.0, device=dev, requires_grad=True)
+    tables = torch.rand((513, 13), generator=g, device=dev)
+    refused = []
+    for name, call in (("K1 wavenet_layer", lambda: wavenet_stack(x, cond, weights, [1])),
+                       ("K2 oscillator", lambda: oscillate(f0, tables, 50.0, 1.25, 1.0, 13.0, 12_000.0))):
+        try:
+            call()
+            refused.append(f"{name}: ran")
+        except RuntimeError as e:
+            refused.append(f"{name}: {'raised' if 'no backward pass' in str(e) else 'other error: ' + str(e)}")
+    check(all(r.endswith("raised") for r in refused),
+          f"(a) under grad, on CUDA inputs that require grad: {'; '.join(refused)}")
+
+    # (b) card gradients against CPU gradients, the tiny configuration, fp32 (fp64 for the rounding)
+    hp = tiny_training_hparams()
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(SEED))
+    state = {k: v.clone() for k, v in model.block.state_dict().items()}
+    rng = np.random.RandomState(SEED)
+    f0_tiny = (120 + 10 * rng.randn(2, 2400)).astype(np.float32)
+    f0_tiny[0, 600:1100] = 0.0
+    tiny = {"audio": (rng.randn(2, 2400) * 0.1).astype(np.float32),
+            "mel": (rng.randn(2, 8, 80) * 0.5 - 4).astype(np.float32), "F0": f0_tiny}
+    out = {}
+    for label, device in (("cpu", "cpu"), ("card", dev)):
+        for dtype in (torch.float32, torch.float64):
+            m, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+            m.block.load_state_dict(state)
+            tr = Trainer(m.to(dtype), hp, device=device)
+            gd = torch.Generator().manual_seed(SEED + 1)
+            draws = {k: torch.randn(shape, generator=gd) for k, shape in tr.draw_shapes(tiny).items()}
+            out[(label, dtype)] = tr.value_and_grad(tiny, 0, draws)
+    (l_cpu, _, g_cpu), (l_card, _, g_card) = out[("cpu", torch.float32)], out[("card", torch.float32)]
+    loss_rel = abs(float(l_card) / float(l_cpu) - 1)
+    bad, worst, widened = hold_gradient_leaves(g_card, g_cpu, out[("card", torch.float64)][2],
+                                               out[("cpu", torch.float64)][2])
+    numbers["tiny_card_vs_cpu"] = {"loss_rel": loss_rel, "worst_leaf": worst[1], "worst_rel_rms": worst[0],
+                                   "leaves": len(g_cpu), "held_to_fp32_rounding": len(widened)}
+    check(loss_rel <= 1e-5 and not bad,
+          f"(b) tiny config, card vs CPU, fp32: loss {float(l_card):.7g} vs {float(l_cpu):.7g} (rel {loss_rel:.2e} "
+          f"<= 1e-5); {len(g_cpu)} gradient leaves, worst {worst[1]} {worst[0]:.2e}; {len(widened)} held to 10x "
+          f"their fp32 rounding ({', '.join(f'{n} {e:.1e}/{r:.1e}' for n, e, r in widened[:6])}"
+          f"{', ...' if len(widened) > 6 else ''}); failing {bad}")
+
+    # (c) full width: SPEECH as shipped, bf16, from its weights in the trainable form
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        os.environ.pop(var, None)
+    hp = read_config(get_config_file("SPEECH"))
+    model = create_registry_model("SPEECH", trainable=True)
+    blk = model.block
+    check(blk.wn_compute_dtype == torch.bfloat16 and blk.subnet_compute_dtype == torch.bfloat16,
+          "(c) SPEECH's compute dtypes are the shipped bf16")
+    t0 = time.perf_counter()
+    batch = training_batch(hp["preprocess_config"], hp["training_config"]["train_batch_size"], SEED + 90)
+    B = batch["audio"].shape[0]
+    print(f"  (c) batch of {B} x {batch['audio'].shape[1]} samples ({batch['mel'].shape[1]} mel frames) from "
+          f"synth_utterance, {time.perf_counter() - t0:.1f} s", flush=True)
+    tr = Trainer(model, hp, device=dev)
+    cut = None
+    while True:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            metrics = tr.train_step({k: v[:B] for k, v in batch.items()})  # the first warm-up step
+            break
+        except torch.cuda.OutOfMemoryError:
+            cut = f"batch {B} ran out of device memory"
+            B //= 2
+            tr.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            if B == 0:
+                raise
+    if cut:
+        print(f"  (c) CUT: {cut}; the phase runs at batch {B}, the largest that fits", flush=True)
+    batch = {k: v[:B] for k, v in batch.items()}
+    losses, event_ms, host_ms = [float(metrics["total_loss"])], [], []
+    for step in range(1, TRAIN_STEPS):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        metrics = tr.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        event_ms.append(start.elapsed_time(stop))
+        losses.append(float(metrics["total_loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = slice(TRAIN_WARMUP - 1, TRAIN_WARMUP - 1 + TRAIN_TIMED)  # the first step ran above
+    step_event_ms, step_host_ms = float(np.median(event_ms[timed])), float(np.median(host_ms[timed]))
+    busy_ms, n_act, by_name = device_activity(lambda: tr.train_step(batch))
+    T_wn = [tr.model.block.wn_input_length(batch["mel"].shape[1]) * (2 if i else 1) for i in range(2)]
+    C = getattr(blk, blk.block_names[0]).wavenet.n_channels
+    flop = sum(3 * k1_work(B, t, C, getattr(blk, name).wavenet.n_layers)[0] for t, name in zip(T_wn, blk.block_names))
+    bound_ms = 1e3 * flop / H100_BF16_FLOPS
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    numbers["full_width"] = {
+        "model": "SPEECH", "batch": B, "cut": cut, "segment_samples": TRAIN_SEGMENT,
+        "mel_frames": int(batch["mel"].shape[1]), "losses": losses, "step_ms_cuda_events": step_event_ms,
+        "step_ms_host": step_host_ms, "step_ms_events_all": event_ms, "step_ms_host_all": host_ms,
+        "wavenet_fwd_bwd_tflop": flop / 1e12, "wavenet_bound_ms": bound_ms, "peak_memory_gb": peak_gb,
+        "device_busy_ms_one_step": busy_ms, "device_activities_one_step": n_act,
+        "idle_share": max(0.0, 1.0 - busy_ms / step_host_ms)}
+    print(f"  (c) losses per step: {' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    print(f"  (c) step {step_event_ms:.2f} ms (CUDA events) / {step_host_ms:.2f} ms (host clock), median of "
+          f"{TRAIN_TIMED} after {TRAIN_WARMUP} warm-up; WaveNet forward + backward bound {bound_ms:.2f} ms "
+          f"({flop / 1e12:.2f} TFLOP at 989 TFLOP/s bf16); peak memory {peak_gb:.2f} GB; one step busies the card "
+          f"{busy_ms:.2f} ms in {n_act} device activities, idle share {numbers['full_width']['idle_share']:.3f}",
+          flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:9.3f} ms {n:5d}x  {name[:80]}", flush=True)
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"(c) SPEECH full width, batch {B}: {TRAIN_STEPS} steps on one batch, every loss finite; the loss falls "
+          f"(mean of the first 5 {first:.4f} -> mean of the last 5 {last:.4f})")
+
+    # (d) fold, export, reload in MELInverter, synthesise through the kernels
+    tr.model.fold_()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_params(os.path.join(tmp, "weights.npz"), params_to_jax(tr.model.block.state_dict()))
+        with open(os.path.join(tmp, "config.yaml"), "w") as f:
+            yaml.safe_dump(json.loads(json.dumps(hp, default=lambda o: f"np.{o.__name__}" if isinstance(o, type)
+                                                 else float(o))), f)
+        inv = MELInverter(tmp, device=dev)
+    mel = make_mel(N_FRAMES, 80, SEED)
+    inv.synth_from_mel(mel)  # warm-up
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+    y = inv.synth_from_mel(mel)
+    counts = dict(kernel_lib.launches)
+    numbers["reloaded_synthesis_launches"] = counts
+    check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
+          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          f"(d) the trained model folded, saved (save_params) and loaded by MELInverter on the card: "
+          f"{N_FRAMES}-frame synthesis finite ({y.shape[0]} samples), launches {counts} (24 K1 + 1 K2)")
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -1109,10 +1368,18 @@ def main() -> int:
     streaming["seconds"] = time.perf_counter() - t0
     streaming["card"] = card
     k1_max_abs = max(k1_max_abs, streaming["k1_bf16_max_abs"])
+    # ---- 9. training
+    print("[9] training (the differentiable route; SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    training = phase_training(check, dev)
+    training["seconds"] = time.perf_counter() - t0
+    training["card"] = card
+    print(f"  phase [9] {training['seconds']:.1f} s", flush=True)
+
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
-    # long-form mode ([8](b), shipped model) and the live streams ([8](c))
+    # long-form mode ([8](b), shipped model), the live streams ([8](c)) and the reloaded model's synthesis ([9](d))
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
-                for k in main_launches}
+                + training["reloaded_synthesis_launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -1131,9 +1398,13 @@ def main() -> int:
     print(f"summary: SPEECH bf16 batch 1 {N_FRAMES} frames: synthesis {synth_ms:.2f} ms = "
           f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s, device idle share {idle:.3f}, {n_activities} device "
           f"activities; K1 {k1_ms:.3f} ms (bound {k1_bound:.4f}), K2 {k2_ms:.5f} ms (bound {k2_bound:.5f}); "
+          f"training step SPEECH batch {training['full_width']['batch']} "
+          f"{training['full_width']['step_ms_cuda_events']:.2f} ms (WaveNet bound "
+          f"{training['full_width']['wavenet_bound_ms']:.2f}), peak {training['full_width']['peak_memory_gb']:.2f} GB; "
           f"all checks passed", flush=True)
     print("serving: " + json.dumps(serving), flush=True)
     print("streaming: " + json.dumps(streaming), flush=True)
+    print("training: " + json.dumps(training), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

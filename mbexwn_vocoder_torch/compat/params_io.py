@@ -2,12 +2,15 @@
 the map from that (JAX-layout) tree onto this package's modules.
 
 `load_params` reads the npz (an fp16 distribution copy, marked by the
-`__distribution_dtype__` sidecar key, is upcast to fp32).  After
-`ops.conv.fold_weight_norm`, `params_from_jax` turns the flat tree into a
-state_dict of `models.MBExWN`: module paths are the JAX paths with "/" read
-as ".", a conv `kernel` (width, in, out) becomes the OIW `weight`, `b`
-becomes `bias`; PReLU `alpha` and the `wavetables` keep their names and
-layout.
+`__distribution_dtype__` sidecar key, is upcast to fp32).  `params_from_jax`
+turns the flat tree into a state_dict of `models.MBExWN`: module paths are
+the JAX paths with "/" read as ".", a folded conv `kernel` (width, in, out)
+becomes the OIW `weight` of the folded form, the unfolded `v` (width, in,
+out) becomes the trainable form's OIW `v`, `g` stays `g` and the
+`_equalized_lr` flag a 0-d bool buffer; `b` becomes `bias`; PReLU `alpha`
+and the `wavetables` keep their names and layout.  `params_to_jax` is its
+exact inverse, and `save_params` writes the registry's flat npz, which
+both packages' `load_params` read.
 """
 from __future__ import annotations
 
@@ -61,19 +64,50 @@ def _restore_flags(tree):
     return tree
 
 
+_TRANSPOSED = {"kernel": "weight", "v": "v"}  # WIO (JAX) <-> OIW (here)
+_RENAMED = {"b": "bias", "g": "g", "alpha": "alpha", "wavetables": "wavetables"}
+
+
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Folded flat JAX parameters -> state_dict of `models.MBExWN`."""
+    """Flat JAX parameters, folded or not -> state_dict of `models.MBExWN` in
+    the matching form."""
     state = {}
     for path, value in flat.items():
         *mod, leaf = path.split("/")
         value = np.asarray(value)
-        if leaf == "kernel":
-            name, value = "weight", np.ascontiguousarray(value.transpose(2, 1, 0))
-        elif leaf == "b":
-            name = "bias"
-        elif leaf in ("alpha", "wavetables"):
-            name = leaf
+        if leaf in _TRANSPOSED:
+            name, value = _TRANSPOSED[leaf], np.ascontiguousarray(value.transpose(2, 1, 0))
+        elif leaf in _RENAMED:
+            name = _RENAMED[leaf]
+        elif leaf == "_equalized_lr":
+            state[".".join(mod + [leaf])] = torch.tensor(bool(value))
+            continue
         else:
-            raise KeyError(f"params_from_jax: unexpected parameter {path} (fold weight norm first)")
+            raise KeyError(f"params_from_jax: unexpected parameter {path}")
         state[".".join(mod + [name])] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """State_dict of `models.MBExWN` (either form) -> flat JAX parameters
+    {slash/path: ndarray}, the exact inverse of `params_from_jax`."""
+    to_jax = {here: jax for jax, here in {**_TRANSPOSED, **_RENAMED}.items()}
+    flat = {}
+    for key, tensor in state.items():
+        *mod, leaf = key.split(".")
+        value = tensor.detach().cpu().numpy()
+        if leaf == "_equalized_lr":
+            flat["/".join(mod + [leaf])] = np.asarray(bool(value))
+            continue
+        if leaf not in to_jax:
+            raise KeyError(f"params_to_jax: unexpected state entry {key}")
+        if leaf in _TRANSPOSED.values():
+            value = np.ascontiguousarray(value.transpose(2, 1, 0))
+        flat["/".join(mod + [to_jax[leaf]])] = value
+    return flat
+
+
+def save_params(path: str, flat: Dict[str, np.ndarray]) -> None:
+    """Write flat parameters (`params_to_jax`) as the registry's .npz, in
+    float32 (no distribution downcast)."""
+    np.savez(path, **flat)

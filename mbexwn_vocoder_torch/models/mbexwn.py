@@ -13,6 +13,14 @@ every pad to the left: CAUSAL subnets and CAUSAL WaveNet stacks, with the
 same parameters as the non-causal model.  Config branches the registry
 models do not use raise NotImplementedError naming the ROADMAP item that
 will port them.
+
+`differentiable` (set by the trainer through `PaNWaveNet.set_differentiable`)
+selects the training route: the oscillator runs `oscillate_plain`, the port
+of the JAX package's XLA oscillator, with gradients to the F0 and to the
+wavetables, and the WaveNet stacks run layer by layer (nn/wavenet.py).  The
+wavetables are a buffer in the folded (inference) form and a parameter in
+the trainable one, under the same state_dict key: the JAX trainer updates
+them with every other leaf of its parameter tree.
 """
 from __future__ import annotations
 
@@ -29,10 +37,10 @@ from ..dsp.db import log_to_db
 from ..dsp.pqmf import pqmf_filters
 from ..dsp.wavetable import WavetableSpec, build_wavetable_grid
 from ..dsp.windows import hann_periodic
-from ..nn.layers import Conv1DWeightNorm
+from ..nn.layers import Activation, Conv1DWeightNorm
 from ..nn.subnet import generate_subnet_from_specs
 from ..nn.wavenet import WaveNetAEBlock, resolve_dtype
-from ..ops.oscillator import oscillate
+from ..ops.oscillator import oscillate, oscillate_plain
 from ..ops.pqmf_ops import pqmf_synthesis
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
@@ -42,7 +50,7 @@ _TRAINING_ONLY_KEYS = {
     "pp_teacher_forcing_schedule", "pp_F0_pred_loss_limits_ms", "pp_F0_rec_loss_limits_ms",
     "pp_F0_loss_weight", "pp_F0_loss_method", "pp_F0_UV_loss_weight", "pp_subnet_exclude_from_pretrain",
     "pp_subnet_suppress_uv_gradient", "psns_gain_loss_weight", "psns_cepstral_loss_weight",
-    "stft_coh_loss_weight", "dump_controls", "pulse_noise_floor_db", "remat_wavenet_blocks",
+    "stft_coh_loss_weight", "dump_controls", "remat_wavenet_blocks",
 }
 
 
@@ -96,6 +104,7 @@ class MBExWN(nn.Module):
         alpha: float = 0.2,
         internal_win_size_s=None,
         internal_fft_over: int = 0,
+        pulse_noise_floor_db=-90,
         name: str = "MBExWNGen",
         quiet: bool = True,
         wn_compute_dtype=None,
@@ -106,8 +115,6 @@ class MBExWN(nn.Module):
         unknown = set(training_only) - _TRAINING_ONLY_KEYS
         if unknown:
             raise TypeError(f"MBExWN: unexpected config keys {sorted(unknown)}")
-        if pp_subnet_training_only:
-            _not_ported("pp_subnet_training_only (training)", "12")
         if ps_off or not ps_use_stft:
             _not_ported("the multiband-gain branch (ps_use_stft: false / ps_off)", "13")
         if pulse_channels_use_pqmf:
@@ -142,6 +149,8 @@ class MBExWN(nn.Module):
         self.pp_max_frequency = pp_max_frequency
         self.subnet_compute_dtype = _dtype_pref("MBEXWN_SUBNET_DTYPE", subnet_compute_dtype)
         self.wn_compute_dtype = _dtype_pref("MBEXWN_WN_DTYPE", wn_compute_dtype)
+        self.pp_subnet_training_only = pp_subnet_training_only
+        self.differentiable = False
 
         self.pp_subnet = None
         if pp_subnet:
@@ -150,6 +159,9 @@ class MBExWN(nn.Module):
                 final_activation=pp_activation, force_causal=force_causal, pad_to_valid=pp_subnet_use_valid_padding,
                 target_ups=self.spect_to_pulse_upsampling_factor,
                 remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
+        if pp_subnet_training_only:
+            # the F0 subnet alone, for its pretraining
+            return
 
         ups_prod = int(np.prod(pp_mod_subnet_upsampling_factors))
         if self.pulse_rate / pulse_channels * ups_prod * self.mb_factor != self.sample_rate:
@@ -162,6 +174,8 @@ class MBExWN(nn.Module):
         self.wavetable: WavetableSpec = build_wavetable_grid(sample_rate=self.pulse_rate, quiet=quiet,
                                                              **wavetable_config)
         self.register_buffer("wavetables", torch.from_numpy(self.wavetable.wavetables.copy()))
+        # the excitation's dither against zero STFT magnitudes in training
+        self.pulse_noise_floor_mag = None if pulse_noise_floor_db is None else 10 ** (-abs(pulse_noise_floor_db) / 20)
 
         # spectral-envelope subnet + cepstral machinery
         self.filter_max_log_range = filter_max_db_range / log_to_db
@@ -187,7 +201,7 @@ class MBExWN(nn.Module):
         self.ps_subnet, _ = generate_subnet_from_specs(
             ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
             final_n_channels=ps_max_ceps_coefs, final_activation=None, force_causal=force_causal,
-            pad_to_valid=ps_subnet_use_valid_padding,
+            pad_to_valid=ps_subnet_use_valid_padding, weight_init_scale=0.01,
             remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
         # 30 log-spaced half-hamming cepstral windows, one per F0 step
         windows, log10f0 = [], []
@@ -249,6 +263,52 @@ class MBExWN(nn.Module):
         """Time steps entering the first WaveNet block (the noise's length)."""
         return T_mel * self.spect_to_pulse_upsampling_factor // self.pulse_channels
 
+    # ------------------------------------------------ parameters: init, forms
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisation (`MBExWN.init`), drawn from
+        `generator` into the current form: every conv and PReLU, and the
+        wavetables of the wavetable grid.  torch cannot draw the JAX PRNG's
+        numbers, so only the distributions match."""
+        for m in self.modules():
+            if isinstance(m, (Conv1DWeightNorm, Activation)):
+                m.init(generator)
+        if not self.pp_subnet_training_only:
+            self.wavetables.copy_(torch.from_numpy(self.wavetable.wavetables))
+
+    @property
+    def trainable(self) -> bool:
+        """True once every weight-normalised conv holds (v, g) (`trainable_`)."""
+        return all(m.trainable for m in self.modules() if isinstance(m, Conv1DWeightNorm) and m.use_weight_norm)
+
+    def trainable_(self) -> "MBExWN":
+        """The trainable form, in place: every conv holds (v, g), and the
+        wavetables become a parameter (the JAX trainer updates them)."""
+        for m in self.modules():
+            if isinstance(m, Conv1DWeightNorm):
+                m.trainable_()
+        if "wavetables" in self._buffers:
+            self.wavetables = nn.Parameter(self._buffers.pop("wavetables"))
+        return self
+
+    def fold_(self) -> "MBExWN":
+        """The folded (inference) form, in place: the convs hold their folded
+        kernels and the wavetables are a buffer again."""
+        for m in self.modules():
+            if isinstance(m, Conv1DWeightNorm):
+                m.fold_()
+        if "wavetables" in self._parameters:
+            self.register_buffer("wavetables", self._parameters.pop("wavetables").detach())
+        return self
+
+    def set_differentiable(self, on: bool = True) -> None:
+        """Select the training route (True) or the kernels' (False) for the
+        oscillator and every WaveNet stack."""
+        for m in self.modules():
+            if hasattr(m, "differentiable"):
+                m.differentiable = on
+
     # ------------------------------------------------------------- subpaths
 
     def _run_subnet(self, subnet, mel):
@@ -271,10 +331,12 @@ class MBExWN(nn.Module):
         """Wavetable oscillator: F0 (B, T12k) -> excitation (B, T12k).
 
         phase_offset (B,): absolute phase (mod 1) just before the first
-        sample, the carry of chunked synthesis."""
+        sample, the carry of chunked synthesis.  The training route runs the
+        plain version, which is differentiable."""
         wt = self.wavetable
-        return oscillate(pulse_frequency, self.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition,
-                         wt.max_transposition, wt.sample_rate, phase_offset=phase_offset)
+        fn = oscillate_plain if self.differentiable else oscillate
+        return fn(pulse_frequency, self.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition,
+                  wt.max_transposition, wt.sample_rate, phase_offset=phase_offset)
 
     def fold_pulse_channels(self, pulse_signal: torch.Tensor, noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -320,15 +382,19 @@ class MBExWN(nn.Module):
         idx = torch.round(ratio * (log10f0.shape[0] - 1)).long()
         return self.ps_cepstral_windows[idx]
 
-    def generate_specenv(self, mel: torch.Tensor, pulse_frequency: torch.Tensor) -> torch.Tensor:
-        """Cepstral spectral-envelope filter, complex (B, T_mel, fft//2+1)."""
+    def generate_specenv(self, mel: torch.Tensor, pulse_frequency: torch.Tensor, training: bool = False):
+        """Cepstral spectral-envelope filter, complex (B, T_mel, fft//2+1); with
+        `training`, (filter, aux losses).  The aux losses belong to
+        psns_use_cepstral_loss_constraint and spect_filters_preserve_energy,
+        which are not ported (item 13), so aux is empty here."""
         x = self._run_subnet(self.ps_subnet, mel)
         x = x * self.get_cepstral_windows(pulse_frequency, smooth_stride=self.spect_to_pulse_upsampling_factor)
         # drop the gain coefficient (the source gain carries it)
         x = F.pad(x[:, :, 1:], (1, 0))
         log_amp_phase = rdft(x, self.fft_size)
         log_amp_phase = torch.complex(self.filter_max_log_range * torch.tanh(log_amp_phase.real), log_amp_phase.imag)
-        return torch.exp(log_amp_phase)
+        source_filter = torch.exp(log_amp_phase)
+        return (source_filter, {}) if training else source_filter
 
     # ----------------------------------------------------------------- call
 

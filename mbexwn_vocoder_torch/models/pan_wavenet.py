@@ -55,8 +55,20 @@ class NormMelComponents(nn.Module):
         """Per-frame RMS estimate (B, T) from linear-amplitude mel (B, T, C)."""
         return torch.sqrt(torch.sum((mel * self.inv_enorm) ** 2, dim=-1) / self.rms_norm_fact)
 
-    def normalize_inputs_by_rms(self, mell: torch.Tensor, synth_length: int):
-        """Returns (normalized mell, upsampled rms (B, synth_length//n_group, 1))."""
+    def normalize_inputs_by_rms(self, audio: Optional[torch.Tensor], mell, synth_length: Optional[int] = None):
+        """The JAX package's signature: (audio (B, T) or (B, T, n_group) or
+        None, log-mel (B, T_mel, C), synth_length) -> (grp_audio (B, T/n_group,
+        n_group) or None, normalized log-mel, upsampled rms (B, T/n_group, 1)):
+        the audio divided by the rms it is synthesised with, the training
+        target.  The inference form (mell, synth_length) -> (normalized
+        log-mel, upsampled rms) is kept for the synthesis paths."""
+        if not torch.is_tensor(mell):  # the inference form: (mell, synth_length)
+            _, mell_out, upsampled = self.normalize_inputs_by_rms(None, audio, mell)
+            return mell_out, upsampled
+        if audio is not None:
+            synth_length = audio.shape[1]
+        elif synth_length is None:
+            raise RuntimeError("normalize_inputs_by_rms: either audio or synth_length is needed")
         mel = torch.exp(mell)
         rms_e = self.estimate_rms(mel)[:, :, None]
         mel = mel / torch.clamp(rms_e, min=_EPS) * self.lin_amp_scale
@@ -67,7 +79,8 @@ class NormMelComponents(nn.Module):
             upsampled = torch.cat((upsampled, upsampled[:, -1:].expand(-1, target_t - upsampled.shape[1], -1)), dim=1)
         elif upsampled.shape[1] > target_t:
             upsampled = upsampled[:, :target_t]
-        return mell_out, upsampled
+        grp_audio = None if audio is None else audio.reshape(audio.shape[0], -1, self.n_group) / upsampled
+        return grp_audio, mell_out, upsampled
 
 
 class PaNWaveNet(nn.Module):
@@ -100,6 +113,34 @@ class PaNWaveNet(nn.Module):
         if "pulse_rate_factor" not in cfg:
             raise NotImplementedError("PaNWaveNet: required parameter pulse_rate_factor is missing in the model config")
         self.block = MBExWN(**cfg, preprocess_config=preprocess_config, quiet=quiet)
+
+    # the two forms of the weights and the training route (models/mbexwn.py)
+
+    def init(self, generator: torch.Generator, batch_size: int = 1, T_mel: int = 32) -> "PaNWaveNet":
+        """The JAX package's `PaNWaveNet.init`, drawn from `generator` into the
+        current form.  Batch size and T_mel are the JAX signature's: the
+        shapes here are fixed at construction, so they change nothing."""
+        self.block.init(generator)
+        return self
+
+    @property
+    def trainable(self) -> bool:
+        return self.block.trainable
+
+    def trainable_(self) -> "PaNWaveNet":
+        """The trainable form (v, g and the wavetables as parameters), in place."""
+        self.block.trainable_()
+        return self
+
+    def fold_(self) -> "PaNWaveNet":
+        """The folded (inference) form, in place."""
+        self.block.fold_()
+        return self
+
+    def set_differentiable(self, on: bool = True) -> None:
+        """The training route (True: per-layer WaveNet, plain oscillator) or
+        the kernels' (False, the default)."""
+        self.block.set_differentiable(on)
 
     @exact_fp32()
     def infer(self, spect: torch.Tensor, synth_length: int = 0, F0: Optional[torch.Tensor] = None,

@@ -1,8 +1,15 @@
 """Core layers: conv with folded weight norm, sub-pixel up/down conv,
 linear-interp upsampler, padding, activations.
 
-Counterpart of the JAX package's nn/layers.py.  Inference only: each conv
-holds the folded kernel (`g*v/||v||`, ops/conv.py) as its OIW `weight`.
+Counterpart of the JAX package's nn/layers.py.  A conv is in one of two
+forms.  Folded (the default, for inference): it holds the folded kernel
+(`g*v/||v||`, ops/conv.py) as its OIW `weight`, so a synthesis folds
+nothing.  Trainable (`trainable_()`): it holds the JAX package's `v` (OIW),
+`g` and `bias` as parameters and folds them in every forward pass, so the
+gradients reach `v` and `g` as they do in the JAX trainer.  `fold_()` goes
+back.  `init(generator)` draws the JAX package's initialisation (glorot
+uniform or a scaled normal, the checkerboard-free averaging of sub-pixel
+upsampling convs, `g = ||v||`) into either form.
 Every layer computes in its input's dtype and casts its parameters to it,
 as the JAX package casts its params to the compute dtype.
 """
@@ -14,18 +21,19 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.conv import conv1d
+from ..ops.conv import conv1d, equalized_lr_kernel, weight_norm_kernel
 from ..ops.interp import linear_interp_output_length, linear_interp_upsample
 from ..ops.padding import pad1d
 
 
 class Conv1DWeightNorm(nn.Module):
-    """Conv1D over (B, T, Cin) with TF padding; the weight-norm / equalized-LR
-    decomposition is folded into `weight` when weights are loaded."""
+    """Conv1D over (B, T, Cin) with TF padding and weight norm (or its
+    equalized-LR variant), folded (`weight`) or trainable (`v`, `g`)."""
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int, strides: int = 1,
                  dilation_rate: int = 1, padding: str = "SAME", use_weight_norm: bool = True,
-                 use_equalized_lr: bool = False, use_bias: bool = True, name: str = "conv"):
+                 use_equalized_lr: bool = False, use_bias: bool = True, kernel_init_scale: Optional[float] = None,
+                 no_cb_for_up_fac: int = 0, name: str = "conv"):
         super().__init__()
         if use_equalized_lr and not use_weight_norm:
             # the unfolded post-gain form; no registry model uses it
@@ -38,10 +46,88 @@ class Conv1DWeightNorm(nn.Module):
         self.strides = strides
         self.dilation_rate = dilation_rate
         self.padding = padding.upper()
-        # glorot-uniform placeholder; real weights come from load_state_dict
+        self.use_weight_norm = use_weight_norm
+        self.use_equalized_lr = use_equalized_lr
+        self.kernel_init_scale = kernel_init_scale
+        self.no_cb_for_up_fac = no_cb_for_up_fac
+        # glorot-uniform placeholder; real weights come from load_state_dict or init()
         limit = math.sqrt(6.0 / (kernel_size * (in_channels + filters)))
         self.weight = nn.Parameter(torch.empty(filters, in_channels, kernel_size).uniform_(-limit, limit))
         self.bias = nn.Parameter(torch.zeros(filters)) if use_bias else None
+
+    @property
+    def trainable(self) -> bool:
+        """True in the trainable form (`v`, `g`), False in the folded one."""
+        return "v" in self._parameters
+
+    def kernel(self) -> torch.Tensor:
+        """The OIW kernel the conv applies (folded on the fly when trainable)."""
+        if not self.trainable:
+            return self.weight
+        fold = equalized_lr_kernel if self.use_equalized_lr else weight_norm_kernel
+        return fold(self.v, self.g)
+
+    def _set_form(self, kernel: torch.Tensor, trainable: bool, g: Optional[torch.Tensor] = None) -> None:
+        """Hold `kernel` (OIW) in the folded form, or as (v, g) in the trainable
+        one: v = kernel and g its per-channel norm (equalized LR: its rms) unless
+        `g` is given, so that the fold gives `kernel` back."""
+        for name in ("weight", "v", "g"):
+            self._parameters.pop(name, None)
+        self._buffers.pop("_equalized_lr", None)
+        kernel = kernel.detach()
+        if not (trainable and self.use_weight_norm):
+            self.weight = nn.Parameter(kernel.clone())
+            return
+        if g is None:
+            sq = (kernel * kernel).mean(dim=(1, 2)) if self.use_equalized_lr else (kernel * kernel).sum(dim=(1, 2))
+            g = torch.sqrt(sq)
+        self.v = nn.Parameter(kernel.clone())
+        self.g = nn.Parameter(g.detach().clone())
+        if self.use_equalized_lr:
+            # the JAX tree's `_equalized_lr` flag, so that a state_dict says which fold it needs
+            self.register_buffer("_equalized_lr", torch.tensor(True))
+
+    def trainable_(self) -> "Conv1DWeightNorm":
+        """Folded -> trainable, in place (v = weight, g = its norm)."""
+        if self.use_weight_norm and not self.trainable:
+            self._set_form(self.weight, trainable=True)
+        return self
+
+    def fold_(self) -> "Conv1DWeightNorm":
+        """Trainable -> folded, in place (weight = the fold of v and g)."""
+        if self.trainable:
+            with torch.no_grad():
+                self._set_form(self.kernel(), trainable=False)
+        return self
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisation in the current form: a
+        glorot-uniform kernel (or `kernel_init_scale` x normal), averaged over
+        the sub-pixel phases when `no_cb_for_up_fac` is set, then g = ||v|| per
+        channel (equalized LR: v = kernel / rms, g = rms); zero bias."""
+        shape = (self.filters, self.in_channels, self.kernel_size)
+        dev = self.bias.device if self.bias is not None else self.kernel().device
+        if self.kernel_init_scale is not None:
+            kernel = self.kernel_init_scale * torch.randn(shape, generator=generator)
+        else:
+            limit = math.sqrt(6.0 / (self.kernel_size * (self.in_channels + self.filters)))
+            kernel = torch.empty(shape).uniform_(-limit, limit, generator=generator)
+        if self.no_cb_for_up_fac:
+            f = self.no_cb_for_up_fac
+            phases = kernel.reshape(f, self.filters // f, self.in_channels, self.kernel_size)
+            kernel = phases.mean(dim=0, keepdim=True).expand_as(phases).reshape(shape)
+        g = None
+        if self.use_equalized_lr:
+            g_val = torch.sqrt(torch.mean(kernel * kernel))
+            g = torch.full((self.filters,), float(g_val))
+            kernel = kernel / g_val
+        folded = not self.trainable
+        self._set_form(kernel.to(dev), trainable=True, g=None if g is None else g.to(dev))
+        if folded:
+            self.fold_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def out_length(self, in_len: int) -> int:
         if self.padding in ("SAME", "CAUSAL"):
@@ -50,7 +136,7 @@ class Conv1DWeightNorm(nn.Module):
         return (in_len - k_eff) // self.strides + 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d(x, self.weight, self.bias, self.strides, self.dilation_rate, self.padding)
+        return conv1d(x, self.kernel(), self.bias, self.strides, self.dilation_rate, self.padding)
 
 
 class Conv1DUpDownSample(Conv1DWeightNorm):
@@ -61,7 +147,9 @@ class Conv1DUpDownSample(Conv1DWeightNorm):
     """
 
     def __init__(self, in_channels, filters, kernel_size=3, up_sample=None, factor=2,
-                 name="convUD", **kwargs):
+                 use_checkerboard_free_init=False, name="convUD", **kwargs):
+        if use_checkerboard_free_init and not up_sample:
+            raise RuntimeError("use_checkerboard_free_init requires up_sample")
         self.up_sample = up_sample
         self.factor = factor
         self.out_filters = filters
@@ -69,7 +157,8 @@ class Conv1DUpDownSample(Conv1DWeightNorm):
         if self.down_sample and factor * (filters // factor) != filters:
             raise RuntimeError(f"filters {filters} is not a multiple of factor {factor}")
         internal = filters * factor if up_sample else (filters // factor if self.down_sample else filters)
-        super().__init__(in_channels, internal, kernel_size, name=name, **kwargs)
+        super().__init__(in_channels, internal, kernel_size, name=name,
+                         no_cb_for_up_fac=factor if use_checkerboard_free_init else 0, **kwargs)
 
     def out_length(self, in_len: int) -> int:
         t = super().out_length(in_len)
@@ -165,6 +254,12 @@ class Activation(nn.Module):
 
     def out_length(self, in_len: int) -> int:
         return in_len
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> None:
+        """The JAX package's initialisation: a PReLU's alpha at its constant."""
+        if self.activation_function == "prelu":
+            self.alpha.fill_(float(self.alpha_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.activation_function == "prelu":

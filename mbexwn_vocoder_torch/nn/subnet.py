@@ -46,6 +46,7 @@ def generate_subnet_from_specs(
     final_n_channels: int,
     final_nks: Optional[int],
     final_activation: Optional[str],
+    weight_init_scale: float = 0.02,
     target_ups: Optional[int] = None,
     force_causal: bool = False,
     pad_to_valid: bool = False,
@@ -54,7 +55,9 @@ def generate_subnet_from_specs(
     alpha: float = 0.2,
     **_,
 ) -> Tuple[Sequential, int]:
-    """Returns (Sequential module, total upsampling factor)."""
+    """Returns (Sequential module, total upsampling factor).  Every conv
+    initialises to `weight_init_scale` x normal, the sub-pixel upsampling
+    convs with checkerboard-free averaging (`init`)."""
     if not use_prelu or remove_inactive_pad_layers:
         raise NotImplementedError("leaky-ReLU subnets and remove_inactive_pad_layers are not ported "
                                   "(ROADMAP.md queue 1, item 13)")
@@ -86,7 +89,8 @@ def generate_subnet_from_specs(
 
             if linear_up:
                 layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
-                layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", name=base_name + f"_Layer_{ii}"))
+                layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", kernel_init_scale=weight_init_scale,
+                                               name=base_name + f"_Layer_{ii}"))
                 layers.append(LinInterpLayer(up, num_pad_end=1, drop_last=True,
                                              name=base_name + f"_LinUpLayer_{ii}"))
             elif up > 1:
@@ -94,10 +98,12 @@ def generate_subnet_from_specs(
                     layers.append(_pad_layer(ks, base_name, ii, force_causal, True))
                 layers.append(Conv1DUpDownSample(ch, nf, kernel_size=ks,
                                                  padding="VALID" if pad_to_valid else default_padding,
-                                                 factor=up, up_sample=True, name=base_name + f"_Layer_{ii}"))
+                                                 factor=up, up_sample=True, use_checkerboard_free_init=True,
+                                                 kernel_init_scale=weight_init_scale, name=base_name + f"_Layer_{ii}"))
             else:
                 layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
-                layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", name=base_name + f"_Layer_{ii}"))
+                layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", kernel_init_scale=weight_init_scale,
+                                               name=base_name + f"_Layer_{ii}"))
             ch = nf
             layers.append(Activation("prelu", alpha=alpha, channels=ch, name=base_name + f"_ActLayer_{ii}"))
             total_ups *= up
@@ -107,7 +113,7 @@ def generate_subnet_from_specs(
                 layers.append(_pad_layer(final_nks, base_name, ii, force_causal, True))
             layers.append(Conv1DWeightNorm(ch, final_n_channels, final_nks,
                                            padding="VALID" if pad_to_valid else default_padding,
-                                           name=base_name + "_Layer_final"))
+                                           kernel_init_scale=weight_init_scale, name=base_name + "_Layer_final"))
             if (target_ups is not None) and total_ups != target_ups:
                 up = get_missing_upsampling_factor(target_ups, total_ups, base_name)
                 layers.append(LinInterpLayer(up, num_pad_end=1, drop_last=True, name=base_name + "_linear_interp"))

@@ -2,9 +2,18 @@
 
 Counterpart of the JAX package's nn/wavenet.py (`WaveNetAE`,
 `WaveNetAEBlock`).  The start, conditioning, end and up/down convs are plain
-`F.conv1d`; the 12-layer dilated gated stack goes through
-`ops.wavenet_stack.wavenet_stack`, which launches the CUDA kernel on a CUDA
-tensor and runs the plain version on a CPU tensor.
+`F.conv1d`.  The 12-layer dilated gated stack takes one of two routes:
+
+- the inference route (the default): `ops.wavenet_stack.wavenet_stack`,
+  which launches the CUDA kernel on a CUDA tensor and runs the plain
+  version on a CPU tensor.  Neither has a backward pass (nor has the JAX
+  package's Pallas stack), so this route refuses to run where a gradient
+  is asked for: `stack_weights` raises when grad mode is on and a weight
+  requires grad, and the kernel raises on CUDA tensors that require grad;
+- the differentiable route (`differentiable = True`, set by the trainer):
+  layer by layer through the convs' own `F.conv1d`, as the JAX package's
+  XLA route, which is the one its trainer differentiates.  Operands are
+  cast to the compute dtype as there (the skip sum too).
 
 Scope is the registry's configuration: one channel group, conditioning
 shared by all layers through the sub-pixel + linear upsampling path, kernel
@@ -18,7 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.wavenet_stack import PackedStackWeights, pack_stack_weights, wavenet_stack
+from ..ops.wavenet_stack import PackedStackWeights, gate, pack_stack_weights, wavenet_stack
 from .layers import Conv1DUpDownSample, Conv1DWeightNorm, LinInterpLayer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
@@ -88,7 +97,7 @@ class WaveNetAE(nn.Module):
         self.start = Conv1DWeightNorm(in_channels, n_channels, 1, name="start", **conv_kw)
         self.cond = Conv1DUpDownSample(cond_channels, 2 * n_channels, kernel_size=cond_kernel_size,
                                        factor=cond_conv_upsampling, up_sample=True, padding=padding,
-                                       name="cond", **conv_kw)
+                                       use_checkerboard_free_init=True, name="cond", **conv_kw)
         self.cond_linup = LinInterpLayer(cond_lin_upsampling, num_pad_end=1, drop_last=True, name="cond_linup")
         self.dilations = []
         for index in range(n_layers):
@@ -105,22 +114,31 @@ class WaveNetAE(nn.Module):
                 n_channels, res_skip_ch, 1, name=f"res_skip_{index}", **conv_kw))
         self.end = Conv1DWeightNorm(n_channels, n_out_channels, 1, name="end", **conv_kw)
         self._stack_cache = None
+        self.differentiable = False
 
     def stack_weights(self, dtype: torch.dtype) -> PackedStackWeights:
         """Per-layer (w_dil (2C, 3, Cp), b_dil, w_rs (Cout, Cp), b_rs) in `dtype`,
         the kernel layout of ops/wavenet_stack.py (reduction dimension padded
         with zeros to Cp).  Built once and kept until a parameter is replaced
         or changed in place (load_state_dict, .to()), so a synthesis does not
-        re-cast and re-lay out 20 MB of weights or re-encode their tensor maps."""
+        re-cast and re-lay out 20 MB of weights or re-encode their tensor maps.
+        The packed weights carry no gradient: with grad mode on and a weight
+        that requires grad this raises (the differentiable route is the
+        trainer's, `differentiable = True`)."""
         params = list(self.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            raise RuntimeError(
+                f"{self.name}: the WaveNet stack's inference route has no backward pass and would drop the "
+                f"gradients of its weights; run it under torch.no_grad()/torch.inference_mode(), or train "
+                f"through the differentiable route (training.Trainer sets `differentiable`)")
         key = (dtype, tuple((id(p), p._version) for p in params))
         if self._stack_cache is None or self._stack_cache[0] != key:
             out = []
             for i in range(self.n_layers):
                 conv = getattr(self, f"conv1D_{i}")
                 rs = getattr(self, f"res_skip_{i}")
-                out.append((conv.weight.detach().permute(0, 2, 1).to(dtype), conv.bias.detach().to(dtype),
-                            rs.weight.detach()[:, :, 0].to(dtype), rs.bias.detach().to(dtype)))
+                out.append((conv.kernel().detach().permute(0, 2, 1).to(dtype), conv.bias.detach().to(dtype),
+                            rs.kernel().detach()[:, :, 0].to(dtype), rs.bias.detach().to(dtype)))
             # the params are held too, so their ids cannot be reused while cached
             self._stack_cache = (key, pack_stack_weights(out), params)
         return self._stack_cache[1]
@@ -134,9 +152,25 @@ class WaveNetAE(nn.Module):
         cond = self.cond_linup(self.cond(spect))
         if cond.shape[1] != started.shape[1]:
             raise RuntimeError(f"conditioning length {cond.shape[1]} != stack length {started.shape[1]}")
-        skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation,
-                             causal=self.causal)
-        return self.end(skip.to(started.dtype)).to(in_dtype)
+        if self.differentiable:
+            skip = self._layers(started, cond)
+        else:
+            skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation,
+                                 causal=self.causal).to(started.dtype)
+        return self.end(skip).to(in_dtype)
+
+    def _layers(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """The differentiable route: each dilated conv + cond, the gate, the
+        res/skip 1x1 conv and its residual and skip halves, in x's dtype."""
+        C, out = self.n_channels, None
+        for i in range(self.n_layers):
+            y = getattr(self, f"conv1D_{i}")(x) + cond
+            rs = getattr(self, f"res_skip_{i}")(gate(self.activation, y[..., :C], y[..., C:]))
+            if i < self.n_layers - 1:
+                x = x + rs[..., :C]
+                rs = rs[..., C:]
+            out = rs if out is None else out + rs
+        return out
 
 
 class WaveNetAEBlock(nn.Module):

@@ -8,8 +8,11 @@ before a VALID `F.conv1d`, because PyTorch's own "same" differs from TF's
 for even effective widths and does not support strides.
 
 Weight-normalised kernels fold to `g * v / ||v||` with eps 1e-12, as in
-the JAX package.  The fold runs on the stored WIO arrays, before
-`compat.params_io.params_from_jax` transposes them to OIW.
+the JAX package: `weight_norm_kernel` / `equalized_lr_kernel` on OIW
+tensors (differentiable, the forward pass of a trainable conv), and
+`fold_weight_norm` on a stored WIO tree, before
+`compat.params_io.params_from_jax` transposes it to OIW (loading a
+model in its folded, inference form).
 """
 from __future__ import annotations
 
@@ -69,21 +72,19 @@ def conv1d(
     return y.transpose(1, 2)
 
 
-def weight_norm_kernel(v, g):
-    """kernel = g * v / ||v||_2, the norm over (width, in) per out-channel
-    of a WIO array (tf.nn.l2_normalize's eps 1e-12)."""
-    v = torch.as_tensor(np.asarray(v, np.float32))
-    g = torch.as_tensor(np.asarray(g, np.float32))
-    norm = torch.sqrt(torch.clamp((v * v).sum(dim=(0, 1), keepdim=True), min=1e-12))
-    return (g * (v / norm)).numpy()
+def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """kernel = g * v / ||v||_2 of an OIW tensor, the norm over (in, width)
+    per out-channel (tf.nn.l2_normalize's eps 1e-12); differentiable, the
+    fold of a trainable conv."""
+    norm = torch.sqrt(torch.clamp((v * v).sum(dim=(1, 2), keepdim=True), min=1e-12))
+    return g[:, None, None] * (v / norm)
 
 
-def equalized_lr_kernel(v, g):
-    """kernel = g * v / rms(v) (the equalized-LR variant) of a WIO array."""
-    v = torch.as_tensor(np.asarray(v, np.float32))
-    g = torch.as_tensor(np.asarray(g, np.float32))
-    rms = torch.sqrt((v * v).mean(dim=(0, 1), keepdim=True))
-    return (g * (v / rms)).numpy()
+def equalized_lr_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """kernel = g * v / rms(v) of an OIW tensor (the equalized-LR variant);
+    differentiable."""
+    rms = torch.sqrt((v * v).mean(dim=(1, 2), keepdim=True))
+    return g[:, None, None] * (v / rms)
 
 
 def fold_weight_norm(params: dict) -> dict:
@@ -91,10 +92,10 @@ def fold_weight_norm(params: dict) -> dict:
     if isinstance(params, dict):
         if "v" in params and "g" in params:
             out = {k: vv for k, vv in params.items() if k not in ("v", "g", "_equalized_lr")}
-            if params.get("_equalized_lr", False):
-                out["kernel"] = equalized_lr_kernel(params["v"], params["g"])
-            else:
-                out["kernel"] = weight_norm_kernel(params["v"], params["g"])
+            fold = equalized_lr_kernel if params.get("_equalized_lr", False) else weight_norm_kernel
+            v = torch.from_numpy(np.asarray(params["v"], np.float32)).permute(2, 1, 0)  # WIO -> OIW
+            kernel = fold(v, torch.from_numpy(np.asarray(params["g"], np.float32)))
+            out["kernel"] = np.ascontiguousarray(kernel.permute(2, 1, 0).numpy())
             return out
         return {k: fold_weight_norm(vv) for k, vv in params.items()}
     return params

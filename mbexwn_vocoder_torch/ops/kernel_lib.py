@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).absolute().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -130,6 +132,17 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The kernels have no backward pass (nor have the JAX package's Pallas
+    kernels): with grad mode on and an input that requires grad, raise
+    instead of cutting the autograd graph."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"CUDA kernel {name} has no backward pass and an input requires grad; run it under "
+            f"torch.no_grad()/torch.inference_mode(), or train through the differentiable route "
+            f"(training.Trainer: the per-layer WaveNet and oscillate_plain)")
 
 
 def check(err: int, name: str) -> None:

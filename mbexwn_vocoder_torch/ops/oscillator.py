@@ -97,12 +97,14 @@ def oscillate(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_tr
     tables -> (B, T) fp32 excitation, or (excitation, phase) with
     `return_phase`.  `phase_offset` (B,): the phase (mod 1) just before the
     first sample, the carry of chunked synthesis.  CUDA tensors launch the
-    kernel once; CPU tensors take `oscillate_plain`."""
+    kernel once (it has no backward pass: with grad mode on, inputs that
+    require grad raise); CPU tensors take `oscillate_plain`."""
     args = (f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate)
     if f0.device.type == "cpu":
         return oscillate_plain(*args, phase_offset=phase_offset, return_phase=return_phase)
     if f0.device.type != "cuda":
         raise RuntimeError(f"oscillate: unsupported device {f0.device}")
+    kernel_lib.refuse_grad("oscillator", f0, wavetables, phase_offset)
     for name, t in (("f0", f0), ("wavetables", wavetables), ("phase_offset", phase_offset)):
         if t is not None and (t.device != f0.device or t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(f"oscillate: {name} must be a contiguous float32 tensor on {f0.device}")

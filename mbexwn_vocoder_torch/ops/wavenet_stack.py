@@ -241,7 +241,9 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
     taps t-2d, t-d, t in place of t-d, t, t+d.  CUDA tensors go through
     the kernel: x is copied once into a zero-padded (B, T, Cp) buffer, the
     layers ping-pong between that and a second one, and one host call
-    enqueues them all.  CPU tensors take the plain version."""
+    enqueues them all.  CPU tensors take the plain version.  The kernel has
+    no backward pass: with grad mode on, CUDA inputs that require grad
+    raise."""
     if x.device.type == "cpu":
         return wavenet_stack_plain(x, cond, layer_weights, dils, activation, causal)
     if x.device.type != "cuda":
@@ -249,9 +251,10 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
     if activation != "gtu":
         raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation} "
                                   f"(ROADMAP.md queue 1, item 13)")
+    packed = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
+    kernel_lib.refuse_grad("wavenet_layer", x, cond, *(t for lw in packed.layers for t in lw))
     B, T, C = x.shape
     _check_kernel_dtype("wavenet_stack", x.dtype, C)
-    packed = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
     if packed.C != C or packed.dtype != x.dtype or packed.device != x.device:
         raise ValueError(f"wavenet_stack: weights are C={packed.C} {packed.dtype} on {packed.device}, "
                          f"x is C={C} {x.dtype} on {x.device}")

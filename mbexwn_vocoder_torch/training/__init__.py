@@ -1,2 +1,4 @@
-"""Training-side code of the port.  Only the synthetic eval corpus is ported
-so far (`synthetic.py`); the trainer is ROADMAP.md queue 1, item 12."""
+"""Training-side code of the port: the synthetic corpus (`synthetic.py`),
+the loss-weight schedules, the losses and the trainer (one training step;
+the training loop, data loader and CLI are ROADMAP.md queue 1, item 12b).
+Importing the package imports none of them."""

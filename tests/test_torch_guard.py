@@ -20,6 +20,7 @@ from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
 from mbexwn_vocoder_torch.parallel.streaming import StreamingSynthesizer
 from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+from mbexwn_vocoder_torch.training.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mbexwn_vocoder_torch"
@@ -61,6 +62,12 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_no_optax_in_the_port():
+    """The port's optimizer is torch.optim: no file of the package names the
+    JAX package's optimizer library."""
+    assert not [p for p in PKG.rglob("*.py") if "optax" in p.read_text()]
+
+
 def test_no_kernel_is_built_at_import():
     code = ("import mbexwn_vocoder_torch.mel_inverter, mbexwn_vocoder_torch.ops.kernel_lib as k\n"
             "assert k._lib is None and not k.build_info\n"
@@ -98,7 +105,7 @@ def test_cli_entry_points_run_with_jax_blocked():
 
 
 @pytest.mark.parametrize("entry", [MELInverter.__init__, PipelinedSynthesizer.__init__, BatchSynthesizer.__init__,
-                                   StreamingSynthesizer.__init__])
+                                   StreamingSynthesizer.__init__, Trainer.__init__])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -119,11 +126,18 @@ def test_no_silent_cpu_fallback():
         BatchSynthesizer(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingSynthesizer(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, {})
 
 
 def test_streaming_over_a_mesh_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 13"):
         StreamingSynthesizer(torch.nn.Linear(1, 1), device="cpu", mesh=object())
+
+
+def test_training_over_a_mesh_is_not_ported():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Trainer(torch.nn.Linear(1, 1), {}, device="cpu", mesh=object())
 
 
 def _speech_hparams():
@@ -137,13 +151,33 @@ def _speech_hparams():
     (lambda mc: mc["wavetable_config"].update(add_subharm_chans=2), "item 13"),
     (lambda mc: mc["pp_mod_subnet"].update(n_ch_groups=2), "item 13"),
     (lambda mc: mc.update(normalize_rms_num_smooth_iters=2), "item 13"),
-    (lambda mc: mc.update(pp_subnet_training_only=True), "item 12"),
 ])
 def test_unported_branches_raise(edit, item):
     hp = copy.deepcopy(_speech_hparams())
     edit(hp["mbexwn_config"])
     with pytest.raises(NotImplementedError, match=item):
         create_model(hp, hp["training_config"], hp["preprocess_config"])
+
+
+def test_pp_subnet_training_only_builds_the_f0_subnet_alone():
+    """pp_subnet_training_only (the F0 subnet's pretraining model): the port
+    builds and initialises the F0 subnet only, with the JAX package's
+    parameter tree (keys and shapes)."""
+    import jax
+
+    from mbexwn_vocoder_tpu.models import create_model as jax_create_model
+    from mbexwn_vocoder_torch.compat.params_io import flatten, params_to_jax
+
+    hp = copy.deepcopy(_speech_hparams())
+    hp["mbexwn_config"]["pp_subnet_training_only"] = True
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(0))
+    jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+    ref = flatten(jax.jit(lambda k: jmodel.init(k, batch_size=1, T_mel=8))(jax.random.PRNGKey(0)))
+    got = params_to_jax(model.block.state_dict())
+    assert got.keys() == ref.keys() and all(k.startswith("pp_subnet/") for k in got)
+    assert all(got[k].shape == ref[k].shape for k in ref)
+    assert not hasattr(model.block, "ps_subnet")
 
 
 def test_unported_wavenet_branches_raise():

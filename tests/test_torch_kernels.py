@@ -143,10 +143,11 @@ def test_wavenet_module_matches_jax(activation, no_kernel_build):
         got = tnet(torch.from_numpy(audio), torch.from_numpy(mel))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5, atol=5e-5)
     # the cached stack weights follow a reload (in-place copy) of the params
-    cached = tnet.stack_weights(torch.float32)[0][0].clone()
-    state = {k: v * 0.5 for k, v in tnet.state_dict().items()}
-    tnet.load_state_dict(state)
-    torch.testing.assert_close(tnet.stack_weights(torch.float32)[0][0], cached * 0.5)
+    with torch.no_grad():  # the packed weights carry no gradient: stack_weights refuses grad mode
+        cached = tnet.stack_weights(torch.float32)[0][0].clone()
+        state = {k: v * 0.5 for k, v in tnet.state_dict().items()}
+        tnet.load_state_dict(state)
+        torch.testing.assert_close(tnet.stack_weights(torch.float32)[0][0], cached * 0.5)
 
 
 @pytest.fixture(scope="module")
@@ -345,7 +346,8 @@ def test_stack_weights_padded_layout(C, dtype):
     torch.manual_seed(C)
     net = WaveNetAE(5, 6, n_channels=C, n_layers=2, kernel_size=3, n_out_channels=4, max_log2_dilation_rate=7,
                     cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4)
-    packed = net.stack_weights(dtype)
+    with torch.no_grad():  # the packed weights carry no gradient: stack_weights refuses grad mode
+        packed = net.stack_weights(dtype)
     Cp = padded_channels(C)
     assert isinstance(packed, PackedStackWeights) and (packed.C, packed.C_pad, len(packed)) == (C, Cp, 2)
     assert packed.dtype == dtype
@@ -366,6 +368,7 @@ def test_stack_weights_cache_follows_the_parameters():
     parameter changes in place (its version counter) or the dtype does."""
     net = WaveNetAE(5, 6, n_channels=12, n_layers=3, kernel_size=3, n_out_channels=4, max_log2_dilation_rate=7,
                     cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4)
+    net.requires_grad_(False)  # the packed weights carry no gradient: stack_weights refuses grad mode
     first = net.stack_weights(torch.float32)
     assert net.stack_weights(torch.float32) is first
     assert net.stack_weights(torch.bfloat16) is not first
