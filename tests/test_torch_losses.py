@@ -120,8 +120,8 @@ def test_f0_prediction_loss_matches_jax(method, uv_weight):
     pm, rm = jl.f0_pred_loss_mask(jnp.asarray(f0), 24), jl.f0_rec_loss_mask(jnp.asarray(f0), 24)
     exp = jl.f0_prediction_loss(jnp.asarray(pred), jnp.asarray(f0), pm, method=method, uv_weight=uv_weight,
                                 rec_mask=rm, min_frequency=40.0)
-    got = tl.f0_prediction_loss(torch.from_numpy(pred), torch.from_numpy(f0), torch.from_numpy(np.asarray(pm)),
-                                method=method, uv_weight=uv_weight, rec_mask=torch.from_numpy(np.asarray(rm)),
+    got = tl.f0_prediction_loss(torch.from_numpy(pred), torch.from_numpy(f0), torch.from_numpy(np.array(pm)),
+                                method=method, uv_weight=uv_weight, rec_mask=torch.from_numpy(np.array(rm)),
                                 min_frequency=40.0)
     assert rel(got, exp) <= 1e-5, (float(got), float(exp))
 

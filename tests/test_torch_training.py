@@ -263,15 +263,22 @@ def test_inference_route_refuses_grad_and_training_route_differentiates():
             for p in ("v", "g", "bias"):
                 grad = getattr(getattr(net, layer), p).grad
                 assert grad is not None and float(grad.abs().max()) > 0, (layer, p)
-    # both routes compute one function
-    net.differentiable = False
+    assert folded.shape == x.shape[:2] + (8,)
+
+
+@pytest.mark.parametrize("activation", ["gtu", "glu", "gfu", "gsu"])
+def test_differentiable_route_equals_the_stack(activation):
+    """The per-layer route and the stack route (its plain version on the
+    CPU) compute one function, for every gate."""
+    torch.manual_seed(2)
+    net = WaveNetAE(7, 10, n_channels=16, n_layers=4, kernel_size=3, n_out_channels=8, max_log2_dilation_rate=7,
+                    cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=4, activation=activation)
+    x, mel = torch.randn(2, 64, 7), torch.randn(2, 8, 10)
     with torch.no_grad():
-        y_kernel_route = net(x, mel)
-    net.differentiable = True
-    with torch.no_grad():
+        y_stack = net(x, mel)
+        net.differentiable = True
         y_layers = net(x, mel)
-    torch.testing.assert_close(y_layers, y_kernel_route, rtol=1e-5, atol=1e-6)
-    assert folded.shape == y_layers.shape
+    torch.testing.assert_close(y_layers, y_stack, rtol=1e-5, atol=1e-6)
 
 
 def test_bf16_grads_track_fp32(jax_params, monkeypatch):
