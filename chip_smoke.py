@@ -95,11 +95,12 @@ prints no result line:
      layer by layer and `oscillate_plain`; neither kernel has a backward
      pass):
      (a) K1 and K2 raise on CUDA inputs that require grad;
-     (b) the CPU tests' tiny configuration (SPEECH with a 16-channel,
-     2-layer WaveNet), one set of params, injected draws, fp32: the card's
-     loss within 1e-5 of the CPU's, every gradient leaf within 1e-4 rel-RMS
-     or 10x its fp32 rounding (fp32 against fp64 on the same device) where
-     that is coarser, leaves under 1e-6 of the largest norm within 1e-7;
+     (b) the CPU tests' tiny case (`training.parity.card_against_cpu`:
+     SPEECH with a 16-channel, 2-layer WaveNet), one set of params,
+     injected draws: in fp64 the card's loss within 1e-12 of the CPU's and
+     every gradient leaf within 1e-9 rel-RMS (leaves under 1e-6 of the
+     largest norm within 1e-7 absolute); in fp32 the loss within 1e-5, and
+     each device's fp32 gradients against the CPU's fp64 ones reported;
      (c) full width: SPEECH as shipped (C = 320, 2 x 12 layers) from its
      weights.npz in the trainable form, bf16 compute, its training_config
      (Adam 1e-4; the four-resolution STFT, NPOW and mel losses; F0 loss,
@@ -111,16 +112,17 @@ prints no result line:
      steps, by CUDA events and by the host clock, beside the WaveNet's
      forward + backward bound (3 x K1's operations at 989 TFLOP/s); peak
      memory; one step's device busy time and idle share (torch.profiler);
-     (d) the trained model folded, written with save_params and loaded by
-     MELInverter on the card: a 512-frame synthesis finite, with 24 K1 and 1
-     K2 launches.
+     (d) the trained model folded (`fold_()`): its own 512-frame synthesis
+     on the card finite, with 24 K1 and 1 K2 launches; then written with
+     save_params and loaded by MELInverter on the card: a 512-frame
+     synthesis finite, with 24 K1 and 1 K2 launches.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, the card's name
 and power limit, a `kernels` JSON line (its launches: the main path of
 [4], SPEECH bf16, plus one pass of each long-form mode of [8](b), the live
-streams of [8](c) and the reloaded model's synthesis of [9](d), each
-counted from 0 just before it), and `{"ok": true, "device": {...}}`.
+streams of [8](c) and the trained and the reloaded model's syntheses of
+[9](d), each counted from 0 just before it), and `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
 from __future__ import annotations
@@ -183,7 +185,8 @@ def stack_inputs(model, mel: np.ndarray, block_index: int, dtype, dev):
     with torch.inference_mode(), exact_fp32():
         mell = torch.from_numpy(mel).to(dev)
         if model.norm_mel_components is not None:
-            mell, _ = model.norm_mel_components.normalize_inputs_by_rms(mell, mel.shape[1] * model.spect_hop_size)
+            _, mell, _ = model.norm_mel_components.normalize_inputs_by_rms(None, mell,
+                                                                            mel.shape[1] * model.spect_hop_size)
         f0 = blk.generate_f0(mell)
         x = blk.fold_pulse_channels(blk.oscillate(f0), generator=torch.Generator(device=dev).manual_seed(0))
         for name in blk.block_names[:block_index]:
@@ -427,7 +430,7 @@ def phase_serving(inverter, check, dev):
         T_pad = inv_x._bucket_len(max(m.shape[1] for m in group))
         with torch.inference_mode(), exact_fp32():
             xb = torch.from_numpy(np.concatenate([edge_pad(m, T_pad) for m in group])).to(dev)
-            mell, _ = inv_x.model.norm_mel_components.normalize_inputs_by_rms(xb, T_pad * inv_x.hop_size)
+            _, mell, _ = inv_x.model.norm_mel_components.normalize_inputs_by_rms(None, xb, T_pad * inv_x.hop_size)
             f0_b = inv_x.model.block.generate_f0(mell)
             f0_s = torch.cat([inv_x.model.block.generate_f0(mell[i:i + 1]) for i in range(len(group))])
             df0 = float((f0_b - f0_s).abs().max())
@@ -883,49 +886,6 @@ def phase_streaming(inverter, check, dev):
 TRAIN_SEGMENT, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 24_000, 32, 20, 2, 10
 
 
-def tiny_training_hparams():
-    """The CPU parity tests' tiny configuration: SPEECH with a 16-channel,
-    2-layer WaveNet, F0 loss, teacher forcing 0.5 and coherence 0.1."""
-    from mbexwn_vocoder_torch import get_config_file
-    from mbexwn_vocoder_torch.config import read_config
-
-    hp = read_config(get_config_file("SPEECH"))
-    mc = hp["mbexwn_config"]
-    mc["pp_mod_subnet"].update(n_channels=16, n_layers=2, n_out_channels=8)
-    mc.update(normalize_rms_from_mell=False, pp_F0_loss_weight=1.0, pp_teacher_forcing_schedule={"initial": 0.5},
-              stft_coh_loss_weight=0.1)
-    return hp
-
-
-def hold_gradient_leaves(got, ref, got64, ref64):
-    """Gradients `got` against `ref` leaf by leaf: rel-RMS <= 1e-4, or <= 10x
-    the leaf's fp32 rounding (each side's fp32 against its fp64 gradient)
-    where that is coarser; leaves under 1e-6 of the largest norm within 1e-7
-    absolute.  Returns (failing leaves, worst (rel-RMS, leaf), the leaves held
-    to their rounding)."""
-    def rel(a, b):
-        a, b = a.double().cpu(), b.double().cpu()
-        return float(np.sqrt(float(((a - b) ** 2).sum()) / max(float((b ** 2).sum()), 1e-300)))
-
-    largest = max(float(v.double().norm()) for v in ref.values())
-    bad, rows, widened = [], [], []
-    for name, r in ref.items():
-        g = got[name]
-        if float(r.double().norm()) < 1e-6 * largest:
-            err = float((g.cpu() - r.cpu()).abs().max())
-            ok = err <= 1e-7
-        else:
-            err = rel(g, r)
-            rounding = max(rel(r, ref64[name]), rel(g, got64[name]))
-            ok = err <= max(1e-4, 10 * rounding)
-            if ok and err > 1e-4:
-                widened.append((name, err, rounding))
-        rows.append((err, name))
-        if not ok:
-            bad.append((name, err))
-    return bad, max(rows), widened
-
-
 def training_batch(preprocess_config, batch: int, seed: int):
     """`batch` segments of synthetic speech (synth_utterance, one seeded
     generator) with their log-mel from the port's analysis front end and
@@ -962,10 +922,11 @@ def phase_training(check, dev):
     from mbexwn_vocoder_torch.compat.params_io import params_to_jax, save_params
     from mbexwn_vocoder_torch.config import read_config
     from mbexwn_vocoder_torch.mel_inverter import MELInverter
-    from mbexwn_vocoder_torch.models import create_model, create_registry_model
+    from mbexwn_vocoder_torch.models import create_registry_model
     from mbexwn_vocoder_torch.ops import kernel_lib
     from mbexwn_vocoder_torch.ops.oscillator import oscillate
     from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack
+    from mbexwn_vocoder_torch.training.parity import card_against_cpu
     from mbexwn_vocoder_torch.training.trainer import Trainer
 
     numbers = {}
@@ -991,36 +952,16 @@ def phase_training(check, dev):
     check(all(r.endswith("raised") for r in refused),
           f"(a) under grad, on CUDA inputs that require grad: {'; '.join(refused)}")
 
-    # (b) card gradients against CPU gradients, the tiny configuration, fp32 (fp64 for the rounding)
-    hp = tiny_training_hparams()
-    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
-    model.init(torch.Generator().manual_seed(SEED))
-    state = {k: v.clone() for k, v in model.block.state_dict().items()}
-    rng = np.random.RandomState(SEED)
-    f0_tiny = (120 + 10 * rng.randn(2, 2400)).astype(np.float32)
-    f0_tiny[0, 600:1100] = 0.0
-    tiny = {"audio": (rng.randn(2, 2400) * 0.1).astype(np.float32),
-            "mel": (rng.randn(2, 8, 80) * 0.5 - 4).astype(np.float32), "F0": f0_tiny}
-    out = {}
-    for label, device in (("cpu", "cpu"), ("card", dev)):
-        for dtype in (torch.float32, torch.float64):
-            m, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
-            m.block.load_state_dict(state)
-            tr = Trainer(m.to(dtype), hp, device=device)
-            gd = torch.Generator().manual_seed(SEED + 1)
-            draws = {k: torch.randn(shape, generator=gd) for k, shape in tr.draw_shapes(tiny).items()}
-            out[(label, dtype)] = tr.value_and_grad(tiny, 0, draws)
-    (l_cpu, _, g_cpu), (l_card, _, g_card) = out[("cpu", torch.float32)], out[("card", torch.float32)]
-    loss_rel = abs(float(l_card) / float(l_cpu) - 1)
-    bad, worst, widened = hold_gradient_leaves(g_card, g_cpu, out[("card", torch.float64)][2],
-                                               out[("cpu", torch.float64)][2])
-    numbers["tiny_card_vs_cpu"] = {"loss_rel": loss_rel, "worst_leaf": worst[1], "worst_rel_rms": worst[0],
-                                   "leaves": len(g_cpu), "held_to_fp32_rounding": len(widened)}
-    check(loss_rel <= 1e-5 and not bad,
-          f"(b) tiny config, card vs CPU, fp32: loss {float(l_card):.7g} vs {float(l_cpu):.7g} (rel {loss_rel:.2e} "
-          f"<= 1e-5); {len(g_cpu)} gradient leaves, worst {worst[1]} {worst[0]:.2e}; {len(widened)} held to 10x "
-          f"their fp32 rounding ({', '.join(f'{n} {e:.1e}/{r:.1e}' for n, e, r in widened[:6])}"
-          f"{', ...' if len(widened) > 6 else ''}); failing {bad}")
+    # (b) the tiny case on the card against the CPU: fp64 tight, fp32 loss, fp32 gradients reported
+    tiny_failures, tiny = card_against_cpu(dev, SEED)
+    numbers["tiny_card_vs_cpu"] = tiny
+    check(not tiny_failures,
+          f"(b) tiny case, card vs CPU, {tiny['leaves']} gradient leaves: fp64 loss rel {tiny['loss_fp64_rel']:.1e} "
+          f"(<= 1e-12), worst leaf {tiny['worst_leaf_fp64']} {tiny['worst_rel_rms_fp64']:.1e} (<= 1e-9); fp32 loss "
+          f"{tiny['loss_fp32']:.7g} vs {tiny['loss_fp32_cpu']:.7g} (rel {tiny['loss_fp32_rel']:.1e} <= 1e-5); fp32 "
+          f"gradients against the CPU's fp64 (reported): card worst {tiny['fp32_vs_exact_worst_leaf']} "
+          f"{tiny['fp32_vs_exact_worst_rel_rms']:.2e}, CPU worst {tiny['fp32_vs_exact_worst_leaf_cpu']} "
+          f"{tiny['fp32_vs_exact_worst_rel_rms_cpu']:.2e}; failing {tiny_failures}")
 
     # (c) full width: SPEECH as shipped, bf16, from its weights in the trainable form
     for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
@@ -1092,15 +1033,29 @@ def phase_training(check, dev):
           f"(c) SPEECH full width, batch {B}: {TRAIN_STEPS} steps on one batch, every loss finite; the loss falls "
           f"(mean of the first 5 {first:.4f} -> mean of the last 5 {last:.4f})")
 
-    # (d) fold, export, reload in MELInverter, synthesise through the kernels
+    # (d) fold: the trained model itself synthesises through the kernels; then export, reload in
+    # MELInverter and synthesise through the kernels
     tr.model.fold_()
+    mel = make_mel(N_FRAMES, 80, SEED)
+    mel_t = torch.from_numpy(mel).to(dev)
+    with torch.inference_mode():
+        tr.model.infer(mel_t, N_FRAMES * blk.spect_hop_size)  # warm-up
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+        y = tr.model.infer(mel_t, N_FRAMES * blk.spect_hop_size)
+        counts = dict(kernel_lib.launches)
+        y = y.float().cpu().numpy()[0]
+    numbers["trained_synthesis_launches"] = counts
+    check(y.shape == (N_FRAMES * blk.spect_hop_size,) and bool(np.isfinite(y).all())
+          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          f"(d) the trained model after fold_(), on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
+          f"samples), launches {counts} (24 K1 + 1 K2)")
     with tempfile.TemporaryDirectory() as tmp:
         save_params(os.path.join(tmp, "weights.npz"), params_to_jax(tr.model.block.state_dict()))
         with open(os.path.join(tmp, "config.yaml"), "w") as f:
             yaml.safe_dump(json.loads(json.dumps(hp, default=lambda o: f"np.{o.__name__}" if isinstance(o, type)
                                                  else float(o))), f)
         inv = MELInverter(tmp, device=dev)
-    mel = make_mel(N_FRAMES, 80, SEED)
     inv.synth_from_mel(mel)  # warm-up
     torch.cuda.synchronize()
     kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
@@ -1377,9 +1332,11 @@ def main() -> int:
     print(f"  phase [9] {training['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
-    # long-form mode ([8](b), shipped model), the live streams ([8](c)) and the reloaded model's synthesis ([9](d))
+    # long-form mode ([8](b), shipped model), the live streams ([8](c)) and the trained and the reloaded
+    # model's syntheses ([9](d))
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
-                + training["reloaded_synthesis_launches"][k] for k in main_launches}
+                + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
+                for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)

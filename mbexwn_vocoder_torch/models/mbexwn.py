@@ -294,7 +294,9 @@ class MBExWN(nn.Module):
 
     def fold_(self) -> "MBExWN":
         """The folded (inference) form, in place: the convs hold their folded
-        kernels and the wavetables are a buffer again."""
+        kernels, the wavetables are a buffer again, and the stacks and the
+        oscillator are back on the kernels' route."""
+        self.set_differentiable(False)
         for m in self.modules():
             if isinstance(m, Conv1DWeightNorm):
                 m.fold_()

@@ -60,11 +60,7 @@ class NormMelComponents(nn.Module):
         None, log-mel (B, T_mel, C), synth_length) -> (grp_audio (B, T/n_group,
         n_group) or None, normalized log-mel, upsampled rms (B, T/n_group, 1)):
         the audio divided by the rms it is synthesised with, the training
-        target.  The inference form (mell, synth_length) -> (normalized
-        log-mel, upsampled rms) is kept for the synthesis paths."""
-        if not torch.is_tensor(mell):  # the inference form: (mell, synth_length)
-            _, mell_out, upsampled = self.normalize_inputs_by_rms(None, audio, mell)
-            return mell_out, upsampled
+        target.  Synthesis passes audio=None."""
         if audio is not None:
             synth_length = audio.shape[1]
         elif synth_length is None:
@@ -152,7 +148,7 @@ class PaNWaveNet(nn.Module):
             spect = torch.cat((spect, spect[:, -1:]), dim=1)
         upsampled_rms = None
         if self.norm_mel_components is not None:
-            spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(spect, synth_length)
+            _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
         signal = self.block(spect, F0=F0, noise=noise, generator=generator, phase_offset=phase_offset)
         out = signal[:, :synth_length]
         if upsampled_rms is not None:

@@ -130,7 +130,7 @@ class StreamingSynthesizer:
         mel = mel.contiguous()
         norm = self.model.norm_mel_components
         if norm is not None:
-            mel, _ = norm.normalize_inputs_by_rms(mel, mel.shape[1] * self.hop)
+            _, mel, _ = norm.normalize_inputs_by_rms(None, mel, mel.shape[1] * self.hop)
         return self.model.block.generate_f0(mel)
 
     @exact_fp32()

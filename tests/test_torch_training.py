@@ -1,37 +1,33 @@
 """The port's training slice against the JAX package's, on the CPU.
 
-The tiny configuration of tests/test_training.py (SPEECH with a 16-channel,
-2-layer WaveNet, F0 loss, teacher forcing 0.5, coherence 0.1), T_mel = 8,
-batch 2, fp32.  Parameters come from the JAX package's `init` and are
+The tiny case of `mbexwn_vocoder_torch.training.parity` (SPEECH with a
+16-channel, 2-layer WaveNet, F0 loss, teacher forcing 0.5, coherence 0.1),
+T_mel = 8, batch 2.  Parameters come from the JAX package's `init` and are
 carried across by `params_from_jax`; the step's random draws are the JAX
 trainer's own (the same key, split in its order) handed to the port.
 
-Gradients: every leaf, the wavetables included, against
-`jax.value_and_grad(Trainer.loss_fn)`, rel-RMS per leaf, bound 1e-4.  Two
-kinds of leaf are held otherwise, and the test prints each with its numbers:
+Loss and gradients, every leaf and the wavetables included, are held
+against `jax.value_and_grad(Trainer.loss_fn)` twice:
 
-- where the fp32 arithmetic itself is coarser than 1e-4, the bound is 10x
-  that leaf's fp32 rounding (the same order as the arithmetic's own error),
-  measured as the rel-RMS between the port's fp32 and fp64 gradients on the
-  same inputs.  The multi-resolution log-spectral L1 loss weights each STFT
-  bin by 1/|X|, so its fp32 gradient carries ~1e-3 of rounding on this
-  configuration, the JAX package's (its fp32 gradient against the port's
-  fp64 one) as much as the port's;
-- the F0 subnet's leaves (upstream of the oscillator phase), where JAX's own
-  fp32 phase moves its gradient: the JAX package sums the phase in fp32
-  (the port in fp64, ROADMAP "known divergences"), and at the tiny model's
-  ~320 Hz its F0 gradient through the oscillator is ~1.7e-3 off an fp64
-  evaluation while the port's is within 1e-5 (`test_oscillator_f0_gradient`).
-  Such a leaf, where it misses JAX's, is held to the port's fp64 gradient
-  instead, within 1e-2 (10x the log-spectral loss's ~1e-3 rounding; JAX's
-  fp32 gradient of these leaves is tens of percent off in the rms-normalised
-  case).
+- in fp64 on both sides, every leaf within 1e-7 rel-RMS and the loss within
+  1e-12.  The JAX package runs under `jax.enable_x64` with its hard-coded
+  float32 read as float64 (`jax_fp64`), its STFT through the FFT (its
+  default twiddle matmul holds fp32-rounded twiddles) and its draws taken in
+  float32, as the fp32 step takes them;
+- in fp32, the loss and its terms within 1e-5 of the JAX package's fp32
+  step, and each gradient leaf within 1e-4 rel-RMS of the exact (JAX fp64)
+  gradient, or within the bound that `FP32_GRADIENT_BOUNDS` names for it.
+  The test prints the JAX package's own fp32 distance from the exact
+  gradient beside each.
 
 A leaf whose norm is under 1e-6 of the largest is held to 1e-7 absolute.
 """
 import copy
+import fnmatch
 import json
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -41,10 +37,9 @@ import jax
 import jax.numpy as jnp
 import optax
 
-import mbexwn_vocoder_tpu as mv
 from mbexwn_vocoder_tpu.compat.params_io import load_params as jax_load_params
-from mbexwn_vocoder_tpu.config import read_config as jax_read_config
 from mbexwn_vocoder_tpu.models import create_model as jax_create_model
+from mbexwn_vocoder_tpu.ops import stft_ops as jax_stft_ops
 from mbexwn_vocoder_tpu.ops.conv import fold_weight_norm as jax_fold
 from mbexwn_vocoder_tpu.training import Trainer as JaxTrainer
 from mbexwn_vocoder_tpu.training.schedules import ParamSchedule as JaxParamSchedule
@@ -53,47 +48,18 @@ from mbexwn_vocoder_tpu.training.trainer import fast_forward_opt_state as jax_fa
 
 from mbexwn_vocoder_torch import get_config_file
 from mbexwn_vocoder_torch.compat.params_io import flatten, load_params, params_from_jax, params_to_jax, save_params
+from mbexwn_vocoder_torch.config import read_config
 from mbexwn_vocoder_torch.mel_inverter import MELInverter
 from mbexwn_vocoder_torch.models import create_model
 from mbexwn_vocoder_torch.nn.layers import Conv1DWeightNorm
 from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
+from mbexwn_vocoder_torch.training.parity import (TINY_BATCH as B, TINY_T_MEL as T_MEL, hold_leaves, rel_rms,
+                                                   tiny_batch, tiny_hparams)
 from mbexwn_vocoder_torch.training.schedules import ParamSchedule
 from mbexwn_vocoder_torch.training.trainer import (Trainer, clip_by_global_norm_, fast_forward_opt_state,
                                                     make_optimizer)
 
 torch.set_num_threads(2)
-T_MEL, B = 8, 2
-
-
-def rel_rms(got, ref):
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    return float(np.sqrt(np.sum((got - ref) ** 2) / max(np.sum(ref ** 2), 1e-300)))
-
-
-def tiny_hparams(**edits):
-    hp = jax_read_config(mv.get_config_file("SPEECH"))
-    mc = hp["mbexwn_config"]
-    mc["pp_mod_subnet"].update(n_channels=16, n_layers=2, n_out_channels=8)
-    mc["normalize_rms_from_mell"] = False
-    mc["pp_F0_loss_weight"] = 1.0
-    mc["pp_teacher_forcing_schedule"] = {"initial": 0.5}
-    mc["stft_coh_loss_weight"] = 0.1
-    for key, value in edits.items():
-        section, name = key.split(".")
-        hp[section][name] = value
-    return hp
-
-
-def tiny_batch(seed=1):
-    """Noise-like audio and mel, and an F0 with unvoiced stretches (so both
-    F0 masks have edges inside the segment)."""
-    rng = np.random.RandomState(seed)
-    hop = 300
-    f0 = (120 + 10 * rng.randn(B, T_MEL * hop)).astype(np.float32)
-    f0[0, 600:1100] = 0.0
-    f0[1, 1800:] = 0.0
-    return {"audio": (rng.randn(B, T_MEL * hop) * 0.1).astype(np.float32),
-            "mel": (rng.randn(B, T_MEL, 80) * 0.5 - 4).astype(np.float32), "F0": f0}
 
 
 def jax_draws(jtr, key, shapes):
@@ -139,8 +105,76 @@ CASES = {
 }
 
 
+# In fp32 the gradient of the log-spectral L1 loss on this randomly
+# initialised model is only determined to ~1e-3 (training.parity), so the
+# fp32 gradients of the leaves that feed the synthesised signal are held to
+# the exact gradient at these bounds instead of 1e-4: leaf pattern -> bound,
+# the first match wins.  Each bound is 2-4x the port's largest fp32 error on
+# the leaves it names over the three cases below; the JAX package's own fp32
+# errors on the same leaves are in the comments.
+FP32_GRADIENT_BOUNDS = {
+    "PP_waveNetBlock_*": 1e-2,  # the two WaveNet blocks: port up to 2.5e-3, JAX up to 3.8e-3
+    "wn_post_net.*": 5e-3,      # port 1.5e-3, JAX 1.6e-3
+    "wavetables": 5e-3,         # port 2.0e-3, JAX 1.6e-3
+    "pp_subnet.*": 5e-3,        # the F0 net: port 2.2e-3, JAX up to 2.3 (its fp32 phase)
+    "ps_subnet.*": 5e-4,        # the envelope net: port 1.5e-4, JAX 2.3e-4
+}
+
+
+def fp32_gradient_bound(name):
+    return next((b for pattern, b in FP32_GRADIENT_BOUNDS.items() if fnmatch.fnmatchcase(name, pattern)), 1e-4)
+
+
+class _Float64Numpy(types.ModuleType):
+    """jax.numpy with `float32` read as float64, and float32 host arrays
+    promoted to float64 where they become jax arrays: the JAX package's
+    modules see this in place of `jnp` for the fp64 reference run."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, dtype=None, **kwargs):
+        a = jnp.asarray(a, dtype, **kwargs)
+        return a.astype(jnp.float64) if dtype is None and a.dtype == jnp.float32 else a
+
+    array = asarray
+
+
+def _float32_draw(draw):
+    """A jax.random draw taken in float32 and widened: the fp64 run draws
+    the values that the fp32 step draws."""
+    def widened(key, shape=(), dtype=None, *args, **kwargs):
+        return draw(key, shape, jnp.float32, *args, **kwargs).astype(jnp.float64)
+    return widened
+
+
+def jax_fp64(monkeypatch, hp, params, batch, key):
+    """(loss, {leaf: gradient}) of the JAX package's `Trainer.loss_fn` in
+    fp64: the package's modules run unchanged under `jax.enable_x64`, with
+    `_Float64Numpy` for their `jnp`, the STFT through the FFT, and the draws
+    in float32."""
+    with monkeypatch.context() as mp:
+        mp.setattr(jax_stft_ops, "STFT_METHOD", "fft")
+        for name, module in list(sys.modules.items()):
+            if name.startswith("mbexwn_vocoder_tpu") and getattr(module, "jnp", None) is jnp:
+                mp.setattr(module, "jnp", _Float64Numpy("jnp"))
+        mp.setattr(jax.random, "normal", _float32_draw(jax.random.normal))
+        mp.setattr(jax.random, "uniform", _float32_draw(jax.random.uniform))
+        with jax.enable_x64(True):
+            jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+            jtr = JaxTrainer(jmodel, copy.deepcopy(hp))
+            p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
+            (loss, _), grads = jax.jit(jax.value_and_grad(jtr.loss_fn, has_aux=True))(
+                p64, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(0), key)
+            grads = {k: np.asarray(v) for k, v in flatten(grads).items()}
+            assert all(v.dtype == np.float64 for v in grads.values())
+            return float(loss), params_from_jax(grads)
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_loss_and_grads_match_jax(jax_params, case):
+def test_loss_and_grads_match_jax(jax_params, case, monkeypatch):
     hp = tiny_hparams(**CASES[case])
     if case.startswith("dither"):
         slc = hp["training_config"]["spect_loss_config"]
@@ -152,53 +186,36 @@ def test_loss_and_grads_match_jax(jax_params, case):
     key = jax.random.PRNGKey(3)
     (j_loss, j_metrics), j_grads = jax.jit(jax.value_and_grad(jtr.loss_fn, has_aux=True))(
         jax_params, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(0), key)
+    j_loss64, exact = jax_fp64(monkeypatch, hp, jax_params, batch, key)
 
     tr = port_trainer(hp, jax_params)
     draws = jax_draws(jtr, key, tr.draw_shapes(batch))
     loss, metrics, grads = tr.value_and_grad(batch, 0, draws)
-    _, _, grads64 = port_trainer(hp, jax_params, torch.float64).value_and_grad(batch, 0, draws)
+    loss64, _, grads64 = port_trainer(hp, jax_params, torch.float64).value_and_grad(batch, 0, draws)
 
+    # fp64: the same function and gradient
+    assert abs(float(loss64) / j_loss64 - 1) <= 1e-12, (float(loss64), j_loss64)
+    assert "wavetables" in exact
+    bad64, rows64 = hold_leaves(grads64, exact, 1e-7)
+    # fp32: the loss and its terms against the JAX fp32 step, the gradients against the exact ones
     assert abs(float(loss) / float(j_loss) - 1) <= 1e-5, (float(loss), float(j_loss))
     assert set(metrics) == set(j_metrics)
     for name in metrics:
         assert abs(float(metrics[name]) / float(j_metrics[name]) - 1) <= 1e-5, (name, metrics[name], j_metrics[name])
-
-    ref = params_from_jax(flatten(j_grads))
-    assert set(ref) == set(grads) and "wavetables" in ref
-    bad, report = hold_gradients(grads, ref, grads64)
-    print(f"[{case}] loss {float(loss):.7g} vs JAX {float(j_loss):.7g}; {report}")
-    assert not bad, bad
-
-
-F0_NET = "pp_subnet."  # the F0 subnet's leaves: upstream of the oscillator phase
-
-
-def hold_gradients(grads, ref, grads64):
-    """The per-leaf rule of the module docstring.  Returns (failing leaves,
-    a report: the worst leaf and the leaves held otherwise)."""
-    largest = max(float(r.double().norm()) for r in ref.values())
-    rows = {}
-    for name, r in ref.items():
-        g, r = grads[name].numpy(), r.numpy()
-        if float(np.linalg.norm(r.astype(np.float64))) < 1e-6 * largest:
-            err = float(np.max(np.abs(g - r)))
-            rows[name] = (err, None, err <= 1e-7)
-        else:
-            err, fp32_rounding = rel_rms(g, r), rel_rms(g, grads64[name].numpy())
-            rows[name] = (err, fp32_rounding, err <= max(1e-4, 10 * fp32_rounding))
-    rounding, phase, bad = [], [], []
-    for name, (err, fp32_rounding, ok) in rows.items():
-        if ok and err > 1e-4:
-            rounding.append(f"{name} {err:.2e} <= 10 x {fp32_rounding:.2e}")
-        elif not ok and fp32_rounding is not None and name.startswith(F0_NET):
-            ok = fp32_rounding <= 1e-2
-            phase.append(f"{name}: vs JAX {err:.2e}, JAX vs fp64 {rel_rms(ref[name].numpy(), grads64[name].numpy()):.2e}, "
-                         f"port vs fp64 {fp32_rounding:.2e} (<= 1e-2)")
-        if not ok:
-            bad.append((name, err))
-    worst = max((err, name) for name, (err, _, _) in rows.items())
-    return bad, (f"worst leaf {worst[1]} {worst[0]:.3e}; {len(rounding)} of {len(rows)} leaves held to their fp32 "
-                 f"rounding: {rounding}; {len(phase)} F0-subnet leaves held to fp64 (JAX's fp32 phase): {phase}")
+    bad32, rows32 = hold_leaves(grads, exact, fp32_gradient_bound)
+    jax32 = params_from_jax(flatten(j_grads))
+    groups = {}
+    for e, n, b in rows32:
+        pattern = next((p for p in FP32_GRADIENT_BOUNDS if fnmatch.fnmatchcase(n, p)), "other")
+        port_e, jax_e = groups.get(pattern, (0.0, 0.0))
+        groups[pattern] = (max(port_e, e), max(jax_e, rel_rms(jax32[n], exact[n])))
+    print(f"[{case}] fp64: loss {float(loss64):.15g} vs JAX {j_loss64:.15g}, worst leaf {rows64[0][1]} "
+          f"{rows64[0][0]:.2e}; fp32: loss {float(loss):.7g} vs JAX {float(j_loss):.7g}, "
+          f"{sum(e > 1e-4 for e, _, _ in rows32)} of {len(rows32)} leaves over 1e-4; worst against the exact "
+          f"gradient, port / JAX fp32, by group: "
+          + ", ".join(f"{p} {pe:.2e} / {je:.2e}" for p, (pe, je) in groups.items()))
+    assert not bad64, bad64
+    assert not bad32, bad32
 
 
 def test_oscillator_f0_gradient():
@@ -264,6 +281,31 @@ def test_inference_route_refuses_grad_and_training_route_differentiates():
                 grad = getattr(getattr(net, layer), p).grad
                 assert grad is not None and float(grad.abs().max()) > 0, (layer, p)
     assert folded.shape == x.shape[:2] + (8,)
+
+
+def test_fold_returns_a_trained_model_to_the_kernels_route(jax_params, monkeypatch):
+    """The trainer puts the model on the differentiable route; `fold_()`
+    puts it back on the kernels' route: its synthesis calls the kernels'
+    entries (`wavenet_stack` once a block, `oscillate` once), as a model that
+    was never trained does."""
+    import mbexwn_vocoder_torch.models.mbexwn as port_mbexwn
+    import mbexwn_vocoder_torch.nn.wavenet as port_wavenet
+
+    hp = tiny_hparams()
+    tr = port_trainer(hp, jax_params)
+    routes = lambda: {m.differentiable for m in tr.model.modules() if hasattr(m, "differentiable")}
+    assert routes() == {True}
+    tr.train_step(tiny_batch())
+    tr.model.fold_()
+    assert routes() == {False} and not tr.model.trainable
+    calls = []
+    for module, name in ((port_wavenet, "wavenet_stack"), (port_mbexwn, "oscillate")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _real=real, _name=name, **k: calls.append(_name) or _real(*a, **k))
+    with torch.inference_mode():
+        y = tr.model.infer(torch.from_numpy(tiny_batch(seed=2)["mel"]), T_MEL * 300)
+    assert sorted(calls) == ["oscillate"] + ["wavenet_stack"] * len(tr.model.block.block_names), calls
+    assert torch.isfinite(y).all()
 
 
 @pytest.mark.parametrize("activation", ["gtu", "glu", "gfu", "gsu"])
@@ -435,7 +477,7 @@ def test_weights_round_trip_bit_exact(model_id):
     assert back.keys() == flat.keys()
     for k, v in flat.items():
         assert back[k].dtype == v.dtype and back[k].shape == v.shape and np.array_equal(back[k], v), k
-    hp = jax_read_config(mv.get_config_file(model_id))
+    hp = read_config(get_config_file(model_id))
     model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
     model.block.load_state_dict(params_from_jax(flat), strict=True)
 
