@@ -115,14 +115,47 @@ prints no result line:
      (d) the trained model folded (`fold_()`): its own 512-frame synthesis
      on the card finite, with 24 K1 and 1 K2 launches; then written with
      save_params and loaded by MELInverter on the card: a 512-frame
-     synthesis finite, with 24 K1 and 1 K2 launches.
+     synthesis finite, with 24 K1 and 1 K2 launches;
+ 10. the training CLI and its parts, SPEECH as shipped (C = 320, 12 + 12 layers, bf16),
+     its training_config (batch 32 of 24,000-sample segments), on a corpus
+     of 16 synthetic utterances (`training.synthetic.make_corpus`, seed 0)
+     in a temporary directory outside the repo:
+     (a) `cli.train.main` warm-started from the registry's weights.npz
+     (--init_from), 10 steps, save_every 5, log_every 1, 2 loader workers,
+     then resumed to 15 (the checkpoint wins over --init_from):
+     metrics.jsonl holds steps 1-15, all finite; checkpoints 5, 10 and 15;
+     the step-15 checkpoint restored into a fresh trainer on the card
+     equals the trained state bit for bit (parameters, Adam state,
+     scheduler count, step); replaying --steps 15 prints "nothing to train"
+     and builds no model, and the same replay with --init_from does not
+     skip; the export loaded by MELInverter synthesises 512 frames with 24
+     K1 + 1 K2 launches, finite, and K1 on its two stacks (fp32 <= 1e-4,
+     bf16 <= 2e-2 rel-RMS) and K2 on its F0 (audio <= 1e-5, phase
+     bit-equal) against their plain versions.  Printed: the CLI's step
+     (host clock, median of steps 3-10) beside [9](c)'s, the card's busy
+     time and idle share over steps 6-10 (torch.profiler tracing the card
+     only, from step 6's train_step to step 10's metrics), the loader's
+     ms per batch per worker and queue depth, time to the first step,
+     checkpoint save ms and bytes, peak memory;
+     (b) `training.pretrain.pretrain_activations` from a fresh init on two
+     calibration batches of 32 mels, 5 iterations: the stats loss finite
+     and falling, the frozen leaves bit-equal; ms an iteration, peak
+     memory;
+     (c) `training.adversarial.AdversarialTrainer` from the shipped
+     weights, default wavegan_config, 5 steps on one batch of 32: every
+     loss finite, step ms (CUDA events), peak memory; and the tiny case's
+     GAN step in fp64 on the card against the CPU
+     (`training.parity.gan_card_against_cpu`): metrics within 1e-12,
+     every generator and discriminator gradient leaf within 1e-9 rel-RMS.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
-with phase [8]'s, a `training:` JSON line with phase [9]'s, the card's name
-and power limit, a `kernels` JSON line (its launches: the main path of
-[4], SPEECH bf16, plus one pass of each long-form mode of [8](b), the live
-streams of [8](c) and the trained and the reloaded model's syntheses of
-[9](d), each counted from 0 just before it), and `{"ok": true, "device": {...}}`.
+with phase [8]'s, a `training:` JSON line with phase [9]'s, a
+`training_driver:` JSON line with phase [10]'s, the card's name and power
+limit, a `kernels` JSON line (its launches: the main path of [4], SPEECH
+bf16, plus one pass of each long-form mode of [8](b), the live streams of
+[8](c), the trained and the reloaded model's syntheses of [9](d) and the
+CLI export's synthesis of [10](a), each counted from 0 just before it), and
+`{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
 from __future__ import annotations
@@ -249,12 +282,19 @@ def device_activity(fn):
     """Run fn() once under torch.profiler: (device busy ms, the union of kernel
     and copy intervals; the count of device activities; {name: (ms, n)})."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return device_busy(prof)
+
+
+def device_busy(prof):
+    """(device busy ms, the count of device activities, {name: (ms, n)}) of a
+    finished torch.profiler run: the union of its kernel and copy intervals."""
+    from torch.autograd import DeviceType
+
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1069,6 +1109,313 @@ def phase_training(check, dev):
     return numbers
 
 
+CLI_MODEL = "SPEECH"  # a registry id or a model directory
+CLI_STEPS, CLI_SAVE_EVERY, CLI_RESUME_TO, CLI_UTTERANCES = 10, 5, 15, 16
+PRETRAIN_ITERS, GAN_STEPS = 5, 5
+
+
+def phase_training_cli(check, dev, train_step_ms: float):
+    """Phase [10]: the training CLI on the card, SPEECH at full width,
+    shipped bf16.  (a) the CLI: 10 steps from the registry weights
+    (--init_from), then resumed to 15; metrics, checkpoints, a bit-exact
+    restore, the no-op replay, and the export synthesised through both
+    kernels, each held against its plain version; (b) activation
+    pretraining; (c) adversarial steps, and the tiny GAN step card vs CPU.
+    Returns the numbers for the `training_driver:` line."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stderr
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import mbexwn_vocoder_torch.cli.train as train_cli
+    import mbexwn_vocoder_torch.models.factory as factory
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.config import read_config
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.models import create_model, create_registry_model
+    from mbexwn_vocoder_torch.observability import MetricsLogger
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+    from mbexwn_vocoder_torch.training.adversarial import AdversarialTrainer
+    from mbexwn_vocoder_torch.training.checkpointing import CheckpointManager
+    from mbexwn_vocoder_torch.training.data import SegmentDataset
+    from mbexwn_vocoder_torch.training.parity import gan_card_against_cpu
+    from mbexwn_vocoder_torch.training.pretrain import (activation_stats_loss, pretrain_activations,
+                                                        pretrainable_mask)
+    from mbexwn_vocoder_torch.training.synthetic import make_corpus
+    from mbexwn_vocoder_torch.training.trainer import Trainer
+
+    # SPEECH as shipped (bf16); the CLI on its default device, the card
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE", "MBEXWN_PLATFORM"):
+        os.environ.pop(var, None)
+    numbers = {}
+    hp = read_config(get_config_file(CLI_MODEL))
+    pc, B = hp["preprocess_config"], hp["training_config"]["train_batch_size"]
+    registry_weights = os.path.join(os.path.dirname(get_config_file(CLI_MODEL)), "weights.npz")
+    tmp = tempfile.mkdtemp(prefix="mbexwn_train_")  # outside the repo
+    try:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        make_corpus(data, n_utterances=CLI_UTTERANCES, seed=0, quiet=True)
+        print(f"  corpus: {CLI_UTTERANCES} synthetic utterances (make_corpus, seed 0), "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cli_args = dict(save_every=CLI_SAVE_EVERY, log_every=1, num_workers=2, init_from=registry_weights)
+
+        # (a) leg 1: 10 steps warm-started from the registry weights; the
+        # profiler traces the card only (the host's ops unrecorded, so the
+        # host keeps its pace) from the start of step 6's train_step (after
+        # step 5's checkpoint) to the sync of step 10's metrics (log_every
+        # 1).  Leg 2: resumed to 15 (the checkpoint wins over --init_from).
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        trainers, window = [], {}
+        train_step, log = Trainer.train_step, MetricsLogger.log
+
+        def traced_step(self, batch, draws=None):
+            if self not in trainers:
+                trainers.append(self)
+            if self.step == CLI_SAVE_EVERY and "start" not in window:
+                window["start"] = time.perf_counter()
+                prof.start()
+            return train_step(self, batch, draws)
+
+        def traced_log(self, step, metrics):
+            log(self, step, metrics)
+            if step == CLI_STEPS and "end" not in window:
+                torch.cuda.synchronize()
+                window["end"] = time.perf_counter()
+                prof.stop()  # collects the trace: its time is taken out of step 10's below
+                window["stop_s"] = time.perf_counter() - window["end"]
+
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(Trainer, "train_step", traced_step), mock.patch.object(MetricsLogger, "log", traced_log):
+            leg1 = train_cli.main(CLI_MODEL, data, out, steps=CLI_STEPS, **cli_args)
+            leg1["step_host_s"][CLI_STEPS] -= window["stop_s"]
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            leg2 = train_cli.main(CLI_MODEL, data, out, steps=CLI_RESUME_TO, **cli_args)
+        busy_ms, n_act, by_name = device_busy(prof)
+        window_ms = 1e3 * (window["end"] - window["start"])
+        trainer = trainers[-1]  # leg 2's, at step 15
+
+        recs = [json.loads(line) for line in open(os.path.join(out, "logs", "metrics.jsonl"))]
+        check([r["step"] for r in recs] == list(range(1, CLI_RESUME_TO + 1))
+              and all(math.isfinite(v) for r in recs for v in r.values()),
+              f"(a) metrics.jsonl: steps {[r['step'] for r in recs]}, every value finite")
+        check(leg1["device"].startswith("cuda") and leg2["device"].startswith("cuda"),
+              f"(a) the CLI trained on its default device: {leg1['device']}, {leg2['device']}")
+        check(leg1["warm_started"] and leg1["start_step"] == 0 and leg2["resumed"] and leg2["start_step"] == 10
+              and leg2["end_step"] == CLI_RESUME_TO,
+              f"(a) leg 1 warm-started from the registry weights (0 -> {leg1['end_step']}); leg 2 resumed from its "
+              f"checkpoint {leg2['start_step']} -> {leg2['end_step']} (the checkpoint wins over --init_from)")
+        ckpt = CheckpointManager(os.path.join(out, "checkpoints"))
+        check(ckpt.steps() == [5, 10, 15], f"(a) checkpoint directories {ckpt.steps()} (5, 10, 15)")
+
+        # a restored state equals the saved one, bit for bit, on the card
+        model, _ = create_model(hp, hp["training_config"], pc, trainable=True)
+        model.init(torch.Generator().manual_seed(1))
+        restored = Trainer(model, hp, device=dev)
+        ckpt.restore(restored)
+        same_params = all(torch.equal(v, restored.model.block.state_dict()[k])
+                          for k, v in trainer.model.block.state_dict().items())
+        ref_opt, got_opt = trainer.optimizer.state_dict(), restored.optimizer.state_dict()
+        same_moments = ref_opt["state"].keys() == got_opt["state"].keys() and all(
+            torch.equal(v, got_opt["state"][i][name].to(v.device)) for i, s in ref_opt["state"].items()
+            for name, v in s.items())
+        n_moments = sum(len(s) for s in ref_opt["state"].values())
+        sched = {k: v for k, v in restored.scheduler.state_dict().items() if k != "lr_lambdas"}
+        check(same_params and same_moments and restored.step == trainer.step == CLI_RESUME_TO
+              and sched == {k: v for k, v in trainer.scheduler.state_dict().items() if k != "lr_lambdas"}
+              and restored.scheduler.last_epoch == CLI_RESUME_TO
+              and next(iter(restored.model.parameters())).device.type == torch.device(dev).type,
+              f"(a) the step-15 checkpoint restored on the card equals the trained state bit for bit: "
+              f"{len(trainer.model.block.state_dict())} parameters, {n_moments} Adam state tensors (moments and "
+              f"counts), scheduler count {restored.scheduler.last_epoch}, step {restored.step}")
+        del restored, model
+
+        # the replay of a reached target: a no-op that builds no model, unless --init_from is given
+        built = []
+        real_create = factory.create_model
+
+        def counting_create(*a, **k):
+            built.append(1)
+            return real_create(*a, **k)
+
+        replays = {}
+        for label, kw in (("plain", dict(cli_args, init_from=None)), ("init_from", cli_args)):
+            built.clear()
+            buf = io.StringIO()
+            with mock.patch.object(factory, "create_model", counting_create), redirect_stderr(buf):
+                result = train_cli.main(CLI_MODEL, data, out, steps=CLI_RESUME_TO, **kw)
+            replays[label] = (result, len(built), buf.getvalue())
+        (r_plain, n_plain, err_plain), (r_init, n_init, err_init) = replays["plain"], replays["init_from"]
+        check(r_plain is None and n_plain == 0 and "nothing to train" in err_plain,
+              f"(a) replaying --steps {CLI_RESUME_TO}: 'nothing to train', {n_plain} models built")
+        check(r_init is not None and n_init == 1 and "nothing to train" not in err_init
+              and r_init["end_step"] == CLI_RESUME_TO and not r_init["step_host_s"],
+              f"(a) the same replay with --init_from: not skipped ({n_init} model built, resumed at step "
+              f"{r_init and r_init['start_step']}, no step run, exported again)")
+
+        # the export: MELInverter on the card, 512 frames through 24 K1 + 1 K2, each held against its plain version
+        inv = MELInverter(out, device=dev)
+        mel = make_mel(N_FRAMES, 80, SEED)
+        inv.synth_from_mel(mel)  # warm-up
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+        y = inv.synth_from_mel(mel)
+        counts = dict(kernel_lib.launches)
+        check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
+              and counts == {"wavenet_layer": 24, "oscillator": 1},
+              f"(a) the export loaded by MELInverter on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
+              f"samples), launches {counts} (24 K1 + 1 K2)")
+        k1_err, k2_err = {}, None
+        for block_index in range(len(inv.model.block.block_names)):
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                x, cond, weights, dils, f0 = stack_inputs(inv.model, mel, block_index, dtype, dev)
+                with torch.inference_mode(), exact_fp32():
+                    got = wavenet_stack(x, cond, weights, dils).float().cpu().numpy()
+                    ref = wavenet_stack_plain(x, cond, weights, dils).float().cpu().numpy()
+                err = rel_rms(got, ref)
+                k1_err[(block_index, str(dtype)[6:])] = (err, float(np.max(np.abs(got - ref))))
+                check(np.isfinite(got).all() and err <= tol,
+                      f"(a) K1 on the export's block {block_index} ({x.shape[1]} rows, C={x.shape[2]}) "
+                      f"{str(dtype)[6:]}: rel-RMS {err:.3e} (<= {tol:g})")
+        blk, wt = inv.model.block, inv.model.block.wavetable
+        consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+        with torch.inference_mode():
+            audio, phase = oscillate(f0, blk.wavetables, *consts, return_phase=True)
+            ref_audio, ref_phase = oscillate_plain(f0, blk.wavetables, *consts, return_phase=True)
+        k2_err, n_diff = float((audio - ref_audio).abs().max()), int((phase != ref_phase).sum())
+        check(math.isfinite(k2_err) and k2_err <= 1e-5 and n_diff == 0,
+              f"(a) K2 on the export's F0 ({f0.shape[1]} samples): audio max abs {k2_err:.3e} (<= 1e-5), phase "
+              f"samples differing from plain {n_diff}")
+
+        steps_ms = [1e3 * leg1["step_host_s"][k] for k in range(3, CLI_STEPS + 1)]
+        loader = leg1["loader"]
+        saves = leg1["checkpoints"] + leg2["checkpoints"]
+        numbers["cli"] = {
+            "model": CLI_MODEL, "batch": B, "segment_samples": pc["segment_length"], "steps": CLI_RESUME_TO,
+            "data_source": loader["source"], "step_ms_host_median_3_10": float(np.median(steps_ms)),
+            "step_ms_host_3_10": steps_ms, "phase9_step_ms_cuda_events": train_step_ms,
+            "resumed_leg_step_ms_host": [1e3 * leg2["step_host_s"][k] for k in sorted(leg2["step_host_s"])],
+            "time_to_first_step_s": leg1["time_to_first_step_s"],
+            "profiled_window_ms": window_ms, "profiled_steps": f"{CLI_SAVE_EVERY + 1}-{CLI_STEPS}",
+            "profiler_stop_ms_out_of_step_10": 1e3 * window["stop_s"],
+            "device_busy_ms": busy_ms, "device_activities": n_act,
+            "idle_share": max(0.0, 1.0 - busy_ms / window_ms),
+            "busy_ms_per_step": busy_ms / (CLI_STEPS - CLI_SAVE_EVERY),
+            "loader_ms_per_batch_per_worker_median": loader["ms_per_batch_per_worker_median"],
+            "loader_workers": loader["workers"], "loader_batches_made": loader["batches_made"],
+            "queue_depth_at_take_mean": loader["queue_depth_at_take_mean"],
+            "queue_depth_at_take_min": loader["queue_depth_at_take_min"], "queue_capacity": loader["queue_capacity"],
+            "checkpoint_saves": saves, "peak_memory_gb_leg1": peak_gb, "synthesis_launches": counts,
+            "k1_vs_plain": {f"block{b} {d}": {"rel_rms": e, "max_abs": m} for (b, d), (e, m) in k1_err.items()},
+            "k2_vs_plain_max_abs": k2_err}
+        c = numbers["cli"]
+        print(f"  (a) data: {c['data_source']} path; loader {c['loader_ms_per_batch_per_worker_median']:.1f} ms a "
+              f"batch of {B} per worker ({c['loader_workers']} workers, {c['loader_batches_made']} batches made), "
+              f"queue depth at each take mean {c['queue_depth_at_take_mean']:.2f} min {c['queue_depth_at_take_min']} "
+              f"of {c['queue_capacity']}", flush=True)
+        print(f"  (a) CLI step {c['step_ms_host_median_3_10']:.2f} ms (host clock, median of steps 3-10, data wait "
+              f"and metric sync included) beside [9](c)'s step {train_step_ms:.2f} ms (CUDA events, fixed batch); "
+              f"time to the first step {c['time_to_first_step_s']:.2f} s; peak memory {peak_gb:.2f} GB", flush=True)
+        print(f"  (a) steps {c['profiled_steps']} under torch.profiler (device trace only): {window_ms:.2f} ms, the card "
+              f"busy {busy_ms:.2f} ms ({c['busy_ms_per_step']:.2f} a step) in {n_act} device activities, idle share "
+              f"{c['idle_share']:.3f}", flush=True)
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"    {ms:9.3f} ms {n:5d}x  {name[:80]}", flush=True)
+        print("  (a) checkpoint saves: " + ", ".join(f"step {s['step']} {s['ms']:.1f} ms {s['bytes'] / 1e6:.1f} MB"
+                                                  for s in saves), flush=True)
+        del trainer, trainers, inv
+        torch.cuda.empty_cache()
+
+        # (b) activation pretraining from a fresh init, two calibration batches of 32 mels
+        ds = SegmentDataset(data, pc, seed=3)
+        try:
+            cal = [ds.batch(B)["mel"] for _ in range(2)]
+        finally:
+            ds.close()
+        model, _ = create_model(hp, hp["training_config"], pc, trainable=True)
+        model.init(torch.Generator().manual_seed(SEED))
+        model.to(dev)
+        start = {k: v.clone() for k, v in model.block.state_dict().items()}
+        model.set_differentiable(True)
+        with torch.no_grad(), exact_fp32():
+            first = float(activation_stats_loss(model, torch.from_numpy(cal[0]).to(dev), 1.0,
+                                                generator=torch.Generator(device=dev).manual_seed(0))[0])
+        model.set_differentiable(False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last = pretrain_activations(model, cal, target=1.0, max_iters=PRETRAIN_ITERS, lr=1e-2, to_rmse=0.0)
+        torch.cuda.synchronize()
+        it_ms = 1e3 * (time.perf_counter() - t0) / PRETRAIN_ITERS
+        pre_peak = torch.cuda.max_memory_allocated() / 1e9
+        mask = pretrainable_mask(model)
+        got = model.block.state_dict()
+        frozen = [k for k in got if not mask.get(k, False)]
+        moved = sum(not torch.equal(got[k], start[k]) for k in got if mask.get(k, False))
+        numbers["pretrain"] = {"iters": PRETRAIN_ITERS, "first_loss": first, "last_loss": last, "ms_per_iter": it_ms,
+                               "peak_memory_gb": pre_peak, "frozen_leaves": len(frozen), "moved_leaves": moved}
+        check(math.isfinite(first) and math.isfinite(last) and last < first
+              and all(torch.equal(got[k], start[k]) for k in frozen) and moved > 0,
+              f"(b) pretraining, SPEECH full width, fresh init, 2 calibration batches of {B}: stats loss {first:.4f} "
+              f"-> {last:.4f} after {PRETRAIN_ITERS} iterations; {len(frozen)} frozen leaves bit-equal, {moved} "
+              f"pretrainable leaves moved; {it_ms:.1f} ms an iteration, peak memory {pre_peak:.2f} GB")
+        check(not any(m.differentiable for m in model.modules() if hasattr(m, "differentiable")),
+              "(b) the model is back on the kernels' route after pretraining")
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) adversarial steps from the shipped weights, the default wavegan_config
+        ds = SegmentDataset(data, pc, seed=4)
+        try:
+            batch = ds.batch(B)
+        finally:
+            ds.close()
+        hp_gan = dict(hp, wavegan_config={})
+        gan = AdversarialTrainer(create_registry_model(CLI_MODEL, trainable=True), hp_gan, device=dev, seed=SEED)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.reset_peak_memory_stats()
+        gan_ms, gan_metrics = [], []
+        for _ in range(GAN_STEPS):
+            start_ev, stop_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start_ev.record()
+            m = gan.train_step(batch)
+            stop_ev.record()
+            torch.cuda.synchronize()
+            gan_ms.append(start_ev.elapsed_time(stop_ev))
+            gan_metrics.append({k: float(v) for k, v in m.items()})
+        gan_peak = torch.cuda.max_memory_allocated() / 1e9
+        keys = ("disc_loss", "adv_loss", "fm_loss", "total_loss")
+        numbers["adversarial"] = {"batch": B, "steps": GAN_STEPS, "step_ms_cuda_events": gan_ms,
+                                  "step_ms_median_2_5": float(np.median(gan_ms[1:])), "peak_memory_gb": gan_peak,
+                                  "metrics": gan_metrics,
+                                  "discriminator_params": sum(p.numel() for p in gan.discriminator.parameters())}
+        check(all(math.isfinite(m[k]) for m in gan_metrics for k in keys),
+              f"(c) AdversarialTrainer, SPEECH from its weights, batch {B}, default wavegan_config: {GAN_STEPS} "
+              f"steps, " + "; ".join(f"{k} " + " ".join(f"{m[k]:.4f}" for m in gan_metrics) for k in keys)
+              + f"; step {numbers['adversarial']['step_ms_median_2_5']:.2f} ms (CUDA events, median of steps 2-5), "
+              f"peak memory {gan_peak:.2f} GB")
+        del gan, batch
+        torch.cuda.empty_cache()
+        for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):  # the tiny case in fp64: no bf16 compute
+            os.environ[var] = ""
+        gan_failures, gan_tiny = gan_card_against_cpu(dev, SEED)
+        numbers["adversarial_tiny_card_vs_cpu"] = gan_tiny
+        check(not gan_failures,
+              f"(c) tiny GAN step, card vs CPU, fp64, {gan_tiny['leaves']} gradient leaves: worst metric "
+              f"{gan_tiny['worst_metric']} rel {gan_tiny['worst_metric_rel']:.1e} (<= 1e-12), worst leaf "
+              f"{gan_tiny['worst_leaf']} {gan_tiny['worst_leaf_rel_rms']:.1e} (<= 1e-9); failing {gan_failures}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -1330,13 +1677,23 @@ def main() -> int:
     training["seconds"] = time.perf_counter() - t0
     training["card"] = card
     print(f"  phase [9] {training['seconds']:.1f} s", flush=True)
+    # ---- 10. the training CLI, pretraining and adversarial training
+    print("[10] training CLI (cli.train), pretraining, adversarial (SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    cli_run = phase_training_cli(check, dev, training["full_width"]["step_ms_cuda_events"])
+    cli_run["seconds"] = time.perf_counter() - t0
+    cli_run["card"] = card
+    k1_max_abs = max([k1_max_abs] + [v["max_abs"] for k, v in cli_run.get("cli", {}).get("k1_vs_plain", {}).items()
+                                     if k.endswith("bfloat16")])
+    k2_err = max(k2_err, cli_run.get("cli", {}).get("k2_vs_plain_max_abs", 0.0))
+    print(f"  phase [10] {cli_run['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
-    # long-form mode ([8](b), shipped model), the live streams ([8](c)) and the trained and the reloaded
-    # model's syntheses ([9](d))
+    # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
+    # model's syntheses ([9](d)) and the CLI export's synthesis ([10](a))
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
-                for k in main_launches}
+                + cli_run["cli"]["synthesis_launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -1358,10 +1715,12 @@ def main() -> int:
           f"training step SPEECH batch {training['full_width']['batch']} "
           f"{training['full_width']['step_ms_cuda_events']:.2f} ms (WaveNet bound "
           f"{training['full_width']['wavenet_bound_ms']:.2f}), peak {training['full_width']['peak_memory_gb']:.2f} GB; "
-          f"all checks passed", flush=True)
+          f"CLI step {cli_run['cli']['step_ms_host_median_3_10']:.2f} ms (host), idle share "
+          f"{cli_run['cli']['idle_share']:.3f}; all checks passed", flush=True)
     print("serving: " + json.dumps(serving), flush=True)
     print("streaming: " + json.dumps(streaming), flush=True)
     print("training: " + json.dumps(training), flush=True)
+    print("training_driver: " + json.dumps(cli_run), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,7 +70,8 @@ _RENAMED = {"b": "bias", "g": "g", "alpha": "alpha", "wavetables": "wavetables"}
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat JAX parameters, folded or not -> state_dict of `models.MBExWN` in
-    the matching form."""
+    the matching form (or of the discriminator: its tree
+    scale_i/{pre,down_j,post,out}/{v,g,b} maps by the same rules)."""
     state = {}
     for path, value in flat.items():
         *mod, leaf = path.split("/")
@@ -84,26 +85,36 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             continue
         else:
             raise KeyError(f"params_from_jax: unexpected parameter {path}")
-        state[".".join(mod + [name])] = torch.from_numpy(np.array(value, dtype=np.float32))
+        # float32 (the npz files, fp16 copies upcast), float64 kept (an fp64 reference's tree)
+        dtype = np.float64 if value.dtype == np.float64 else np.float32
+        state[".".join(mod + [name])] = torch.from_numpy(np.array(value, dtype=dtype))
     return state
 
 
+_TO_JAX = {here: jax for jax, here in {**_TRANSPOSED, **_RENAMED, "_equalized_lr": "_equalized_lr"}.items()}
+
+
+def jax_path(key: str) -> str:
+    """The JAX parameter path of a state_dict key (`params_to_jax`'s names)."""
+    *mod, leaf = key.split(".")
+    if leaf not in _TO_JAX:
+        raise KeyError(f"params_to_jax: unexpected state entry {key}")
+    return "/".join(mod + [_TO_JAX[leaf]])
+
+
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """State_dict of `models.MBExWN` (either form) -> flat JAX parameters
+    """State_dict of `models.MBExWN` (either form) or of
+    `training.discriminator.MultiScaleDiscriminator` -> flat JAX parameters
     {slash/path: ndarray}, the exact inverse of `params_from_jax`."""
-    to_jax = {here: jax for jax, here in {**_TRANSPOSED, **_RENAMED}.items()}
     flat = {}
     for key, tensor in state.items():
-        *mod, leaf = key.split(".")
+        leaf = key.rsplit(".", 1)[-1]
         value = tensor.detach().cpu().numpy()
         if leaf == "_equalized_lr":
-            flat["/".join(mod + [leaf])] = np.asarray(bool(value))
-            continue
-        if leaf not in to_jax:
-            raise KeyError(f"params_to_jax: unexpected state entry {key}")
-        if leaf in _TRANSPOSED.values():
+            value = np.asarray(bool(value))
+        elif leaf in _TRANSPOSED.values():
             value = np.ascontiguousarray(value.transpose(2, 1, 0))
-        flat["/".join(mod + [to_jax[leaf]])] = value
+        flat[jax_path(key)] = value
     return flat
 
 

@@ -1,16 +1,18 @@
-"""YAML config reading with the registry's include syntax.
+"""YAML config reading and writing with the registry's include syntax.
 
-Copy of what `read_config` and `modify_config` need from the JAX
-package's config/config_utils.py: cross-file includes
-``<@CONFIG_DIR@/file:key:...>``, env/user expansion, dtype-name mapping,
-``__defaults__`` fill-in, and the command-line override mini-language
-(``a:b:[i]:key=val``) that `view_mel -a` takes.
+Copy of the JAX package's config/config_utils.py without its list helper:
+cross-file includes ``<@CONFIG_DIR@/file:key:...>``, env/user expansion,
+dtype-name mapping, ``__defaults__`` fill-in, the command-line override
+mini-language (``a:b:[i]:key=val``) that `view_mel -a` and `cli.train -a`
+take, `dump_config` (the exported model's config.yaml, the same text the JAX
+package writes) and the schema validators of the config blocks.
 """
 from __future__ import annotations
 
 import ast
 import os
 import re
+import sys
 from copy import deepcopy
 
 import numpy as np
@@ -35,6 +37,7 @@ _DTYPE_NAMES = {
     "float32": np.float32,
     "None": None,
 }
+_DTYPE_SPELLING = {np.float32: "np.float32", np.float16: "np.float16"}
 
 _WORD_VALUES = {"none": None, "null": None, "true": True, "false": False}
 
@@ -132,6 +135,25 @@ def read_config(config_file, config_base_dir=None):
             chunks.append(stream.read())
     raw = yaml.safe_load("\n".join(chunks))
     return _expand_defaults(_resolve_node(raw, base_dir))
+
+
+def dump_config(config_file, config):
+    """Write a config tree back to YAML (dtype objects re-spelled as names)."""
+    parent = os.path.dirname(config_file)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    config = _respell_dtypes(deepcopy(config))
+    with open(config_file, "w") as stream:
+        yaml.safe_dump(config, stream)
+    return config
+
+
+def _respell_dtypes(node):
+    if isinstance(node, dict):
+        return {key: _respell_dtypes(value) for key, value in node.items()}
+    if isinstance(node, type) and node in _DTYPE_SPELLING:
+        return _DTYPE_SPELLING[node]
+    return node
 
 
 # CLI override mini-language  (``a:b:[i]:key=val``)
@@ -244,3 +266,122 @@ def modify_config(hparams, config_args, config_base_dir=None):
             )
         cursor[parts[-2]] = coerce_scalar(parts[-1])
     return hparams
+
+
+# schema validation: the keys each config block may hold (the shipped
+# config.yaml format defines them, so they are a compatibility contract)
+
+_SCHEMAS = {
+    "config_dict": dict(
+        required=["preprocess_config", "training_config", "checkpoint_config", "pickle_config"],
+        optional=[
+            "path_config", "mbexwn_config", "wavegan_config", "aliases",
+            "use_tf25_compatible_implementation", "parallel_config",
+        ],
+        obsolete=[],
+    ),
+    "preprocess_config": dict(
+        required=["sample_rate", "segment_length", "hop_size", "mel_channels", "fft_size", "fmin", "fmax"],
+        optional=[
+            "use_centered_STFT", "win_size", "random_filter_length", "random_filter_amp",
+            "random_mult", "random_mult_max_amp", "band_pass", "norm_mel", "mel_amp_scale",
+            "lin_amp_scale", "lin_amp_off", "use_max_limit",
+        ],
+        obsolete=["include_sub_sampled"],
+    ),
+    "training_config": dict(
+        required=["epochs", "epoch_size", "train_batch_size", "ftype", "optimizer"],
+        optional=[
+            "learning_rate", "reduce_on_plateau", "read_files_max_length_s", "add_speaker_id",
+            "file_reader_procs", "batch_creat_procs", "total_loss_debug_thresh",
+            "dither_level", "spect_loss_config", "stage", "all_optimizers_start",
+            "pretrain_activations_target", "pretrain_activations_max_iters",
+            "pretrain_activations_to_rmse", "pretrain_activations_lr",
+            "TD_loss_weight", "TD_loss_win_len", "grad_clip_norm", "weight_decay",
+            "lr_schedule", "batch_cache_config", "batch_min_cache_perc", "batch_cache_perc",
+            "pca_num_steps", "init_inv1x1_with_pca", "output_soft_thresh_fac", "batch_debug_dir",
+        ],
+        obsolete=["buffer_size", "mixed_precision", "mell_loss_weight", "cpdl_loss_weight", "seed"],
+    ),
+    "spect_loss_config": dict(
+        required=["win_size", "hop_size"],
+        optional=[
+            "spect_loss_weight", "spect_loss_schedule", "loss_type", "fft_over", "mell_loss_weight",
+            "MCCTP_loss_weight", "PP_loss_weight", "BC_loss_weight", "MCCT_loss_weight",
+            "MCCTS_loss_weight", "NLL_loss_weight", "MODSPEC_loss_weight", "NPOW_loss_weight",
+            "NLL_min_std", "PP_band_width_Hz", "PP_segment_size_s", "PP_loss_method",
+            "remove_mean_hz", "BC_segment_size_s", "BC_loss_method", "BC_max_off_Hz",
+            "MODSPEC_loss_method", "masking_noise_std", "rel_masking_noise_atten_db",
+            "low_band_extra_weight", "low_band_extra_weight_limit_Hz",
+            "low_band_extra_weight_transition_Hz", "MCC_segment_size_s", "MCC_pad_size_s",
+            "lin_amp_off", "rel_lin_amp_off", "magnitude_compression", "use_lin_amp_off_for_mc",
+            "spect_error_gain",
+        ],
+        obsolete=[
+            "cpdl_loss_weight", "MCCT_segment_size_s", "MCCT_pad_size_s", "RIC_loss_weight",
+            "RIC_num_filters", "RIC_band_width", "RIC_seed", "RIC_segment_size_s",
+        ],
+    ),
+    "checkpoint_config": dict(
+        required=["max_to_keep", "log_dir", "checkpoint_dir", "save_model_every", "show_progress_every",
+                  "save_audio_every"],
+        optional=["keep_audio_every", "store_model_every"],
+        obsolete=[],
+    ),
+    "wavenet_config": dict(
+        required=["n_layers", "n_channels", "kernel_size"],
+        optional=[
+            "enable_weight_norm", "enable_equalized_lr", "dilation_rate_step", "max_log2_dilation_rate",
+            "activation", "return_activations", "weight_schedule", "disabled", "loss_thresh",
+            "rel_masking_noise_atten_db",
+        ],
+        obsolete=["use_weight_norm", "n_in_channels"],
+    ),
+}
+
+
+def _validate_block(block, schema_name: str):
+    schema = _SCHEMAS[schema_name]
+    known = set(schema["required"]) | set(schema["optional"]) | set(schema["obsolete"])
+    present = set(block)
+
+    unknown = sorted(present - known)
+    if unknown:
+        raise RuntimeError(f"config::{schema_name}: unrecognized keys {unknown}")
+    missing = [key for key in schema["required"] if key not in present]
+    if missing:
+        raise RuntimeError(f"config::{schema_name}: required keys missing {missing}")
+    stale = sorted(present & set(schema["obsolete"]))
+    if stale:
+        print(f"config::{schema_name}: keys {stale} are obsolete; please update the config", file=sys.stderr)
+
+
+def check_config_dict(hparams):
+    _validate_block(hparams, "config_dict")
+
+
+def check_preprocess_config(preprocess_config):
+    _validate_block(preprocess_config, "preprocess_config")
+
+
+def check_training_config(training_config):
+    _validate_block(training_config, "training_config")
+
+
+def check_spect_loss_config(spect_loss_config):
+    _validate_block(spect_loss_config, "spect_loss_config")
+
+
+def check_checkpoint_config(checkpoint_config):
+    _validate_block(checkpoint_config, "checkpoint_config")
+
+
+def check_wavenet_config(wavenet_config):
+    _validate_block(wavenet_config, "wavenet_config")
+
+
+def get_model_config(hparams):
+    """Return the model-family config block (only mbexwn is supported)."""
+    if "mbexwn_config" in hparams:
+        return hparams["mbexwn_config"]
+    raise RuntimeError(f"config::model: no model-family block among keys {sorted(hparams)}")

@@ -1,8 +1,9 @@
-"""YIN F0 estimation (host-side NumPy), the contour the quality gate
-compares.  Copy of `estimate_f0` of the JAX package's dsp/f0.py:
-cumulative-mean normalized difference over autocorrelation (de Cheveigne &
-Kawahara 2002) with parabolic interpolation and an aperiodicity-based
-voicing decision (F0 = 0 on unvoiced frames).
+"""YIN F0 estimation (host-side NumPy): the contour the quality gate
+compares and the training data's F0 target.  Copy of the JAX package's
+dsp/f0.py: `estimate_f0`, cumulative-mean normalized difference over
+autocorrelation (de Cheveigne & Kawahara 2002) with parabolic interpolation
+and an aperiodicity-based voicing decision (F0 = 0 on unvoiced frames), and
+`upsample_f0`, the frame-rate contour at the sample rate.
 """
 from __future__ import annotations
 
@@ -83,3 +84,17 @@ def estimate_f0(
     f0 = sample_rate / (tau + delta)
     f0 = np.where(silent | aperiodic, 0.0, f0)
     return f0.astype(np.float32)
+
+
+def upsample_f0(f0_frames: np.ndarray, hop: int, total_len: int) -> np.ndarray:
+    """Frame-rate F0 -> sample-rate contour by linear interpolation, keeping
+    hard voiced/unvoiced edges (no interpolation across 0 boundaries)."""
+    n = f0_frames.shape[-1]
+    t_frames = np.arange(n) * hop
+    t = np.arange(total_len)
+    up = np.interp(t, t_frames, f0_frames)
+    # zero out samples whose neighbouring frames disagree about voicing
+    voiced = f0_frames > 0
+    vo = np.interp(t, t_frames, voiced.astype(np.float64))
+    up = np.where(vo >= 0.999, up, 0.0)
+    return up.astype(np.float32)

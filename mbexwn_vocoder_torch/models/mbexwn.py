@@ -198,6 +198,7 @@ class MBExWN(nn.Module):
         self.register_buffer("frequency_smoothing_kernel", torch.from_numpy(
             (smooth_win / np.sum(smooth_win)).astype(np.float32)), persistent=False)
 
+        self.ps_max_ceps_coefs = ps_max_ceps_coefs
         self.ps_subnet, _ = generate_subnet_from_specs(
             ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
             final_n_channels=ps_max_ceps_coefs, final_activation=None, force_causal=force_causal,

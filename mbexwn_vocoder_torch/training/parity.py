@@ -4,7 +4,9 @@ gradient rule.
 The case is SPEECH with a 16-channel, 2-layer WaveNet, F0 loss, teacher
 forcing 0.5 and STFT coherence 0.1, T_mel = 8, batch 2.  The CPU tests hold
 the port's loss and gradients on it against the JAX package's; the card
-test and `chip_smoke.py` phase [9](b) hold the card's against the CPU's.
+test and `chip_smoke.py` phase [9](b) hold the card's against the CPU's,
+and phase [10](c) does the same for one adversarial step (`TINY_WAVEGAN`,
+a small discriminator).
 
 Gradients are compared leaf by leaf as rel-RMS (`hold_leaves`); a leaf
 whose norm is under 1e-6 of the largest is held to 1e-7 absolute instead.
@@ -22,6 +24,9 @@ import numpy as np
 import torch
 
 TINY_T_MEL, TINY_BATCH, TINY_HOP = 8, 2, 300
+TINY_WAVEGAN = {"adv_loss_weight": 0.1, "fc_loss_weight": 2.0,
+                "discriminator_config": {"loss_method": "lsgan", "n_scales": 2, "n_layers": 3, "base_channels": 4,
+                                         "max_channels": 16}}
 
 def tiny_hparams(**edits) -> Dict:
     """SPEECH's hparams cut to the tiny case; `edits` are {"section.key":
@@ -119,4 +124,47 @@ def card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
         failures.append(f"fp64 loss {d64!r} vs CPU {l64!r}")
     if not numbers["loss_fp32_rel"] <= 1e-5:
         failures.append(f"fp32 loss {d32!r} vs CPU {l32!r}")
+    return failures, numbers
+
+
+def gan_card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
+    """One adversarial step (`TINY_WAVEGAN`) of the tiny case in fp64 on
+    `device` against the CPU's, from one init and one set of draws: every
+    metric within 1e-12 relative, every generator and discriminator gradient
+    leaf within 1e-9 rel-RMS (`hold_leaves`).  Run it, as `card_against_cpu`,
+    with MBEXWN_WN_DTYPE and MBEXWN_SUBNET_DTYPE set empty: the shipped bf16
+    compute would otherwise apply.  Returns (failures, numbers)."""
+    import copy
+
+    from ..models import create_model
+    from .adversarial import AdversarialTrainer
+
+    hp = tiny_hparams()
+    hp["wavegan_config"] = copy.deepcopy(TINY_WAVEGAN)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(seed))
+    state = {k: v.clone() for k, v in model.block.state_dict().items()}
+    batch = tiny_batch()
+    out = {}
+    for label, dev in (("cpu", "cpu"), ("device", device)):
+        m, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+        m.block.load_state_dict(state)
+        tr = AdversarialTrainer(m.to(torch.float64), hp, device=dev, seed=seed)
+        shapes = tr.base.draw_shapes(batch)
+        gen = torch.Generator().manual_seed(seed + 1)
+        draws = {k: torch.randn(shape, generator=gen) for k, shape in shapes.items()}
+        disc_draws = {"noise": torch.randn(shapes["noise"], generator=gen),
+                      "floor": torch.rand(shapes["floor"], generator=gen) * 2 - 1}
+        metrics = {k: float(v) for k, v in tr.train_step(batch, draws, disc_draws).items()}
+        grads = {f"generator.{k}": p.grad for k, p in tr.base.model.block.named_parameters()}
+        grads.update({f"discriminator.{k}": p.grad for k, p in tr.discriminator.named_parameters()})
+        out[label] = (metrics, {k: v.detach().cpu() for k, v in grads.items()})
+    (ref_m, ref_g), (got_m, got_g) = out["cpu"], out["device"]
+    bad, rows = hold_leaves(got_g, ref_g, 1e-9)
+    worst_metric = max((abs(got_m[k] / ref_m[k] - 1) if ref_m[k] else abs(got_m[k]), k) for k in ref_m)
+    numbers = {"leaves": len(rows), "metrics": got_m, "metrics_cpu": ref_m, "worst_metric": worst_metric[1],
+               "worst_metric_rel": worst_metric[0], "worst_leaf": rows[0][1], "worst_leaf_rel_rms": rows[0][0]}
+    failures = [f"leaf {n} {e:.2e} > {b:.0e}" for n, e, b in bad]
+    if got_m.keys() != ref_m.keys() or not worst_metric[0] <= 1e-12:
+        failures.append(f"metric {worst_metric[1]}: {got_m.get(worst_metric[1])!r} vs CPU {ref_m[worst_metric[1]]!r}")
     return failures, numbers

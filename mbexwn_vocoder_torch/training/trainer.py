@@ -14,7 +14,7 @@ backward pass and raise where a gradient is asked of them.
 The random draws of a step (the noise channel, the excitation's noise
 floor, the input dither and the loss's masking noises) are taken from
 `draws`, a dict of tensors, when given (every draw the step needs must be
-in it), else from the trainer's own `torch.Generator`:
+in it), else from the trainer's own `torch.Generator`, seeded with `seed`:
 
 - "dither": standard normal of the audio's shape (training_config
   dither_level);
@@ -140,7 +140,7 @@ def fast_forward_opt_state(trainer, step: int) -> None:
 
 
 class Trainer:
-    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", mesh=None):
+    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", mesh=None, seed: int = 0):
         if mesh is not None:
             raise NotImplementedError("data-parallel training over a mesh is not ported "
                                       "(ROADMAP.md queue 1, item 13)")
@@ -163,7 +163,7 @@ class Trainer:
         self.optimizer, self.scheduler = make_optimizer(self.params, self.training_config)
         self.grad_clip_norm = self.training_config.get("grad_clip_norm")
         self.step = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(0)  # the draws without `draws`
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)  # the draws without `draws`
 
         blk = model.block
         self.F0_down = blk.F0_down_sampling_factor
@@ -284,6 +284,12 @@ class Trainer:
         """(total loss, metrics) of the model's current parameters on `batch`
         (audio (B, T), mel (B, T_mel, C), F0 (B, T) or F0_ds), as the JAX
         package's `Trainer.loss_fn`."""
+        total, metrics, _, _ = self.loss_and_signal(batch, step, draws)
+        return total, metrics
+
+    def loss_and_signal(self, batch, step: Optional[int] = None, draws=None):
+        """`loss_fn`'s (total, metrics) and the training forward's (signal,
+        target) they were computed from."""
         step = self.step if step is None else step
         b = self._batch(batch)
         audio = b["audio"]
@@ -304,16 +310,17 @@ class Trainer:
                 total = total + aux["stft_coh_loss"] * self.stft_coh_loss_weight
                 metrics["stft_coh_loss"] = aux["stft_coh_loss"]
         metrics["total_loss"] = total
-        return total, metrics
+        return total, metrics, signal, target
 
-    def value_and_grad(self, batch, step: Optional[int] = None, draws=None):
+    def value_and_grad(self, batch, step: Optional[int] = None, draws=None, loss=None):
         """(loss, metrics, {state_dict key: gradient}), the counterpart of
         `jax.value_and_grad(Trainer.loss_fn)`.  The gradients stay in the
         parameters' `.grad` too; a parameter the loss does not reach gets a
-        zero gradient, as in JAX."""
+        zero gradient, as in JAX.  `loss(batch, step, draws) -> (total,
+        metrics)` replaces `loss_fn` (the adversarial generator loss)."""
         self.optimizer.zero_grad(set_to_none=True)
         with exact_fp32():  # the backward pass's fp32 products too
-            total, metrics = self.loss_fn(batch, step, draws)
+            total, metrics = (loss or self.loss_fn)(batch, step, draws)
             total.backward()
         for p in self.params:
             if p.grad is None:
@@ -321,13 +328,18 @@ class Trainer:
         grads = {name: p.grad for name, p in self.model.block.named_parameters()}
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
-        """One backward pass and one optimizer step; returns the metrics (on
-        the device, not synchronised)."""
-        _, metrics, _ = self.value_and_grad(batch, self.step, draws)
+    def apply_gradients(self) -> None:
+        """Clip the gradients in `.grad`, take one optimizer and one schedule
+        step and count the step."""
         if self.grad_clip_norm:
             clip_by_global_norm_(self.params, self.grad_clip_norm)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
+
+    def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        """One backward pass and one optimizer step; returns the metrics (on
+        the device, not synchronised)."""
+        _, metrics, _ = self.value_and_grad(batch, self.step, draws)
+        self.apply_gradients()
         return metrics

@@ -25,6 +25,9 @@ against the CPU.  Training: both kernels raise on CUDA inputs that require
 grad (they have no backward pass), one step of the trainer's
 differentiable route on the card equals the CPU's (`training.parity` gives
 the rule), and a trained model, folded, synthesises through both kernels.
+The training CLI: two steps (`cli.train`) on the card with a
+tiny config, whose export synthesises through both kernels; one adversarial
+step on the card equals the CPU's.
 """
 import numpy as np
 import pytest
@@ -374,3 +377,45 @@ def test_trained_model_folds_back_onto_the_kernels(card):
         counts = dict(kernel_lib.launches)
     assert counts == {"wavenet_layer": n_layers, "oscillator": 1}, counts
     assert torch.isfinite(y).all()
+
+
+# ---- the training CLI and adversarial training on the card
+
+def test_train_cli_on_the_card(card, tmp_path, monkeypatch):
+    """Two CLI steps of a tiny config on the card, its default device (the
+    JAX package's CLI test settings), finite metrics, and an export that
+    MELInverter synthesises on the card through K1 and K2."""
+    import json
+    import os
+
+    from mbexwn_vocoder_torch.cli.train import main
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.training.synthetic import make_corpus
+
+    monkeypatch.delenv("MBEXWN_PLATFORM", raising=False)
+    make_corpus(str(tmp_path / "data"), n_utterances=2, seed=0, duration_range=(1.0, 1.5), quiet=True)
+    cargs = ["mbexwn_config:pp_mod_subnet:n_channels=16", "mbexwn_config:pp_mod_subnet:n_layers=2",
+             "mbexwn_config:pp_mod_subnet:n_out_channels=8", "mbexwn_config:normalize_rms_from_mell=False",
+             "preprocess_config:segment_length=6000"]
+    out = str(tmp_path / "run")
+    run = main("SPEECH", str(tmp_path / "data"), out, steps=2, batch_size=2, log_every=1, cargs=cargs,
+               num_workers=1)
+    assert run["device"].startswith("cuda") and run["end_step"] == 2
+    recs = [json.loads(line) for line in open(os.path.join(out, "logs", "metrics.jsonl"))]
+    assert [r["step"] for r in recs] == [1, 2] and all(np.isfinite(v) for r in recs for v in r.values())
+    inv = MELInverter(out, device=card)
+    mel = np.random.RandomState(0).randn(1, 64, 80).astype(np.float32) * 0.5 - 4
+    kernel_lib.reset_launch_counts()
+    y = inv.synth_from_mel(mel)
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1} and np.isfinite(y).all()
+
+
+def test_gan_step_on_the_card_matches_the_cpu(card):
+    """One adversarial step of the tiny case in fp64: the card's metrics
+    within 1e-12 of the CPU's, every gradient leaf of the generator and the
+    discriminator within 1e-9 rel-RMS (`training.parity.gan_card_against_cpu`)."""
+    from mbexwn_vocoder_torch.training.parity import gan_card_against_cpu
+
+    failures, numbers = gan_card_against_cpu(card)
+    print(numbers)
+    assert not failures, failures

@@ -20,6 +20,7 @@ from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
 from mbexwn_vocoder_torch.parallel.streaming import StreamingSynthesizer
 from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+from mbexwn_vocoder_torch.training.adversarial import AdversarialTrainer
 from mbexwn_vocoder_torch.training.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -68,6 +69,39 @@ def test_no_optax_in_the_port():
     assert not [p for p in PKG.rglob("*.py") if "optax" in p.read_text()]
 
 
+def test_no_orbax_in_the_port():
+    """The port's checkpoints are torch.save files: no file of the package
+    names the JAX package's checkpoint library."""
+    assert not [p for p in PKG.rglob("*.py") if "orbax" in p.read_text().lower()]
+
+
+def test_train_cli_runs_with_jax_blocked(tmp_path):
+    """`python -m mbexwn_vocoder_torch.cli.train` trains a step of a tiny
+    config on the CPU (MBEXWN_PLATFORM=cpu) and exports, importing nothing
+    of JAX."""
+    import os
+
+    from mbexwn_vocoder_torch.training.synthetic import make_corpus
+
+    make_corpus(str(tmp_path / "data"), n_utterances=1, seed=0, duration_range=(1.0, 1.2), quiet=True)
+    argv = ["train", "SPEECH", "-d", str(tmp_path / "data"), "-o", str(tmp_path / "run"), "--steps", "1", "-b", "1",
+            "--num_workers", "1", "-a", "mbexwn_config:pp_mod_subnet:n_channels=8",
+            "mbexwn_config:pp_mod_subnet:n_layers=2", "mbexwn_config:pp_mod_subnet:n_out_channels=8",
+            "preprocess_config:segment_length=3000"]
+    code = (_BLOCK_JAX +
+            "import runpy\n"
+            f"sys.argv = {argv!r}\n"
+            "runpy.run_module('mbexwn_vocoder_torch.cli.train', run_name='__main__')\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k] is not None)\n"
+            "print('ok')\n")
+    env = dict(os.environ, MBEXWN_PLATFORM="cpu")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+    assert "exported inference model to" in out.stderr
+    assert sorted(os.listdir(tmp_path / "run")) == ["checkpoints", "config.yaml", "logs", "weights.npz", "weights.step"]
+
+
 def test_no_kernel_is_built_at_import():
     code = ("import mbexwn_vocoder_torch.mel_inverter, mbexwn_vocoder_torch.ops.kernel_lib as k\n"
             "assert k._lib is None and not k.build_info\n"
@@ -105,9 +139,29 @@ def test_cli_entry_points_run_with_jax_blocked():
 
 
 @pytest.mark.parametrize("entry", [MELInverter.__init__, PipelinedSynthesizer.__init__, BatchSynthesizer.__init__,
-                                   StreamingSynthesizer.__init__, Trainer.__init__])
+                                   StreamingSynthesizer.__init__, Trainer.__init__, AdversarialTrainer.__init__])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_train_cli_defaults_to_the_card(tmp_path, monkeypatch):
+    """The CLI has one device setting, MBEXWN_PLATFORM: unset, it asks for
+    the card."""
+    import mbexwn_vocoder_torch.cli.train as train_cli
+    import mbexwn_vocoder_torch.platform as platform
+
+    asked = []
+
+    def refuse(device):
+        asked.append(str(device))
+        raise RuntimeError("device resolved")
+
+    assert "device" not in inspect.signature(train_cli.main).parameters
+    monkeypatch.delenv(platform.PLATFORM_ENV, raising=False)
+    monkeypatch.setattr(platform, "resolve_device", refuse)
+    with pytest.raises(RuntimeError, match="device resolved"):
+        train_cli.main("SPEECH", str(tmp_path / "data"), str(tmp_path / "run"), steps=1)
+    assert asked == ["cuda"]
 
 
 def test_no_silent_cpu_fallback():
@@ -128,6 +182,8 @@ def test_no_silent_cpu_fallback():
         StreamingSynthesizer(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdversarialTrainer(model, {})
 
 
 def test_streaming_over_a_mesh_is_not_ported():

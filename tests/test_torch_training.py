@@ -22,6 +22,7 @@ against `jax.value_and_grad(Trainer.loss_fn)` twice:
 
 A leaf whose norm is under 1e-6 of the largest is held to 1e-7 absolute.
 """
+import contextlib
 import copy
 import fnmatch
 import json
@@ -150,11 +151,11 @@ def _float32_draw(draw):
     return widened
 
 
-def jax_fp64(monkeypatch, hp, params, batch, key):
-    """(loss, {leaf: gradient}) of the JAX package's `Trainer.loss_fn` in
-    fp64: the package's modules run unchanged under `jax.enable_x64`, with
-    `_Float64Numpy` for their `jnp`, the STFT through the FFT, and the draws
-    in float32."""
+@contextlib.contextmanager
+def jax_in_fp64(monkeypatch):
+    """The JAX package's modules (those imported so far) run unchanged under
+    `jax.enable_x64`, with `_Float64Numpy` for their `jnp`, the STFT through
+    the FFT, and the draws in float32."""
     with monkeypatch.context() as mp:
         mp.setattr(jax_stft_ops, "STFT_METHOD", "fft")
         for name, module in list(sys.modules.items()):
@@ -163,14 +164,21 @@ def jax_fp64(monkeypatch, hp, params, batch, key):
         mp.setattr(jax.random, "normal", _float32_draw(jax.random.normal))
         mp.setattr(jax.random, "uniform", _float32_draw(jax.random.uniform))
         with jax.enable_x64(True):
-            jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
-            jtr = JaxTrainer(jmodel, copy.deepcopy(hp))
-            p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
-            (loss, _), grads = jax.jit(jax.value_and_grad(jtr.loss_fn, has_aux=True))(
-                p64, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(0), key)
-            grads = {k: np.asarray(v) for k, v in flatten(grads).items()}
-            assert all(v.dtype == np.float64 for v in grads.values())
-            return float(loss), params_from_jax(grads)
+            yield
+
+
+def jax_fp64(monkeypatch, hp, params, batch, key):
+    """(loss, {leaf: gradient}) of the JAX package's `Trainer.loss_fn` in
+    fp64 (`jax_in_fp64`)."""
+    with jax_in_fp64(monkeypatch):
+        jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+        jtr = JaxTrainer(jmodel, copy.deepcopy(hp))
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
+        (loss, _), grads = jax.jit(jax.value_and_grad(jtr.loss_fn, has_aux=True))(
+            p64, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(0), key)
+        grads = {k: np.asarray(v) for k, v in flatten(grads).items()}
+        assert all(v.dtype == np.float64 for v in grads.values())
+        return float(loss), params_from_jax(grads)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -180,6 +188,7 @@ def test_loss_and_grads_match_jax(jax_params, case, monkeypatch):
         slc = hp["training_config"]["spect_loss_config"]
         slc["rel_masking_noise_atten_db"] = 30.0
         slc["masking_noise_std"] = 1e-3
+    monkeypatch.setenv("MBEXWN_PALLAS_WN", "0")  # the JAX Trainer sets it for the process; gone after the test
     jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
     jtr = JaxTrainer(jmodel, copy.deepcopy(hp))
     batch = tiny_batch()
