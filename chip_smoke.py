@@ -147,14 +147,40 @@ prints no result line:
      GAN step in fp64 on the card against the CPU
      (`training.parity.gan_card_against_cpu`): metrics within 1e-12,
      every generator and discriminator gradient leaf within 1e-9 rel-RMS.
+ 11. the parallel layer (`parallel.mesh`, `parallel.multihost`, the
+     data-parallel `Trainer`, `cli.train --n_devices`):
+     (a) the tiny fp64 case of `training.parity` (`dp_against_single`) on
+     two spawned processes that share the card over gloo (NCCL refuses two
+     ranks on one card), at a global batch of 4 whose shards hold different
+     numbers of voiced frames: one `Trainer` and one `AdversarialTrainer`
+     step against the one-process step, every metric within 1e-12, every
+     gradient leaf and updated parameter within 1e-9 rel-RMS, and a
+     per-rank mean (DDP's rule) shown to be off by more than 1e-6;
+     (b) SPEECH as shipped (bf16) at [9](c)'s global batch and draws, one
+     spawned rank per card over NCCL, 10 steps: step ms (CUDA events)
+     beside [9](c)'s, the gradient sync's ms a step, peak memory, and step
+     1's loss against [9](c)'s first step (<= 1e-3 at one card);
+     (c) `cli.train --n_devices 0` (a process group even at one card): 5
+     steps warm-started from the registry weights, a checkpoint at 5, the
+     export synthesised through K1 and K2 and each held against its plain
+     version as in [10](a); the host step beside [10](a)'s;
+     (d) `BatchSynthesizer(mesh=make_mesh())` (and, on a host with one
+     card, a two-replica mesh on cuda:0 so that the shard, pad and gather
+     code runs) on [7]'s request set against mesh=None: bf16 <= 2e-2, fp32
+     <= 1e-4 rel-RMS, K1 against plain at the shapes the mesh gave it,
+     audio-s/s and idle share beside [7]'s batch 8; `synth_batched` over
+     the same meshes on [8]'s 60 s long form against mesh=None (fp32 <=
+     1e-4, bf16 reported) with its audio-s/s; launches per device.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, a
-`training_driver:` JSON line with phase [10]'s, the card's name and power
-limit, a `kernels` JSON line (its launches: the main path of [4], SPEECH
-bf16, plus one pass of each long-form mode of [8](b), the live streams of
-[8](c), the trained and the reloaded model's syntheses of [9](d) and the
-CLI export's synthesis of [10](a), each counted from 0 just before it), and
+`training_driver:` JSON line with phase [10]'s, a `parallel:` JSON line
+with phase [11]'s, the card's name and power limit, a `kernels` JSON line
+(its launches: the main path of [4], SPEECH bf16, plus one pass of each
+long-form mode of [8](b), the live streams of [8](c), the trained and the
+reloaded model's syntheses of [9](d), the CLI export's synthesis of
+[10](a), and [11]'s: the data-parallel CLI export's synthesis and the bf16
+mesh passes of (d), each counted from 0 just before it), and
 `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
@@ -1114,6 +1140,56 @@ CLI_STEPS, CLI_SAVE_EVERY, CLI_RESUME_TO, CLI_UTTERANCES = 10, 5, 15, 16
 PRETRAIN_ITERS, GAN_STEPS = 5, 5
 
 
+def hold_export_kernels(out: str, check, dev, what: str):
+    """A training run's export loaded by MELInverter on the card: a 512-frame
+    synthesis through 24 K1 + 1 K2 (counts set to 0 just before, read just
+    after), then K1 on its two stacks (fp32 <= 1e-4, bf16 <= 2e-2 rel-RMS)
+    and K2 on its F0 (audio <= 1e-5, phase bit-equal) against their plain
+    versions.  Returns (the synthesis's launches, {stack: rel-RMS and max
+    abs}, K2's max abs)."""
+    import torch
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+
+    inv = MELInverter(out, device=dev)
+    mel = make_mel(N_FRAMES, 80, SEED)
+    inv.synth_from_mel(mel)  # warm-up
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+    y = inv.synth_from_mel(mel)
+    counts = dict(kernel_lib.launches)
+    check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
+          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          f"{what} the export loaded by MELInverter on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
+          f"samples), launches {counts} (24 K1 + 1 K2)")
+    k1_err = {}
+    for block_index in range(len(inv.model.block.block_names)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x, cond, weights, dils, f0 = stack_inputs(inv.model, mel, block_index, dtype, dev)
+            with torch.inference_mode(), exact_fp32():
+                got = wavenet_stack(x, cond, weights, dils).float().cpu().numpy()
+                ref = wavenet_stack_plain(x, cond, weights, dils).float().cpu().numpy()
+            err = rel_rms(got, ref)
+            k1_err[f"block{block_index} {str(dtype)[6:]}"] = {"rel_rms": err,
+                                                              "max_abs": float(np.max(np.abs(got - ref)))}
+            check(np.isfinite(got).all() and err <= tol,
+                  f"{what} K1 on the export's block {block_index} ({x.shape[1]} rows, C={x.shape[2]}) "
+                  f"{str(dtype)[6:]}: rel-RMS {err:.3e} (<= {tol:g})")
+    blk, wt = inv.model.block, inv.model.block.wavetable
+    consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+    with torch.inference_mode():
+        audio, phase = oscillate(f0, blk.wavetables, *consts, return_phase=True)
+        ref_audio, ref_phase = oscillate_plain(f0, blk.wavetables, *consts, return_phase=True)
+    k2_err, n_diff = float((audio - ref_audio).abs().max()), int((phase != ref_phase).sum())
+    check(math.isfinite(k2_err) and k2_err <= 1e-5 and n_diff == 0,
+          f"{what} K2 on the export's F0 ({f0.shape[1]} samples): audio max abs {k2_err:.3e} (<= 1e-5), phase "
+          f"samples differing from plain {n_diff}")
+    return counts, k1_err, k2_err
+
+
 def phase_training_cli(check, dev, train_step_ms: float):
     """Phase [10]: the training CLI on the card, SPEECH at full width,
     shipped bf16.  (a) the CLI: 10 steps from the registry weights
@@ -1135,13 +1211,9 @@ def phase_training_cli(check, dev, train_step_ms: float):
     import mbexwn_vocoder_torch.models.factory as factory
     from mbexwn_vocoder_torch import get_config_file
     from mbexwn_vocoder_torch.config import read_config
-    from mbexwn_vocoder_torch.mel_inverter import MELInverter
     from mbexwn_vocoder_torch.models import create_model, create_registry_model
     from mbexwn_vocoder_torch.observability import MetricsLogger
-    from mbexwn_vocoder_torch.ops import kernel_lib
-    from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
     from mbexwn_vocoder_torch.ops.precision import exact_fp32
-    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
     from mbexwn_vocoder_torch.training.adversarial import AdversarialTrainer
     from mbexwn_vocoder_torch.training.checkpointing import CheckpointManager
     from mbexwn_vocoder_torch.training.data import SegmentDataset
@@ -1261,38 +1333,7 @@ def phase_training_cli(check, dev, train_step_ms: float):
               f"{r_init and r_init['start_step']}, no step run, exported again)")
 
         # the export: MELInverter on the card, 512 frames through 24 K1 + 1 K2, each held against its plain version
-        inv = MELInverter(out, device=dev)
-        mel = make_mel(N_FRAMES, 80, SEED)
-        inv.synth_from_mel(mel)  # warm-up
-        torch.cuda.synchronize()
-        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
-        y = inv.synth_from_mel(mel)
-        counts = dict(kernel_lib.launches)
-        check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
-              and counts == {"wavenet_layer": 24, "oscillator": 1},
-              f"(a) the export loaded by MELInverter on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
-              f"samples), launches {counts} (24 K1 + 1 K2)")
-        k1_err, k2_err = {}, None
-        for block_index in range(len(inv.model.block.block_names)):
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x, cond, weights, dils, f0 = stack_inputs(inv.model, mel, block_index, dtype, dev)
-                with torch.inference_mode(), exact_fp32():
-                    got = wavenet_stack(x, cond, weights, dils).float().cpu().numpy()
-                    ref = wavenet_stack_plain(x, cond, weights, dils).float().cpu().numpy()
-                err = rel_rms(got, ref)
-                k1_err[(block_index, str(dtype)[6:])] = (err, float(np.max(np.abs(got - ref))))
-                check(np.isfinite(got).all() and err <= tol,
-                      f"(a) K1 on the export's block {block_index} ({x.shape[1]} rows, C={x.shape[2]}) "
-                      f"{str(dtype)[6:]}: rel-RMS {err:.3e} (<= {tol:g})")
-        blk, wt = inv.model.block, inv.model.block.wavetable
-        consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
-        with torch.inference_mode():
-            audio, phase = oscillate(f0, blk.wavetables, *consts, return_phase=True)
-            ref_audio, ref_phase = oscillate_plain(f0, blk.wavetables, *consts, return_phase=True)
-        k2_err, n_diff = float((audio - ref_audio).abs().max()), int((phase != ref_phase).sum())
-        check(math.isfinite(k2_err) and k2_err <= 1e-5 and n_diff == 0,
-              f"(a) K2 on the export's F0 ({f0.shape[1]} samples): audio max abs {k2_err:.3e} (<= 1e-5), phase "
-              f"samples differing from plain {n_diff}")
+        counts, k1_err, k2_err = hold_export_kernels(out, check, dev, "(a)")
 
         steps_ms = [1e3 * leg1["step_host_s"][k] for k in range(3, CLI_STEPS + 1)]
         loader = leg1["loader"]
@@ -1313,8 +1354,7 @@ def phase_training_cli(check, dev, train_step_ms: float):
             "queue_depth_at_take_mean": loader["queue_depth_at_take_mean"],
             "queue_depth_at_take_min": loader["queue_depth_at_take_min"], "queue_capacity": loader["queue_capacity"],
             "checkpoint_saves": saves, "peak_memory_gb_leg1": peak_gb, "synthesis_launches": counts,
-            "k1_vs_plain": {f"block{b} {d}": {"rel_rms": e, "max_abs": m} for (b, d), (e, m) in k1_err.items()},
-            "k2_vs_plain_max_abs": k2_err}
+            "k1_vs_plain": k1_err, "k2_vs_plain_max_abs": k2_err}
         c = numbers["cli"]
         print(f"  (a) data: {c['data_source']} path; loader {c['loader_ms_per_batch_per_worker_median']:.1f} ms a "
               f"batch of {B} per worker ({c['loader_workers']} workers, {c['loader_batches_made']} batches made), "
@@ -1330,7 +1370,7 @@ def phase_training_cli(check, dev, train_step_ms: float):
             print(f"    {ms:9.3f} ms {n:5d}x  {name[:80]}", flush=True)
         print("  (a) checkpoint saves: " + ", ".join(f"step {s['step']} {s['ms']:.1f} ms {s['bytes'] / 1e6:.1f} MB"
                                                   for s in saves), flush=True)
-        del trainer, trainers, inv
+        del trainer, trainers
         torch.cuda.empty_cache()
 
         # (b) activation pretraining from a fresh init, two calibration batches of 32 mels
@@ -1413,6 +1453,317 @@ def phase_training_cli(check, dev, train_step_ms: float):
               f"{gan_tiny['worst_leaf']} {gan_tiny['worst_leaf_rel_rms']:.1e} (<= 1e-9); failing {gan_failures}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return numbers
+
+
+DP_STEPS, DP_WARMUP = 10, 2  # [11](b): steps, of which the first DP_WARMUP are not timed
+DP_CLI_STEPS = 5  # [11](c)
+
+
+@contextlib.contextmanager
+def launches_by_device(store: dict):
+    """A context in which each kernel launch is also counted under the
+    device of its tensors: store[(kernel, device)] += launches."""
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops import oscillator as osc_module
+    from mbexwn_vocoder_torch.ops import wavenet_stack as ws
+
+    real = {"wavenet_layer": (ws, "_wavenet_stack_cuda"), "oscillator": (osc_module, "_oscillate_cuda")}
+
+    def counting(name, fn):
+        def wrapped(x, *args, **kwargs):
+            before = kernel_lib.launches[name]
+            out = fn(x, *args, **kwargs)
+            key = (name, str(x.device))
+            store[key] = store.get(key, 0) + kernel_lib.launches[name] - before
+            return out
+        return wrapped
+
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in real.items()}
+    for name, (mod, attr) in real.items():
+        setattr(mod, attr, counting(name, saved[name]))
+    try:
+        yield store
+    finally:
+        for name, (mod, attr) in real.items():
+            setattr(mod, attr, saved[name])
+
+
+def _nccl_rank(rank: int, world: int, master: str, batch: dict, results) -> None:
+    """[11](b), one rank (a spawned process): SPEECH as shipped from its
+    weights, bf16, over NCCL, DP_STEPS steps on the rank's rows of `batch`
+    with the trainer's own draws (seed 0, as [9](c)); puts (rank, numbers)
+    or (rank, the traceback)."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+        from mbexwn_vocoder_torch import get_config_file
+        from mbexwn_vocoder_torch.config import read_config
+        from mbexwn_vocoder_torch.models import create_registry_model
+        from mbexwn_vocoder_torch.parallel import multihost
+        from mbexwn_vocoder_torch.training.trainer import Trainer
+
+        multihost.initialize(master, world_size=world, rank=rank, device=f"cuda:{rank}")
+        try:
+            dev = torch.device("cuda", rank)
+            hp = read_config(get_config_file("SPEECH"))
+            tr = Trainer(create_registry_model("SPEECH", trainable=True), hp, device=dev, group=dist.group.WORLD)
+            n = batch["audio"].shape[0] // world
+            rows = {k: v[rank * n: (rank + 1) * n] for k, v in batch.items()}
+            syncs, sync = [], tr.sync_gradients
+
+            def timed_sync(params):
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                sync(params)
+                stop.record()
+                syncs.append((start, stop))
+
+            tr.sync_gradients = timed_sync
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses, step_ms = [], []
+            for _ in range(DP_STEPS):
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize(dev)
+                start.record()
+                metrics = tr.train_step(rows)
+                stop.record()
+                torch.cuda.synchronize(dev)
+                step_ms.append(start.elapsed_time(stop))
+                losses.append(float(metrics["total_loss"]))
+            results.put((rank, {"losses": losses, "step_ms": step_ms,
+                                "sync_ms": [a.elapsed_time(b) for a, b in syncs],
+                                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                                "backend": dist.get_backend(), "device": str(dev)}))
+        finally:
+            multihost.shutdown()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_parallel(inverter, check, dev, serving, streaming, training, cli_run):
+    """Phase [11]: the parallel layer on the card.  (a) the tiny fp64 case
+    on two gloo ranks sharing the card against the one-process step (plain
+    and adversarial); (b) SPEECH as shipped at batch 32 over NCCL, one rank
+    per card; (c) the training CLI with --n_devices 0; (d) BatchSynthesizer
+    and synth_batched over a mesh against mesh=None.  Returns the numbers
+    for the `parallel:` line."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    import torch
+    import mbexwn_vocoder_torch.cli.train as train_cli
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.config import read_config
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack_plain
+    from mbexwn_vocoder_torch.parallel import BatchSynthesizer, StreamingSynthesizer
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh
+    from mbexwn_vocoder_torch.parallel.multihost import free_port
+    from mbexwn_vocoder_torch.training.parity import dp_against_single
+    from mbexwn_vocoder_torch.training.synthetic import make_corpus
+
+    numbers = {"cards": torch.cuda.device_count()}
+    launches = {"wavenet_layer": 0, "oscillator": 0}
+    torch.cuda.empty_cache()
+
+    # (a) two gloo ranks on one card, the tiny case in fp64
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        os.environ[var] = ""
+    t0 = time.perf_counter()
+    failures, tiny = dp_against_single(dev, world=2, seed=SEED, naive=False)  # the CPU tests show DDP's rule off
+    numbers["tiny_dp_vs_one_process"] = dict(tiny, seconds=time.perf_counter() - t0)
+    for what in ("step", "GAN step"):
+        n = tiny[what]
+        check(not [f for f in failures if f.startswith(what + " ")],
+              f"(a) 2 gloo ranks on {dev}, tiny case fp64, global batch {tiny['global_batch']} (voiced samples per "
+              f"shard {tiny['voiced_samples_per_shard']}), one {what} against the one-process step: worst metric "
+              f"{n['worst_metric']} rel {n['worst_metric_rel']:.1e} (<= 1e-12), worst of {n['leaves']} gradient "
+              f"leaves and updated parameters {n['worst_leaf']} {n['worst_leaf_rel_rms']:.1e} (<= 1e-9)")
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE", "MBEXWN_PLATFORM"):  # (b)-(d) as shipped: bf16
+        os.environ.pop(var, None)
+
+    # (b) NCCL, one rank per card, SPEECH as shipped at [9](c)'s batch and draws
+    world = torch.cuda.device_count()
+    hp = read_config(get_config_file("SPEECH"))
+    fw = training["full_width"]
+    batch = training_batch(hp["preprocess_config"], fw["batch"], SEED + 90)  # [9](c)'s
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    master = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_nccl_rank, args=(r, world, master, batch, results)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, failed = {}, None
+    try:
+        for _ in range(world):
+            try:
+                rank, out = results.get(timeout=600)
+            except queue.Empty:
+                rank, out = "?", "no answer within 600 s"
+            if isinstance(out, str):
+                failed = f"rank {rank}: {out}"
+                break
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(got) == world:
+        r0 = got[0]
+        timed = slice(DP_WARMUP, DP_STEPS)
+        step_ms, sync_ms = float(np.median(r0["step_ms"][timed])), float(np.median(r0["sync_ms"][timed]))
+        first_rel = abs(r0["losses"][0] / fw["losses"][0] - 1)
+        same = all(got[r]["losses"] == r0["losses"] for r in got)
+        numbers["nccl"] = {"world": world, "global_batch": fw["batch"], "segment_samples": TRAIN_SEGMENT,
+                           "backend": r0["backend"], "step_ms_cuda_events": step_ms, "sync_ms": sync_ms,
+                           "phase9_step_ms_cuda_events": fw["step_ms_cuda_events"],
+                           "peak_memory_gb": max(got[r]["peak_memory_gb"] for r in got),
+                           "losses": r0["losses"], "step1_rel_vs_phase9": first_rel, "ranks": got,
+                           "seconds": time.perf_counter() - t0}
+        nb = numbers["nccl"]
+        check(r0["backend"] == "nccl" and same and all(math.isfinite(v) for v in r0["losses"])
+              and (world > 1 or first_rel <= 1e-3),
+              f"(b) SPEECH as shipped (bf16), global batch {fw['batch']} x {TRAIN_SEGMENT} samples, {world} rank(s) "
+              f"over {r0['backend']}, {DP_STEPS} steps: losses {' '.join(f'{v:.4f}' for v in r0['losses'])}, the "
+              f"same on every rank; step 1 {r0['losses'][0]:.6f} vs [9](c)'s one-process step on the same batch "
+              f"and draws {fw['losses'][0]:.6f}: rel {first_rel:.2e} (<= 1e-3 at world 1)")
+        print(f"  (b) step {step_ms:.2f} ms (CUDA events, median of steps {DP_WARMUP + 1}-{DP_STEPS}) beside [9](c)'s "
+              f"{fw['step_ms_cuda_events']:.2f} ms; the gradient sync {sync_ms:.3f} ms a step (one flat bucket, "
+              f"{world} rank(s)); peak memory {nb['peak_memory_gb']:.2f} GB; phase (b) {nb['seconds']:.1f} s",
+              flush=True)
+    else:
+        check(False, f"(b) NCCL: {len(got)} of {world} ranks answered; {failed}")
+
+    # (c) the CLI with --n_devices 0: one process per card, through the process group even at one card
+    cli_model = CLI_MODEL
+    registry_weights = os.path.join(os.path.dirname(get_config_file(cli_model)), "weights.npz")
+    tmp = tempfile.mkdtemp(prefix="mbexwn_dp_train_")  # outside the repo
+    try:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        make_corpus(data, n_utterances=CLI_UTTERANCES, seed=0, quiet=True)
+        t0 = time.perf_counter()
+        run = train_cli.main(cli_model, data, out, steps=DP_CLI_STEPS, n_devices=0, save_every=DP_CLI_STEPS,
+                             log_every=1, num_workers=2, init_from=registry_weights)
+        cli_s = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(os.path.join(out, "logs", "metrics.jsonl"))]
+        ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        check(run["world_size"] == world and run["device"] == "cuda:0" and run["end_step"] == DP_CLI_STEPS
+              and [r["step"] for r in recs] == list(range(1, DP_CLI_STEPS + 1))
+              and all(math.isfinite(v) for r in recs for v in r.values()) and ckpts == [str(DP_CLI_STEPS)],
+              f"(c) cli.train --n_devices 0: {run['world_size']} rank(s) in a process group, rank 0 on "
+              f"{run['device']}, steps {[r['step'] for r in recs]} finite, checkpoints {ckpts}, {cli_s:.1f} s")
+        counts, k1_err, k2_err = hold_export_kernels(out, check, dev, "(c)")
+        for k in launches:
+            launches[k] += counts[k]
+        steps_ms = [1e3 * run["step_host_s"][k] for k in range(3, DP_CLI_STEPS + 1)]
+        numbers["cli"] = {"world": run["world_size"], "steps": DP_CLI_STEPS, "seconds": cli_s,
+                          "step_ms_host_median_3_5": float(np.median(steps_ms)), "step_ms_host_3_5": steps_ms,
+                          "phase10_step_ms_host_median_3_10": cli_run["cli"]["step_ms_host_median_3_10"],
+                          "time_to_first_step_s": run["time_to_first_step_s"], "synthesis_launches": counts,
+                          "k1_vs_plain": k1_err, "k2_vs_plain_max_abs": k2_err}
+        print(f"  (c) CLI step {numbers['cli']['step_ms_host_median_3_5']:.2f} ms (host clock, median of steps 3-5, "
+              f"rank 0) beside [10](a)'s {cli_run['cli']['step_ms_host_median_3_10']:.2f} ms; time to the first "
+              f"step {run['time_to_first_step_s']:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) synthesis over a mesh: BatchSynthesizer on [7]'s request set, synth_batched on [8]'s long form
+    meshes = {"every card": make_mesh()}
+    if world == 1:
+        meshes["two replicas on cuda:0"] = make_mesh(devices=["cuda:0", "cuda:0"])
+    mels = [m[0] for m in serving_requests(80)]  # BatchSynthesizer takes (T, C) mels
+    per_device = {}
+    numbers["mesh"] = {}
+    for wn_dtype, label, tol in ((None, "bf16", 2e-2), ("", "fp32", 1e-4)):
+        model = inverter("SPEECH", wn_dtype).model
+        ref = BatchSynthesizer(model, device=dev).synth_batch(mels)
+        audio_s = sum(m.shape[0] for m in mels) * model.spect_hop_size / model.sample_rate
+        for name, mesh in meshes.items():
+            bs = BatchSynthesizer(model, mesh=mesh)
+            bs.synth_batch(mels)  # warm-up
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            store = {}
+            with launches_by_device(per_device), recording_k1(store):
+                got = bs.synth_batch(mels)
+            counts = dict(kernel_lib.launches)
+            err = max(rel_rms(y, r) for y, r in zip(got, ref))
+            row = numbers["mesh"].setdefault(name, {"devices": [str(d) for d in mesh.devices]})
+            row[f"batch_rel_rms_vs_no_mesh_{label}"] = err
+            row[f"batch_launches_{label}"] = counts
+            check(err <= tol and all(np.isfinite(y).all() for y in got),
+                  f"(d) BatchSynthesizer over a mesh ({name}: {', '.join(row['devices'])}), {label}, {len(mels)} "
+                  f"requests: worst rel-RMS against mesh=None {err:.2e} (<= {tol:g}); launches {counts}")
+            if label == "bf16":
+                for k in launches:
+                    launches[k] += counts[k]
+                _, k1_max_abs = hold_k1(store, wavenet_stack_plain, check, f"(d) {name} batch")
+                numbers["k1_bf16_max_abs"] = max(numbers.get("k1_bf16_max_abs", 0.0), k1_max_abs)
+                walls = {"mesh": [], "mesh=None": []}
+                plain = BatchSynthesizer(model, device=dev)
+                for _ in range(3):
+                    for key, synth in (("mesh", bs), ("mesh=None", plain)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        synth.synth_batch(mels)
+                        walls[key].append(1e3 * (time.perf_counter() - t0))
+                busy_ms, _, _ = device_activity(lambda: bs.synth_batch(mels))
+                wall = float(np.median(walls["mesh"]))
+                row.update(audio_s_per_s=audio_s / (wall / 1e3), wall_ms_passes=walls["mesh"],
+                           no_mesh_audio_s_per_s=audio_s / (float(np.median(walls["mesh=None"])) / 1e3),
+                           idle_share=max(0.0, 1.0 - busy_ms / wall), device_busy_ms=busy_ms)
+                print(f"  (d) {name}: {row['audio_s_per_s']:.1f} audio-s/s (mesh=None in the same rounds "
+                      f"{row['no_mesh_audio_s_per_s']:.1f}; [7] batch 8 {serving['pipelined batch 8']['audio_s_per_s']:.1f}), "
+                      f"idle share {row['idle_share']:.3f}", flush=True)
+    # synth_batched over a mesh on [8]'s 60 s long form
+    mel_long = make_mel(LONG_FRAMES, 80, SEED + 40)
+    for wn_dtype, label, tol in (("", "fp32", 1e-4), (None, "bf16", 2e-2)):
+        model = registry_variant("SPEECH", wn_dtype, dev)
+        ref = StreamingSynthesizer(model, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, device=dev).synth_batched(
+            mel_long)
+        hop, sr = model.spect_hop_size, model.sample_rate
+        for name, mesh in meshes.items():
+            ss = StreamingSynthesizer(model, chunk_frames=LONG_CHUNK, halo_frames=LONG_HALO, mesh=mesh)
+            ss.synth_batched(mel_long)  # warm-up
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with launches_by_device(per_device):
+                y = ss.synth_batched(mel_long)
+            counts = dict(kernel_lib.launches)
+            err = rel_rms(y, ref)
+            row = numbers["mesh"][name]
+            row[f"long_form_rel_rms_vs_no_mesh_{label}"] = err
+            row[f"long_form_launches_{label}"] = counts
+            report = (f"(d) synth_batched over a mesh ({name}), {label}, {LONG_FRAMES} frames (chunk {LONG_CHUNK}, "
+                      f"halo {LONG_HALO}): rel-RMS against mesh=None {err:.2e} (<= {tol:g}), launches {counts}")
+            if label == "fp32":
+                check(err <= tol and np.isfinite(y).all(), report)
+                continue
+            for k in launches:
+                launches[k] += counts[k]
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ss.synth_batched(mel_long)
+                walls.append(1e3 * (time.perf_counter() - t0))
+            row["long_form_audio_s_per_s"] = LONG_FRAMES * hop / sr / (float(np.median(walls)) / 1e3)
+            # reported, not held: a chunk's bf16 audio depends on its batch
+            print(f"  report {report}; {row['long_form_audio_s_per_s']:.1f} audio-s/s (median of 3; [8]'s "
+                  f"synth_batched {streaming['long_form']['synth_batched']['audio_s_per_s']:.1f})", flush=True)
+    numbers["launches_by_device"] = {f"{k} {d}": n for (k, d), n in sorted(per_device.items())}
+    print(f"  (d) launches by device over (d)'s counted passes: {numbers['launches_by_device']}", flush=True)
+    numbers["launches"] = launches
     return numbers
 
 
@@ -1687,13 +2038,25 @@ def main() -> int:
                                      if k.endswith("bfloat16")])
     k2_err = max(k2_err, cli_run.get("cli", {}).get("k2_vs_plain_max_abs", 0.0))
     print(f"  phase [10] {cli_run['seconds']:.1f} s", flush=True)
+    # ---- 11. the parallel layer
+    print("[11] parallel: data-parallel training and synthesis over a mesh (SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(inverter, check, dev, serving, streaming, training, cli_run)
+    parallel["seconds"] = time.perf_counter() - t0
+    parallel["card"] = card
+    k1_max_abs = max([k1_max_abs, parallel.get("k1_bf16_max_abs", 0.0)]
+                     + [v["max_abs"] for k, v in parallel.get("cli", {}).get("k1_vs_plain", {}).items()
+                        if k.endswith("bfloat16")])
+    k2_err = max(k2_err, parallel.get("cli", {}).get("k2_vs_plain_max_abs", 0.0))
+    print(f"  phase [11] {parallel['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
     # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
-    # model's syntheses ([9](d)) and the CLI export's synthesis ([10](a))
+    # model's syntheses ([9](d)), the CLI export's synthesis ([10](a)), and [11]'s: the data-parallel CLI
+    # export's synthesis and the bf16 mesh passes of BatchSynthesizer and synth_batched
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
-                + cli_run["cli"]["synthesis_launches"][k] for k in main_launches}
+                + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -1721,6 +2084,7 @@ def main() -> int:
     print("streaming: " + json.dumps(streaming), flush=True)
     print("training: " + json.dumps(training), flush=True)
     print("training_driver: " + json.dumps(cli_run), flush=True)
+    print("parallel: " + json.dumps(parallel), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,22 @@
 Counterpart of the JAX package's cli/train.py, with the same flags:
 
     python -m mbexwn_vocoder_torch.cli.train SPEECH -d wavs/ -o run/ [--steps N] [-b B]
-        [--save_every N] [--log_every N] [--seed S] [--num_workers N] [--no_resume]
+        [--n_devices N] [--save_every N] [--log_every N] [--seed S] [--num_workers N] [--no_resume]
         [--init_from weights.npz [--init_step N]] [-a section:key=value ...]
 
-It trains on the card; `MBEXWN_PLATFORM=cpu` trains on the CPU.  The run
+It trains on the card; `MBEXWN_PLATFORM=cpu` trains on the CPU.
+
+Data parallelism: `--n_devices N` (N > 1) spawns N processes, one per card
+(cuda:0 .. cuda:N-1; N CPU processes over gloo with MBEXWN_PLATFORM=cpu),
+joined in one process group; `--n_devices 0` spawns one per visible card,
+also when there is only one.  The global batch (`-b`, which N must divide)
+is split over the ranks, and every step equals the one-process step on the
+global batch (training/trainer.py).  Under torchrun (`WORLD_SIZE` set) the
+CLI joins the group torchrun made instead, whatever `--n_devices` says.
+Rank 0 writes the checkpoints, the metrics and the export; every rank
+resumes from the checkpoints; pretraining runs on rank 0 over the global
+batch and its result is broadcast.  A rank that fails makes the CLI fail.
+The run
 directory gets the checkpoints (`checkpoints/<step>/`, the config's
 checkpoint_dir), the metrics stream (`logs/metrics.jsonl`) and, at the
 end, the model export that `MELInverter` loads: `weights.npz` (trainable
@@ -103,15 +115,13 @@ def _rss_gb() -> float:
 def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices=1, save_every=None, log_every=50,
          seed=42, cargs=None, resume=True, num_workers=2, init_from=None, init_step=0) -> Optional[Dict]:
     """Train as the module docstring says, on the device MBEXWN_PLATFORM
-    names (the card unless it says cpu).  Returns the run's numbers (the
-    device, time to the first step, host time per step, checkpoint saves,
-    the loader's pace), or None for the no-op replay.  Without `resume` the
-    checkpoint directory must hold no checkpoint: a second run's states
-    beside the first's would make a later resume or replay take the
-    wrong run."""
-    if n_devices != 1:
-        raise NotImplementedError("data-parallel training (--n_devices != 1) is not ported "
-                                  "(ROADMAP.md queue 1, item 13)")
+    names (the card unless it says cpu), over `n_devices` processes (1: this
+    one; 0: one per visible card).  Returns the run's numbers (the device,
+    the world size, time to the first step, host time per step, checkpoint
+    saves, the loader's pace; rank 0's in a data-parallel run), or None for
+    the no-op replay.  Without `resume` the checkpoint directory must hold
+    no checkpoint: a second run's states beside the first's would make a
+    later resume or replay take the wrong run."""
     from .. import get_config_file
     from ..config import modify_config, read_config
     from ..training.checkpointing import latest_step
@@ -120,7 +130,8 @@ def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices
     hparams = read_config(get_config_file(model_id))
     if cargs:
         modify_config(hparams, cargs)
-    tc, pc, cc = hparams["training_config"], hparams["preprocess_config"], hparams["checkpoint_config"]
+    tc, cc = hparams["training_config"], hparams["checkpoint_config"]
+    batch_size = batch_size or tc["train_batch_size"]
     checkpoint_dir = os.path.join(output_dir, cc.get("checkpoint_dir", "checkpoints"))
     done = latest_step(checkpoint_dir)
     if not resume and done is not None:
@@ -134,6 +145,115 @@ def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices
         print(f"exported inference model to {output_dir}", file=sys.stderr)
         return None
 
+    kwargs = dict(model_id=model_id, data_dir=data_dir, output_dir=output_dir, steps=steps, batch_size=batch_size,
+                  save_every=save_every, log_every=log_every, seed=seed, cargs=cargs, resume=resume,
+                  num_workers=num_workers, init_from=init_from, init_step=init_step, t_start=t_start)
+    if os.environ.get("WORLD_SIZE"):  # under torchrun: join its group
+        from ..parallel import multihost
+
+        _check_divisible(batch_size, int(os.environ["WORLD_SIZE"]))
+        multihost.initialize()
+        try:
+            return _train(hparams, distributed=True, **kwargs)
+        finally:
+            multihost.shutdown()
+    if n_devices == 1:
+        return _train(hparams, distributed=False, **kwargs)
+    return _spawn(n_devices, batch_size, kwargs)
+
+
+def _check_divisible(batch_size: int, n: int) -> None:
+    if batch_size % n:
+        raise RuntimeError(f"batch_size {batch_size} must be divisible by n_devices {n}")
+
+
+def _spawn(n_devices: int, batch_size: int, kwargs: Dict) -> Dict:
+    """Train over `n_devices` spawned processes (0: one per visible card);
+    rank 0's numbers.  A rank that exits non-zero stops the others and
+    raises; each rank fails by itself when the group does not form or a
+    collective hangs (`parallel.multihost.TIMEOUT`), so a hung start ends
+    here as a failure."""
+    import multiprocessing as mp
+    import queue
+
+    from ..platform import platform_device
+    from ..parallel.multihost import free_port
+
+    dev = platform_device()
+    if n_devices == 0:
+        if dev.type != "cuda":
+            raise ValueError("--n_devices 0 counts the visible cards; on the CPU give the number of processes")
+        import torch
+
+        n_devices = torch.cuda.device_count()
+    if n_devices < 1:
+        raise ValueError(f"--n_devices {n_devices}: expected a count >= 1 (or 0 for every visible card)")
+    _check_divisible(batch_size, n_devices)
+    if dev.type == "cuda":
+        import torch
+
+        if n_devices > torch.cuda.device_count():
+            raise ValueError(f"--n_devices {n_devices}: only {torch.cuda.device_count()} cards are visible")
+        from ..ops import kernel_lib
+
+        kernel_lib.build()  # once here, so that no rank that synthesises runs nvcc
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    master = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_rank_main, args=(rank, n_devices, master, dev.type, kwargs, results))
+             for rank in range(n_devices)]
+    for p in procs:
+        p.start()
+    run = None
+    try:
+        while True:
+            try:
+                rank, out = results.get(timeout=0.5)
+                if rank == 0:
+                    run = out
+            except queue.Empty:
+                pass
+            codes = [p.exitcode for p in procs]
+            failed = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"data-parallel training failed: rank(s) {failed} exited non-zero")
+            if all(c == 0 for c in codes) and results.empty():
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return run
+
+
+def _rank_main(rank: int, world: int, master: str, device_type: str, kwargs: Dict, results) -> None:
+    """One spawned rank: join the group, train, hand rank 0's numbers back."""
+    from .. import get_config_file
+    from ..config import modify_config, read_config
+    from ..parallel import multihost
+
+    hparams = read_config(get_config_file(kwargs["model_id"]))
+    if kwargs["cargs"]:
+        modify_config(hparams, kwargs["cargs"])
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+    os.environ["LOCAL_RANK"] = str(rank)
+    multihost.initialize(master, world_size=world, rank=rank,
+                         device=f"cuda:{rank}" if device_type == "cuda" else "cpu")
+    try:
+        results.put((rank, _train(hparams, distributed=True, **kwargs)))
+    finally:
+        multihost.shutdown()
+
+
+def _train(hparams: Dict, model_id, data_dir, output_dir, steps, batch_size, save_every, log_every, seed, cargs,
+           resume, num_workers, init_from, init_step, t_start, distributed: bool) -> Dict:
+    """The run itself, in this process; with `distributed`, as one rank of
+    the process group this process has joined."""
     import torch
 
     from ..models.factory import create_model
@@ -143,55 +263,71 @@ def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices
     from ..training.data import PrefetchLoader, SegmentDataset
     from ..training.trainer import Trainer
 
+    group, rank, world = None, 0, 1
     dev = platform_device()
-    batch_size = batch_size or tc["train_batch_size"]
+    if distributed:
+        import torch.distributed as dist
+
+        group, rank, world = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, file=sys.stderr)
+
+    tc, pc, cc = hparams["training_config"], hparams["preprocess_config"], hparams["checkpoint_config"]
+    checkpoint_dir = os.path.join(output_dir, cc.get("checkpoint_dir", "checkpoints"))
     save_every = save_every or cc.get("save_model_every", 2000)
     os.makedirs(output_dir, exist_ok=True)
 
     model, _ = create_model(hparams, tc, pc, quiet=True, trainable=True)
     model.init(torch.Generator().manual_seed(seed))
     T_mel = pc["segment_length"] // pc["hop_size"] + 1
-    ckpt = CheckpointManager(checkpoint_dir, max_to_keep=cc.get("max_to_keep", 5))
+    ckpt = CheckpointManager(checkpoint_dir, max_to_keep=cc.get("max_to_keep", 5), group=group)
     latest = ckpt.latest_step() if resume else None
     start = latest if latest is not None else (init_step if init_from else 0)
     data_seed = seed + start
-    trainer = Trainer(model, hparams, device=dev, seed=data_seed + 1)
-    run = {"device": str(dev), "start_step": start, "resumed": latest is not None,
+    trainer = Trainer(model, hparams, device=dev, seed=data_seed + 1, group=group)
+    run = {"device": str(dev), "world_size": world, "start_step": start, "resumed": latest is not None,
            "warm_started": latest is None and bool(init_from), "pretrained": False}
     if latest is not None:
         ckpt.restore(trainer)
-        print(f"resumed from step {trainer.step}", file=sys.stderr)
+        say(f"resumed from step {trainer.step}")
     elif init_from:
         _warm_start(trainer, init_from, init_step)
-        print(f"warm-started from {init_from} at step {init_step}", file=sys.stderr)
+        say(f"warm-started from {init_from} at step {init_step}")
     elif tc.get("pretrain_activations_target"):
-        from ..training.pretrain import pretrain_activations
+        if rank == 0:  # on the global batch, as one process would
+            from ..training.pretrain import pretrain_activations
 
-        dataset0 = SegmentDataset(data_dir, pc, seed=seed)
-        try:
-            cal_mels = [dataset0.batch(batch_size)["mel"] for _ in range(2)]
-        finally:
-            dataset0.close()
-        print("pretraining activation statistics...", file=sys.stderr)
-        ploss = pretrain_activations(model, cal_mels, target=tc["pretrain_activations_target"],
-                                     max_iters=tc.get("pretrain_activations_max_iters", 100),
-                                     lr=tc.get("pretrain_activations_lr", 1e-2),
-                                     to_rmse=tc.get("pretrain_activations_to_rmse", 0.05))
+            dataset0 = SegmentDataset(data_dir, pc, seed=seed)
+            try:
+                cal_mels = [dataset0.batch(batch_size)["mel"] for _ in range(2)]
+            finally:
+                dataset0.close()
+            say("pretraining activation statistics...")
+            ploss = pretrain_activations(model, cal_mels, target=tc["pretrain_activations_target"],
+                                         max_iters=tc.get("pretrain_activations_max_iters", 100),
+                                         lr=tc.get("pretrain_activations_lr", 1e-2),
+                                         to_rmse=tc.get("pretrain_activations_to_rmse", 0.05))
+            say(f"pretraining done (stats loss {ploss:.4f})")
+        trainer.broadcast(model)
         run["pretrained"] = True
-        print(f"pretraining done (stats loss {ploss:.4f})", file=sys.stderr)
 
-    model_summary(model, T_mel=T_mel, print_fn=lambda s: print(s, file=sys.stderr))
+    if rank == 0:
+        model_summary(model, T_mel=T_mel, print_fn=lambda s: print(s, file=sys.stderr))
 
-    dataset = SegmentDataset(data_dir, pc, seed=data_seed)
+    dataset = SegmentDataset(data_dir, pc, seed=data_seed, shard=(rank, world))
     loader = PrefetchLoader(dataset, batch_size, num_workers=num_workers)
-    logger = MetricsLogger(os.path.join(output_dir, cc.get("log_dir", "logs")))
+    logger = MetricsLogger(os.path.join(output_dir, cc.get("log_dir", "logs"))) if rank == 0 else None
     # the F0 target pre-strided to the pulse rate (the values the training
     # forward keeps) and, unless MBEXWN_UPLOAD_FP16=0, audio and mel as fp16
     # (made fp32 on the device): the JAX package's uploads, so both feed the
     # step the same numbers
     upload_fp16 = os.environ.get("MBEXWN_UPLOAD_FP16", "1") != "0"
     if upload_fp16:
-        print("upload: audio/mel as fp16 (MBEXWN_UPLOAD_FP16=0 for fp32 uploads)", file=sys.stderr)
+        say("upload: audio/mel as fp16 (MBEXWN_UPLOAD_FP16=0 for fp32 uploads)")
     f0_down = trainer.F0_down
     pinned = dev.type == "cuda"
 
@@ -221,13 +357,13 @@ def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices
             t0 = time.perf_counter()
             metrics = trainer.train_step(_prep(next(batches)))
             step = trainer.step
-            if step % log_every == 0 or step == 1:
+            if rank == 0 and (step % log_every == 0 or step == 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 logger.log(step, m)
                 dt = time.time() - t_last
                 t_last = time.time()
                 loss_str = " ".join(f"{k}:{v:7.4f}" for k, v in sorted(m.items()))
-                print(f"step {step:7d} ({dt:5.1f}s/{log_every}) rss={_rss_gb():.1f}G {loss_str}", file=sys.stderr)
+                say(f"step {step:7d} ({dt:5.1f}s/{log_every}) rss={_rss_gb():.1f}G {loss_str}")
             t1 = time.perf_counter()
             run["step_host_s"][step] = t1 - t0
             run.setdefault("time_to_first_step_s", t1 - t_start)
@@ -238,13 +374,15 @@ def main(model_id, data_dir, output_dir, steps=10000, batch_size=None, n_devices
     finally:
         if loader.close():
             dataset.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     run["loader"] = dict(loader.stats(), source=dataset.source)
 
     save(trainer.step)
-    _export(output_dir, model, hparams, trainer.step)
+    if rank == 0:
+        _export(output_dir, model, hparams, trainer.step)
     run["end_step"] = trainer.step
-    print(f"exported inference model to {output_dir}", file=sys.stderr)
+    say(f"exported inference model to {output_dir}")
     return run
 
 
@@ -258,7 +396,8 @@ def cli():
     parser.add_argument("--steps", type=int, default=10000)
     parser.add_argument("-b", "--batch_size", type=int, default=None)
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="data-parallel device count (only 1 is ported)")
+                        help="data-parallel processes, one per card (0 = every visible card); "
+                             "not read under torchrun")
     parser.add_argument("--save_every", type=int, default=None)
     parser.add_argument("--log_every", type=int, default=50)
     parser.add_argument("--seed", type=int, default=42)

@@ -263,7 +263,8 @@ __global__ void empty_kernel() {}
 __global__ void __launch_bounds__(kThreads) grid_sync_kernel() { cg::this_grid().sync(); }
 
 int max_resident_blocks(int smem) {
-  // per device: the dynamic shared memory the count was taken for, and the count
+  // per device: the dynamic shared memory the count was taken for, and the
+  // count.  The current device is the tensors' (the caller enters it).
   static int cached_smem[64], cached_blocks[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

@@ -243,6 +243,7 @@ constexpr int kRowBytes = kStageK * 2;                   // 128
 constexpr int kXTileBytes = kTileRows * kRowBytes;       // 16 KB: an x stage, and one 64-column block of the gated tile
 constexpr int kMaxRing = 4;                              // most stages the ring holds
 constexpr int kSmemLimit = 232448;                       // dynamic shared memory a block may ask for (227 KB)
+constexpr int kMaxDevices = 64;                          // cards a process may launch on (per-device state)
 constexpr int kBf16Threads = 384;                        // 2 consumer warpgroups + 1 producer warpgroup
 constexpr int kConsumerWarps = 8;
 
@@ -774,11 +775,17 @@ int launch_bf16(const BufMaps& in, const BufMaps& out, const SharedMaps& sh, con
   args.n_ring = ring_stages<P>(args.Cp);
   if (args.n_ring < 2) return cuda_fail(cudaErrorInvalidValue);  // the gated tile leaves no room: C is too wide
   const size_t smem = bf16_smem_bytes<P>(args.Cp, args.n_ring);
-  static size_t smem_set = 0;  // per instantiation: the attribute is raised when a wider tile comes along
-  if (smem > smem_set) {
+  // The attribute belongs to the current device (the caller enters the
+  // tensors' device), so it is kept per instantiation and per device, and
+  // raised when a wider tile comes along.
+  static size_t smem_set[kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev); e != cudaSuccess) return cuda_fail(e);
+  if (dev < 0 || dev >= kMaxDevices) return cuda_fail(cudaErrorInvalidDevice);
+  if (smem > smem_set[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return cuda_fail(e);
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
   const dim3 grid((args.T_len + kTileRows - 1) / kTileRows, B);
   kernel<<<grid, kBf16Threads, smem, s>>>(in.a, in.r, sh.cond, wmaps[0], wmaps[1], out.o, sh.skip, args);

@@ -145,6 +145,14 @@ def refuse_grad(name: str, *tensors) -> None:
             f"(training.Trainer: the per-layer WaveNet and oscillate_plain)")
 
 
+def on_device(device: torch.device):
+    """The context a launch runs in: `device` made current.  A kernel's
+    per-device state (K1's shared-memory attribute, K2's count of resident
+    blocks) and the C entries' default device are the current device's,
+    which need not be the device of the tensors and the stream passed in."""
+    return torch.cuda.device(device)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a launch returned a non-zero cudaGetLastError()."""
     if err != 0:

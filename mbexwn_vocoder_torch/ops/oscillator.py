@@ -104,6 +104,13 @@ def oscillate(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_tr
         return oscillate_plain(*args, phase_offset=phase_offset, return_phase=return_phase)
     if f0.device.type != "cuda":
         raise RuntimeError(f"oscillate: unsupported device {f0.device}")
+    with kernel_lib.on_device(f0.device):
+        return _oscillate_cuda(*args, phase_offset=phase_offset, return_phase=return_phase)
+
+
+def _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate,
+                    phase_offset, return_phase):
+    """`oscillate` on CUDA tensors, under their device."""
     kernel_lib.refuse_grad("oscillator", f0, wavetables, phase_offset)
     for name, t in (("f0", f0), ("wavetables", wavetables), ("phase_offset", phase_offset)):
         if t is not None and (t.device != f0.device or t.dtype != torch.float32 or not t.is_contiguous()):

@@ -226,10 +226,11 @@ def wavenet_layer(x_in: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b
     lib = kernel_lib.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     cond, Ch = _kernel_cond(cond)
-    n = lib.mbexwn_wavenet_layer(_KERNEL_DTYPES[dtype], x_in.data_ptr(), cond.data_ptr(), w_dil.data_ptr(),
-                                 b_dil.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(), x_out.data_ptr(),
-                                 skip.data_ptr(), B, T, C, Cp, Ch, int(dilation), int(n_rs == C), int(causal),
-                                 stream)
+    with kernel_lib.on_device(dev):
+        n = lib.mbexwn_wavenet_layer(_KERNEL_DTYPES[dtype], x_in.data_ptr(), cond.data_ptr(), w_dil.data_ptr(),
+                                     b_dil.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(), x_out.data_ptr(),
+                                     skip.data_ptr(), B, T, C, Cp, Ch, int(dilation), int(n_rs == C), int(causal),
+                                     stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(n, "wavenet_layer")
 
 
@@ -251,6 +252,12 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
     if activation != "gtu":
         raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation} "
                                   f"(ROADMAP.md queue 1, item 13)")
+    with kernel_lib.on_device(x.device):
+        return _wavenet_stack_cuda(x, cond, layer_weights, dils, causal)
+
+
+def _wavenet_stack_cuda(x, cond, layer_weights, dils, causal):
+    """`wavenet_stack` on CUDA tensors, under their device."""
     packed = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
     kernel_lib.refuse_grad("wavenet_layer", x, cond, *(t for lw in packed.layers for t in lw))
     B, T, C = x.shape

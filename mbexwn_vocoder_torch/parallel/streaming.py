@@ -48,8 +48,17 @@ that does not normalise the two are the same computation.  Noise is drawn
 per chunk call from a generator seeded 0, so chunked output equals
 one-shot output only with the noise channel off (sigma 0).
 
-The chunks could also run on several devices (sequence parallelism); that
-is the device-mesh work of ROADMAP.md queue 1, item 13.
+Over a mesh (`parallel.mesh.make_mesh`), `synth_batched` runs its uniform
+middle chunk group sequence-parallel: that group's rows (chunks x B) are
+split into contiguous shards, one per mesh device, each synthesised by
+that device's replica of the model, all enqueued before any is read back.
+A group whose row count is not a multiple of the mesh's data axis (the
+edge chunks) stays on the first device, as in the JAX package.  The F0,
+the carries and the offsets are computed once on the first device, before
+the split, and each shard takes its rows of them, and of the noise drawn
+for the whole group there, so the mesh changes where a chunk is
+synthesised and nothing of what it is given.  `synth`, `synth_scan` and
+`stream` run on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from ..ops.oscillator import phase_velocity
 from ..ops.padding import pad1d
 from ..ops.precision import exact_fp32
 from ..platform import resolve_device
+from .mesh import Mesh, replicate, shard_bounds
 
 
 def _mod1_sum(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
@@ -91,18 +101,25 @@ def _edge_pad_time(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 class StreamingSynthesizer:
     def __init__(self, model: torch.nn.Module, chunk_frames: int = 256, halo_frames: int = 40,
-                 halo_right: Optional[int] = None, device: Union[str, torch.device] = "cuda", mesh=None):
+                 halo_right: Optional[int] = None, device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[Mesh] = None):
         """model: a `PaNWaveNet` with its weights (moved to `device`).
         halo_right: lookahead halo in mel frames (defaults to halo_frames).
         With a force_causal model the receptive field extends only into the
         past, so halo_right can drop to the lookahead the conditioning
         interpolation and the STFT overlap need (2 frames): live synthesis
-        then has an algorithmic latency of chunk_frames + halo_right frames."""
-        if mesh is not None:
-            raise NotImplementedError("sequence-parallel synthesis over a device mesh is not ported "
-                                      "(ROADMAP.md queue 1, item 13)")
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        then has an algorithmic latency of chunk_frames + halo_right frames.
+        mesh: `synth_batched` splits its uniform chunk group over the mesh's
+        devices; everything else runs on its first device (`device` is then
+        not read)."""
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.replicas = {self.device: model.to(self.device)}
+        else:
+            self.device = mesh.first
+            self.replicas = replicate(model, mesh)
+        self.model = self.replicas[self.device]
         self.chunk_frames = chunk_frames
         self.halo_frames = halo_frames
         self.halo_right = halo_frames if halo_right is None else halo_right
@@ -214,15 +231,39 @@ class StreamingSynthesizer:
             carry = torch.remainder(carry + inc_interior, 1.0)
 
         out = torch.empty((B, T * hop), dtype=torch.float32, device=self.device)
+        ys = {}
         for (span, left, inner), idxs in groups.items():
             self.programs.add(("batched", span, left, inner))
             mel_spans, f0 = inputs[(span, left, inner)]
-            y = self.model.infer(mel_spans, synth_length=span * hop, F0=f0,
-                                 phase_offset=torch.cat([offsets[i] for i in idxs]))
-            ys = y[:, left * hop: (left + inner) * hop].reshape(len(idxs), B, inner * hop)
+            ys[(span, left, inner)] = self._synth_rows(mel_spans, f0, torch.cat([offsets[i] for i in idxs]),
+                                                       span * hop)
+        for (span, left, inner), idxs in groups.items():
+            y = torch.cat([part.to(self.device) for part in ys[(span, left, inner)]])
+            y = y[:, left * hop: (left + inner) * hop].reshape(len(idxs), B, inner * hop)
             for row, i in enumerate(idxs):
-                out[:, bounds[i][0] * hop: bounds[i][1] * hop] = ys[row]
+                out[:, bounds[i][0] * hop: bounds[i][1] * hop] = y[row]
         return out.cpu().numpy()
+
+    def _synth_rows(self, mel_spans: torch.Tensor, f0: torch.Tensor, offsets: torch.Tensor,
+                    synth_length: int) -> List[torch.Tensor]:
+        """One chunk group's synthesis, enqueued, as the audio of its shards
+        in row order: on the first device, or split over the mesh when its
+        rows divide evenly, with the noise the model would draw for the
+        whole group on the first device."""
+        n = 1 if self.mesh is None else self.mesh.shape["data"]
+        if n == 1 or mel_spans.shape[0] % n:
+            return [self.model.infer(mel_spans, synth_length=synth_length, F0=f0, phase_offset=offsets)]
+        blk = self.model.block
+        noise = None
+        if blk.pp_mod_subnet_noise_channel_sigma:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            noise = torch.randn((mel_spans.shape[0], blk.wn_input_length(mel_spans.shape[1]), 1), generator=gen,
+                                dtype=torch.float32, device=self.device)
+        shards = [(dev, [t[lo:hi].to(dev) for t in (mel_spans, f0, offsets)]
+                   + [None if noise is None else noise[lo:hi].to(dev)])
+                  for dev, (lo, hi) in zip(self.mesh.devices, shard_bounds(mel_spans.shape[0], n))]
+        return [self.replicas[dev].infer(m, synth_length=synth_length, F0=f, phase_offset=o, noise=nz)
+                for dev, (m, f, o, nz) in shards]
 
     @exact_fp32()
     @torch.inference_mode()

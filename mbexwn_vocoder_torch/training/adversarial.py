@@ -17,12 +17,21 @@ with the same key, which gives the same signal.)
 generator step's (`Trainer.draw_shapes`), `disc_draws` the discriminator
 step's forward ("noise", "floor"); without them both come from the
 generator's `torch.Generator` (seeded `seed`).
+
+Data parallel (`group`): the generator's step is the `Trainer`'s.  The
+discriminator starts from rank 0's parameters and its gradients are summed
+over the ranks as one flat bucket.  Its LSGAN / hinge terms and the
+feature-matching loss are batch means of per-sample terms (equal shapes,
+no statistic across the batch), so the global batch's value is the mean of
+the shards', assembled as the `Trainer` assembles its means
+(`Trainer.globalise`), in the same all-reduce as the generator's terms.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..ops.precision import exact_fp32
 from .discriminator import (MultiScaleDiscriminator, discriminator_loss, feature_matching_loss,
@@ -31,8 +40,9 @@ from .trainer import Trainer
 
 
 class AdversarialTrainer:
-    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", mesh=None, seed: int = 0):
-        self.base = Trainer(model, hparams, device=device, mesh=mesh, seed=seed)
+    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 group: Optional[dist.ProcessGroup] = None):
+        self.base = Trainer(model, hparams, device=device, seed=seed, group=group)
         self.device = self.base.device
         wg = hparams.get("wavegan_config", {}) or {}
         self.adv_loss_weight = wg.get("adv_loss_weight", 0.1)
@@ -45,6 +55,7 @@ class AdversarialTrainer:
         self.discriminator = MultiScaleDiscriminator(**disc_cfg)
         self.discriminator.init(torch.Generator().manual_seed(seed))
         self.discriminator.to(self.device, self.base.dtype)
+        self.base.broadcast(self.discriminator)
         self.disc_params = list(self.discriminator.parameters())
         self.disc_optimizer = torch.optim.Adam(self.disc_params, lr=wg.get("discriminator_lr", 2e-4),
                                                betas=(0.5, 0.9), eps=1e-8)
@@ -60,24 +71,30 @@ class AdversarialTrainer:
     def gen_loss(self, batch, step: int, draws=None):
         """(total, metrics): the spectral losses (`Trainer.loss_fn`) plus the
         adversarial and feature-matching losses of the same signal."""
-        total, metrics, signal, target = self.base.loss_and_signal(batch, step, draws)
+        means, sums, signal, target = self.base.loss_parts(batch, step, draws)
         if not self.disable_discriminator:
             fake_outs = self.discriminator(signal)
             real_outs = self.discriminator(target.detach())
-            adv = generator_adversarial_loss(fake_outs, self.loss_method)
-            fm = feature_matching_loss(real_outs, fake_outs)
+            means["adv_loss"] = generator_adversarial_loss(fake_outs, self.loss_method)
+            means["fm_loss"] = feature_matching_loss(real_outs, fake_outs)
+        means, sums = self.base.globalise(means, sums)
+        total, metrics = self.base.combine(means, sums, step)
+        if not self.disable_discriminator:
+            adv, fm = means["adv_loss"], means["fm_loss"]
             total = total + self.adv_loss_weight * adv + self.fc_loss_weight * fm
             metrics = dict(metrics, adv_loss=adv, fm_loss=fm, total_loss=total)
         return total, metrics
 
     def disc_loss(self, batch, step: int, draws=None) -> torch.Tensor:
         """The discriminator's loss on the generator's signal (computed
-        without gradients) against the target audio."""
+        without gradients) against the target audio, of the global batch
+        under data parallelism."""
         b = self.base._batch(batch)
         with torch.no_grad():
             signal, target, _ = self.base.training_forward(b["audio"], b["mel"], b["F0"], step, draws,
                                                            F0_ds=b["F0_ds"])
-        return discriminator_loss(self.discriminator(target), self.discriminator(signal), self.loss_method)
+        loss = discriminator_loss(self.discriminator(target), self.discriminator(signal), self.loss_method)
+        return self.base.globalise({"disc_loss": loss}, {})[0]["disc_loss"]
 
     def train_step(self, batch, draws=None, disc_draws=None) -> Dict[str, torch.Tensor]:
         """One discriminator update (unless disabled), then one generator
@@ -87,6 +104,7 @@ class AdversarialTrainer:
             with exact_fp32():
                 d_loss = self.disc_loss(batch, self.base.step, disc_draws)
                 d_loss.backward()
+            self.base.sync_gradients(self.disc_params)
             self.disc_optimizer.step()
             d_loss = d_loss.detach()
         else:

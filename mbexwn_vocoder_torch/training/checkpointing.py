@@ -10,6 +10,10 @@ appears; the newest `max_to_keep` are kept.  A manager does not write a
 step again that it saved or restored itself, and refuses to overwrite a
 step that another run left there.  `checkpoint_steps` and `latest_step`
 read the layout without importing torch.
+
+In a data-parallel run (`group`) every rank calls `save` and `restore`:
+rank 0 writes, the others wait at a barrier until the step is complete,
+and every rank restores from the shared directory.
 """
 from __future__ import annotations
 
@@ -39,10 +43,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 class CheckpointManager:
-    def __init__(self, checkpoint_dir: str, max_to_keep: int = 5):
+    def __init__(self, checkpoint_dir: str, max_to_keep: int = 5, group=None):
         self.directory = os.path.abspath(checkpoint_dir)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.group = group
         self._own = set()  # the steps this manager saved or restored
 
     def steps(self) -> List[int]:
@@ -59,28 +64,34 @@ class CheckpointManager:
         """Write `trainer`'s state (anything with `model`, `optimizer`,
         `scheduler` and `step`) as step `step`; False when this manager
         saved or restored that step already.  A checkpoint of the step that
-        another run left raises FileExistsError."""
+        another run left raises FileExistsError.  With a group, rank 0
+        writes and every rank returns once the step is complete."""
         import torch
 
+        if self.group is not None:  # no rank looks before every rank has arrived
+            torch.distributed.barrier(group=self.group)
         final = os.path.join(self.directory, str(step))
         if os.path.exists(final):
             if step in self._own:
                 return False
             raise FileExistsError(f"checkpoint {final} was not written by this run; "
                                   f"resume from it or train into another checkpoint directory")
-        payload = {"model": trainer.model.block.state_dict(), "optimizer": trainer.optimizer.state_dict(),
-                   "scheduler": trainer.scheduler.state_dict(), "step": int(step)}
-        tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
-        try:
-            torch.save(payload, os.path.join(tmp, _STATE_FILE))
-            os.replace(tmp, final)
-        finally:
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
+        if self.group is None or torch.distributed.get_rank(self.group) == 0:
+            payload = {"model": trainer.model.block.state_dict(), "optimizer": trainer.optimizer.state_dict(),
+                       "scheduler": trainer.scheduler.state_dict(), "step": int(step)}
+            tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
+            try:
+                torch.save(payload, os.path.join(tmp, _STATE_FILE))
+                os.replace(tmp, final)
+            finally:
+                if os.path.exists(tmp):
+                    shutil.rmtree(tmp)
+            if self.max_to_keep:
+                for old in self.steps()[:-self.max_to_keep]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)))
+        if self.group is not None:
+            torch.distributed.barrier(group=self.group)
         self._own.add(step)
-        if self.max_to_keep:
-            for old in self.steps()[:-self.max_to_keep]:
-                shutil.rmtree(os.path.join(self.directory, str(old)))
         return True
 
     def _load(self, step: int) -> Dict:

@@ -13,6 +13,20 @@ model's sample rate, else from the Python sampler (which resamples files at
 another rate); it prints which path it took and why.  The two paths give
 different segment streams, and with more than one native worker the order
 of the native stream is not fixed.
+
+Data parallel (`shard=(rank, world)`): every rank draws the same global
+batches from the same seed, and `batch(B)` returns the rank's rows [rank *
+B / world, (rank + 1) * B / world) of the global batch: the (file, start)
+choices are drawn for all B rows (they are cheap), the mel and F0 are
+extracted for the rank's rows only, so the analysis per rank falls by the
+world size.  A sharded dataset pins the native loader to one worker, so
+that every rank's native stream is the one fixed stream.  With one
+`PrefetchLoader` thread per rank, rank r's batch at step s is exactly its
+rows of the batch the one-process run (one thread) draws at step s; with
+more threads, each rank takes its rows of the global batches in the order
+its threads finish them, which may differ between ranks: every step still
+trains on B distinct random segments, but not on one global batch of the
+one-process run.
 """
 from __future__ import annotations
 
@@ -21,7 +35,7 @@ import queue
 import sys
 import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -49,8 +63,12 @@ class SegmentDataset:
 
     def __init__(self, data_dir: str, preprocess_config: Dict, seed: int = 0,
                  fmin_f0: float = 50.0, fmax_f0: float = 600.0, cache_audio: bool = True,
-                 use_native: bool = True):
+                 use_native: bool = True, shard: Tuple[int, int] = (0, 1)):
+        """shard: (rank, world size) of a data-parallel run (module docstring)."""
         self.files = list_audio_files(data_dir)
+        self.rank, self.world = shard
+        if not 0 <= self.rank < self.world:
+            raise ValueError(f"shard {shard}: rank must be in [0, world)")
         self.pc = dict(preprocess_config)
         self.segment_length = self.pc["segment_length"]
         self.hop = self.pc["hop_size"]
@@ -68,7 +86,8 @@ class SegmentDataset:
                 reason = native_loader.load_error()
             else:
                 try:
-                    loader = native_loader.NativeSegmentLoader(self.files, self.segment_length, self.sr, seed=seed)
+                    loader = native_loader.NativeSegmentLoader(self.files, self.segment_length, self.sr, seed=seed,
+                                                               **({"n_workers": 1} if self.world > 1 else {}))
                 except RuntimeError as e:
                     reason = str(e)
                 else:
@@ -93,14 +112,18 @@ class SegmentDataset:
             self._cache[path] = snd
         return snd
 
-    def sample_segment(self) -> Dict[str, np.ndarray]:
+    def _choose(self) -> Tuple[str, int]:
+        """The next segment's (file, start) from the dataset's RNG."""
         path = self.files[self.rng.randint(len(self.files))]
+        n = max(self._load(path).shape[0], self.segment_length)  # a short file is zero-padded to one segment
+        return path, self.rng.randint(max(1, n - self.segment_length + 1))
+
+    def _segment(self, path: str, start: int) -> np.ndarray:
         snd = self._load(path)
         L = self.segment_length
         if snd.shape[0] < L:
             snd = np.pad(snd, (0, L - snd.shape[0]))
-        start = self.rng.randint(max(1, snd.shape[0] - L + 1))
-        return self._features(snd[start: start + L])
+        return snd[start: start + L]
 
     def _features(self, seg: np.ndarray) -> Dict[str, np.ndarray]:
         mell, _ = compute_mel_spectrogram_internal(seg[None], preprocess_config=self.pc, do_post=True)
@@ -109,11 +132,17 @@ class SegmentDataset:
         return {"audio": seg, "mel": mell[0].astype(np.float32), "F0": f0}
 
     def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        """The next global batch of `batch_size` segments: this rank's rows
+        of it (all of them without a shard)."""
+        if batch_size % self.world:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the data-parallel world size "
+                             f"{self.world}")
+        n = batch_size // self.world
+        rows = slice(self.rank * n, (self.rank + 1) * n)
         if self._native is not None:
-            audio = self._native.next_batch(batch_size)
-            segs = [self._features(audio[i]) for i in range(batch_size)]
+            segs = [self._features(a) for a in self._native.next_batch(batch_size)[rows]]
         else:
-            segs = [self.sample_segment() for _ in range(batch_size)]
+            segs = [self._features(self._segment(*c)) for c in [self._choose() for _ in range(batch_size)][rows]]
         return {k: np.stack([s[k] for s in segs]) for k in segs[0]}
 
     def close(self) -> None:

@@ -289,14 +289,21 @@ class SpectLossComponents:
     def total_loss(self, in_audio: torch.Tensor, outputs: torch.Tensor, step: int = 0,
                    noises: Optional[Dict[str, torch.Tensor]] = None):
         losses = self.calc_losses(in_audio, outputs, noises=noises)
-        total = torch.zeros((), device=in_audio.device)
+        return self.combine(losses, step, in_audio.device), losses
+
+    def combine(self, losses: Dict[str, Optional[torch.Tensor]], step: int, device) -> torch.Tensor:
+        """The weighted sum of `calc_losses`'s losses at `step`.  Each is a
+        batch mean of per-sample terms (the variants of one sample are
+        averaged before the mean), so the loss of a batch split into equal
+        shards is the mean of the shards' losses."""
+        total = torch.zeros((), device=device)
         if losses["spect_loss"] is not None and self.spect_loss_weight is not None:
             total = total + losses["spect_loss"] * self.spect_loss_weight(step)
         if losses["mel_loss"] is not None:
             total = total + losses["mel_loss"] * self.mell_loss_weight
         if losses["NPOW_loss"] is not None:
             total = total + losses["NPOW_loss"] * self.NPOW_loss_weight
-        return total, losses
+        return total
 
 
 # ---------------------------------------------------------------- F0 losses
@@ -322,37 +329,64 @@ def f0_rec_loss_mask(target_F0: torch.Tensor, limit_samples: int) -> torch.Tenso
     return (extended != 0).float()
 
 
-def f0_prediction_loss(pred_F0, target_F0, pred_mask, method="L1", uv_weight=None, rec_mask=None,
-                       min_frequency=40.0):
-    """Masked F0 regression loss."""
+_F0_METHODS = {"L2": "L2", "l2": "L2", "least_squares": "L2", "L1": "L1", "l1": "L1", "RMSE": "RMSE", "rmse": "RMSE"}
+
+
+def f0_prediction_loss_parts(pred_F0, target_F0, pred_mask, method="L1", uv_weight=None, rec_mask=None,
+                             min_frequency=40.0):
+    """(numerator, denominator) of the masked F0 regression loss: sums over
+    the batch, whose weights count the voiced frames, so the loss couples
+    the samples of a batch.  Sharded over ranks, the sums of all shards
+    make the batch's (`finish_f0_prediction_loss`)."""
+    if method not in _F0_METHODS:
+        raise RuntimeError(f"unknown F0 loss method {method}")
     diff = torch.clamp(target_F0, min=min_frequency) - pred_F0[:, : target_F0.shape[1]]
     if uv_weight:
         prediction_loss_mask = pred_mask + (1 - rec_mask)
         diff = diff * prediction_loss_mask
         weight = torch.maximum(pred_mask, uv_weight * prediction_loss_mask)
-        max_lim = 0.0
     else:
         weight = pred_mask
-        max_lim = 1.0
-    denom = torch.clamp(torch.sum(weight), min=max_lim)
-    if method in ("L2", "l2", "least_squares"):
-        return torch.sum(torch.square(diff * weight)) / denom
-    if method in ("L1", "l1"):
-        return torch.sum(torch.abs(diff * weight)) / denom
-    if method in ("RMSE", "rmse"):
-        return torch.sqrt(torch.sum(torch.square(diff) * weight) / denom)
-    raise RuntimeError(f"unknown F0 loss method {method}")
+    kind = _F0_METHODS[method]
+    if kind == "L2":
+        num = torch.sum(torch.square(diff * weight))
+    elif kind == "L1":
+        num = torch.sum(torch.abs(diff * weight))
+    else:
+        num = torch.sum(torch.square(diff) * weight)
+    return num, torch.sum(weight)
 
 
-def stft_coherence_loss(signal_stft_coh, win_size, hop_size, fft_size, istft_window, stft_window):
-    """Penalise inconsistent (non-realisable) STFTs: resynthesise, re-analyse
-    and compare magnitudes."""
+def finish_f0_prediction_loss(num, den, method="L1", uv_weight=None):
+    """The F0 loss from the batch's (numerator, denominator)."""
+    ratio = num / torch.clamp(den, min=0.0 if uv_weight else 1.0)
+    return torch.sqrt(ratio) if _F0_METHODS[method] == "RMSE" else ratio
+
+
+def f0_prediction_loss(pred_F0, target_F0, pred_mask, method="L1", uv_weight=None, rec_mask=None,
+                       min_frequency=40.0):
+    """Masked F0 regression loss."""
+    num, den = f0_prediction_loss_parts(pred_F0, target_F0, pred_mask, method, uv_weight, rec_mask, min_frequency)
+    return finish_f0_prediction_loss(num, den, method, uv_weight)
+
+
+def stft_coherence_loss_parts(signal_stft_coh, win_size, hop_size, fft_size, istft_window, stft_window):
+    """(numerator, denominator) of the STFT coherence loss, sums over the
+    batch: the loss is their ratio, a ratio of batch means (equal counts),
+    which couples the samples of a batch."""
     sig = istft(signal_stft_coh, win_size, hop_size, fft_size, istft_window)
     back = stft(sig, win_size, hop_size, fft_size, stft_window)
     T = min(signal_stft_coh.shape[1], back.shape[1])
     a = torch.abs(signal_stft_coh[:, :T])
     b = torch.abs(back[:, :T])
-    return torch.mean(torch.square(a - b)) / torch.mean(torch.square(a))
+    return torch.sum(torch.square(a - b)), torch.sum(torch.square(a))
+
+
+def stft_coherence_loss(signal_stft_coh, win_size, hop_size, fft_size, istft_window, stft_window):
+    """Penalise inconsistent (non-realisable) STFTs: resynthesise, re-analyse
+    and compare magnitudes."""
+    num, den = stft_coherence_loss_parts(signal_stft_coh, win_size, hop_size, fft_size, istft_window, stft_window)
+    return num / den
 
 
 def td_loss(signal: torch.Tensor, target: torch.Tensor, win_len: int) -> torch.Tensor:

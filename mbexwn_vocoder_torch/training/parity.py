@@ -8,6 +8,17 @@ test and `chip_smoke.py` phase [9](b) hold the card's against the CPU's,
 and phase [10](c) does the same for one adversarial step (`TINY_WAVEGAN`,
 a small discriminator).
 
+The data-parallel check (`dp_against_single`, the CPU tests and
+`chip_smoke.py` phase [11](a)) runs the tiny case at a global batch of 4
+(`tiny_dp_batch`: the two shards' voiced-frame counts differ) in fp64 on
+`world` processes joined over gloo, and holds one step of the `Trainer`
+and one of the `AdversarialTrainer` against the one-process step on the
+same global batch, draws and init: the loss and every metric within
+1e-12, every gradient leaf and updated parameter within 1e-9.  The same
+step with DDP's rule, each rank's loss the mean over its own shard and the
+gradients averaged, is reported beside it, to show that the check can see
+the coupling of the batch's samples.
+
 Gradients are compared leaf by leaf as rel-RMS (`hold_leaves`); a leaf
 whose norm is under 1e-6 of the largest is held to 1e-7 absolute instead.
 The tight comparisons are made in fp64.  In fp32 the gradient of this loss
@@ -18,7 +29,9 @@ table lookup both turn fp32 rounding into errors of that size.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple, Union
+import os
+import traceback
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +68,20 @@ def tiny_batch(seed: int = 1) -> Dict[str, np.ndarray]:
     f0[1, 1800:] = 0.0
     return {"audio": (rng.randn(TINY_BATCH, T) * 0.1).astype(np.float32),
             "mel": (rng.randn(TINY_BATCH, TINY_T_MEL, 80) * 0.5 - 4).astype(np.float32), "F0": f0}
+
+
+def tiny_dp_batch(seed: int = 2, batch: int = 4) -> Dict[str, np.ndarray]:
+    """`tiny_batch` at a global batch of `batch`, whose first half is mostly
+    unvoiced and second half mostly voiced: the shards of two ranks hold
+    different numbers of voiced frames, which the F0 loss's weights count."""
+    rng = np.random.RandomState(seed)
+    T = TINY_T_MEL * TINY_HOP
+    f0 = (120 + 10 * rng.randn(batch, T)).astype(np.float32)
+    for r in range(batch):
+        lo = 200 + 150 * r
+        f0[r, lo: lo + (1800 if r < batch // 2 else 300)] = 0.0
+    return {"audio": (rng.randn(batch, T) * 0.1).astype(np.float32),
+            "mel": (rng.randn(batch, TINY_T_MEL, 80) * 0.5 - 4).astype(np.float32), "F0": f0}
 
 
 def rel_rms(got, ref) -> float:
@@ -167,4 +194,210 @@ def gan_card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
     failures = [f"leaf {n} {e:.2e} > {b:.0e}" for n, e, b in bad]
     if got_m.keys() != ref_m.keys() or not worst_metric[0] <= 1e-12:
         failures.append(f"metric {worst_metric[1]}: {got_m.get(worst_metric[1])!r} vs CPU {ref_m[worst_metric[1]]!r}")
+    return failures, numbers
+
+
+# ------------------------------------------------------------- data parallel
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().double().numpy()
+
+
+def dp_step(case: Dict, device, group=None, naive: bool = False) -> Dict:
+    """One `Trainer` step, and one `AdversarialTrainer` step when `case`
+    has "wavegan", of `case` on `device`: on this rank's rows of the global
+    batch under `group`, else on the whole batch.  `naive` replaces the
+    exact global-batch loss with DDP's rule (the rank's own loss, the
+    gradients averaged).  `case`: "hp", "state" (the model's trainable
+    state, numpy), "dtype", "batch" and "draws" (global, numpy), and
+    "disc_draws" with "wavegan".  Returns numpy results: loss, metrics,
+    gradients, parameters after the step, and the GAN step's."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ..models import create_model
+    from .adversarial import AdversarialTrainer
+    from .trainer import Trainer
+
+    dtype = getattr(torch, case["dtype"])
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    n = next(iter(case["batch"].values())).shape[0] // world
+    batch = {k: v[rank * n: (rank + 1) * n] for k, v in case["batch"].items()}
+
+    def model():
+        m, _ = create_model(case["hp"], case["hp"]["training_config"], case["hp"]["preprocess_config"],
+                            trainable=True)
+        m.block.load_state_dict({k: torch.from_numpy(v) for k, v in case["state"].items()}, strict=True)
+        return m.to(dtype)
+
+    def make_naive(tr):
+        def globalise(means, sums):
+            return means, sums
+
+        def sync_gradients(params):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            for p in params:
+                dist.all_reduce(p.grad, group=group)
+                p.grad /= world
+        tr.globalise, tr.sync_gradients = globalise, sync_gradients
+
+    tr = Trainer(model(), case["hp"], device=device, group=group)
+    if naive and group is not None:
+        make_naive(tr)
+    loss, metrics, grads = tr.value_and_grad(batch, 0, case["draws"])
+    out = {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {k: _host(v) for k, v in grads.items()}}
+    tr.apply_gradients()
+    out["params"] = {k: _host(v) for k, v in tr.model.block.named_parameters()}
+    if "wavegan" in case:
+        hp = copy.deepcopy(case["hp"])
+        hp["wavegan_config"] = copy.deepcopy(case["wavegan"])
+        gan = AdversarialTrainer(model(), hp, device=device, group=group)
+        if naive and group is not None:
+            make_naive(gan.base)
+        m = gan.train_step(batch, case["draws"], case["disc_draws"])
+        out["gan_metrics"] = {k: float(v) for k, v in m.items()}
+        grads = {f"generator.{k}": p.grad for k, p in gan.base.model.block.named_parameters()}
+        grads.update({f"discriminator.{k}": p.grad for k, p in gan.discriminator.named_parameters()})
+        out["gan_grads"] = {k: _host(v) for k, v in grads.items()}
+        out["gan_params"] = {f"generator.{k}": _host(v) for k, v in gan.base.model.block.named_parameters()}
+        out["gan_params"].update({f"discriminator.{k}": _host(v) for k, v in gan.discriminator.named_parameters()})
+    return out
+
+
+def _dp_rank(rank: int, world: int, init_method: str, device: str, case: Dict, results) -> None:
+    """One rank of `run_dp` (a spawned process): join over gloo, take the
+    exact step and (unless `case["naive"]` is false) the naive one, put
+    (rank, results or the traceback)."""
+    import torch.distributed as dist
+
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))  # the ranks share the host
+        dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
+        try:
+            out = {"exact": dp_step(case, device, dist.group.WORLD)}
+            if case.get("naive", True):
+                out["naive"] = dp_step(case, device, dist.group.WORLD, naive=True)
+            results.put((rank, out))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_dp(case: Dict, device, world: int = 2, timeout: float = 600.0) -> List[Dict]:
+    """`dp_step` of `case` on `world` spawned processes joined over gloo
+    (all on `device`: gloo takes CPU and card tensors, and lets ranks share
+    a card, which NCCL refuses): each rank's {"exact", "naive"} results, by
+    rank ("naive" unless `case["naive"]` is false).  A rank that fails, or does not answer within `timeout` seconds,
+    raises here; every process is gone when this returns."""
+    import multiprocessing as mp
+    import queue
+
+    from ..parallel.multihost import free_port
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, init_method, str(device), case, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got: Dict[int, Dict] = {}
+    try:
+        for _ in range(world):
+            try:
+                rank, out = results.get(timeout=timeout)
+            except queue.Empty:
+                raise RuntimeError(f"a data-parallel rank did not answer within {timeout:.0f} s") from None
+            if isinstance(out, str):
+                raise RuntimeError(f"data-parallel rank {rank} failed:\n{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise RuntimeError(f"data-parallel ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def tiny_dp_case(seed: int = 0, batch: int = 4) -> Dict:
+    """The tiny case in fp64 at a global batch of `batch` (`tiny_dp_batch`),
+    with its draws, the GAN's (`TINY_WAVEGAN`) included."""
+    import copy
+
+    from ..models import create_model
+    from .trainer import Trainer
+
+    hp = tiny_hparams()
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(seed))
+    glob = tiny_dp_batch(batch=batch)
+    shapes = Trainer(model, hp, device="cpu").draw_shapes(glob)
+    gen = torch.Generator().manual_seed(seed + 1)
+    draws = {k: torch.randn(shape, generator=gen).numpy() for k, shape in shapes.items()}
+    disc_draws = {"noise": torch.randn(shapes["noise"], generator=gen).numpy(),
+                  "floor": (torch.rand(shapes["floor"], generator=gen) * 2 - 1).numpy()}
+    return {"hp": hp, "state": {k: v.detach().numpy().copy() for k, v in model.block.state_dict().items()},
+            "dtype": "float64", "batch": glob, "draws": draws, "disc_draws": disc_draws,
+            "wavegan": copy.deepcopy(TINY_WAVEGAN)}
+
+
+def _worst(got: Dict[str, float], ref: Dict[str, float]) -> Tuple[float, str]:
+    return max((abs(got[k] / ref[k] - 1) if ref[k] else abs(got[k]), k) for k in ref)
+
+
+def dp_against_single(device, world: int = 2, seed: int = 0, naive: bool = True) -> Tuple[List[str], Dict]:
+    """`tiny_dp_case` on `world` gloo ranks against the one-process step
+    (module docstring); with `naive`, DDP's rule beside it, which must be
+    off by more than 1e-6.  Run it with MBEXWN_WN_DTYPE and
+    MBEXWN_SUBNET_DTYPE set empty, as `card_against_cpu`.  Returns
+    (failures, numbers)."""
+    case = dict(tiny_dp_case(seed), naive=naive)
+    ref = dp_step(case, device)
+    ranks = run_dp(case, device, world)
+    f0 = case["batch"]["F0"]
+    n = f0.shape[0] // world
+    numbers = {"world": world, "global_batch": f0.shape[0],
+               "voiced_samples_per_shard": [int((f0[r * n: (r + 1) * n] != 0).sum()) for r in range(world)]}
+    failures = []
+    for what, metric_key, leaf_keys in (("step", "metrics", ("grads", "params")),
+                                        ("GAN step", "gan_metrics", ("gan_grads", "gan_params"))):
+        for rank, out in enumerate(ranks):
+            exact = out["exact"]
+            rel, name = _worst(exact[metric_key], ref[metric_key])
+            rows = []
+            for key in leaf_keys:
+                bad, r = hold_leaves(exact[key], ref[key], 1e-9)
+                rows += r
+                failures += [f"{what} rank {rank} {key} {n} {e:.2e} > {b:.0e}" for n, e, b in bad]
+            if not rel <= 1e-12 or exact[metric_key].keys() != ref[metric_key].keys():
+                failures.append(f"{what} rank {rank} metric {name} {exact[metric_key].get(name)!r} vs "
+                                f"{ref[metric_key][name]!r}")
+            if rank == 0:
+                worst = max(rows)
+                numbers[what] = {"worst_metric": name, "worst_metric_rel": rel, "worst_leaf": worst[1],
+                                 "worst_leaf_rel_rms": worst[0], "leaves": len(rows)}
+            if rank == 0 and naive:
+                naive_metrics = {k: float(np.mean([o["naive"][metric_key][k] for o in ranks]))
+                                 for k in ref[metric_key]}
+                naive_rel, naive_name = _worst(naive_metrics, ref[metric_key])
+                _, naive_rows = hold_leaves(out["naive"][leaf_keys[0]], ref[leaf_keys[0]], 1.0)
+                numbers[what].update(naive_worst_metric=naive_name, naive_worst_metric_rel=naive_rel,
+                                     naive_worst_gradient_leaf=naive_rows[0][1],
+                                     naive_worst_gradient_rel_rms=naive_rows[0][0])
+                if not max(naive_rel, naive_rows[0][0]) > 1e-6:
+                    failures.append(f"{what}: the naive per-rank mean is within 1e-6 of the global step "
+                                    f"({naive_rel:.2e}, {naive_rows[0][0]:.2e}): the check cannot see the coupling")
     return failures, numbers

@@ -24,7 +24,29 @@ in it), else from the trainer's own `torch.Generator`, seeded with `seed`:
 - "rel_masking_noise", "masking_noise": standard normals of the target's
   shape (spect_loss_config rel_masking_noise_atten_db, masking_noise_std).
 
-`draw_shapes(batch)` gives each needed draw's shape.  The optimizer is
+`draw_shapes(batch)` gives each needed draw's shape.
+
+Data parallel (`group`, a `torch.distributed` process group, one process
+per card, joined with `parallel.multihost.initialize`): every rank holds
+the whole model, takes its contiguous share of each global batch (`batch`
+is the rank's rows, B / world of them, the same count on every rank) and
+the same rows of the global draws (given in `draws`, or drawn at the
+global shape from the generator, which is seeded alike on every rank, and
+sliced), and the parameters are broadcast from rank 0 when the trainer is
+made.  The loss every rank reports, and differentiates, is the loss of the
+global batch: each term of the loss is a batch mean of per-sample terms
+or a ratio of batch sums (the F0 loss, whose weights count the voiced
+frames, and the STFT coherence), so each rank computes its shard's means
+and sums, one all-reduce of those numbers gives the batch's, and the loss
+is assembled from them with each rank's own share kept differentiable
+(`globalise`).  A rank's backward pass then gives its share of the global
+gradient, and one all-reduce of all gradients, as one flat bucket, sums
+the shares before the clipping sees them.  The step equals the
+one-process step on the global batch up to the order of summation.  (A
+mean of per-rank losses, DDP's rule, differs wherever a ratio couples the
+samples.)
+
+The optimizer is
 `torch.optim` Adam, AdamW or SGD with momentum under a `LambdaLR` whose
 factor reproduces the JAX package's learning-rate schedule (a linear warm-up
 joined to a cosine, exponential or constant decay that restarts its count
@@ -37,12 +59,13 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import istft, stft
 from ..platform import resolve_device
-from .losses import (SpectLossComponents, f0_pred_loss_mask, f0_prediction_loss, f0_rec_loss_mask,
-                     stft_coherence_loss, td_loss)
+from .losses import (SpectLossComponents, f0_pred_loss_mask, f0_prediction_loss_parts, f0_rec_loss_mask,
+                     finish_f0_prediction_loss, stft_coherence_loss_parts, td_loss)
 from .schedules import ParamSchedule
 
 
@@ -140,18 +163,19 @@ def fast_forward_opt_state(trainer, step: int) -> None:
 
 
 class Trainer:
-    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", mesh=None, seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training over a mesh is not ported "
-                                      "(ROADMAP.md queue 1, item 13)")
+    def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 group: Optional[dist.ProcessGroup] = None):
         self.device = resolve_device(device)
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
         if not model.trainable:
             raise ValueError("Trainer: the model is in its folded (inference) form; build it trainable "
                              "(create_model(..., trainable=True)) or call model.trainable_()")
         mc = model.model_config
         if mc.get("remat_wavenet_blocks"):
             raise NotImplementedError("remat_wavenet_blocks (torch.utils.checkpoint) is not ported "
-                                      "(ROADMAP.md queue 1, item 13)")
+                                      "(ROADMAP.md queue 1, item 13b)")
         self.model = model.to(self.device).train()
         model.set_differentiable(True)
         self.hparams = hparams
@@ -186,13 +210,69 @@ class Trainer:
         self.dither_level = self.training_config.get("dither_level", 0) or 0
         self.TD_loss_weight = self.training_config.get("TD_loss_weight", 0) or 0
         self.TD_loss_win_len = self.training_config.get("TD_loss_win_len", 512)
+        self.broadcast(self.model)
+
+    # ------------------------------------------------------- data parallel
+
+    def broadcast(self, module: torch.nn.Module) -> None:
+        """Rank 0's parameters and buffers of `module` on every rank (nothing
+        without a group)."""
+        if self.group is None:
+            return
+        src = dist.get_global_rank(self.group, 0)
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                dist.broadcast(t.data, src=src, group=self.group)
+
+    def globalise(self, means: Dict[str, torch.Tensor], sums: Dict[str, torch.Tensor]):
+        """The global batch's batch means and batch sums from this rank's, in
+        one all-reduce: each has the global value and this rank's gradient
+        (x + (global - x).detach(), x its share), so that the gradients of
+        all ranks sum to the gradient of the global loss.  A mean's share is
+        the shard's mean over the world size.  Without a group, the
+        arguments."""
+        if self.group is None:
+            return means, sums
+        means = {k: v / self.world for k, v in means.items()}
+        names = list(means) + list(sums)
+        local = {**means, **sums}
+        flat = torch.stack([local[k].detach().to(self.dtype) for k in names])
+        dist.all_reduce(flat, group=self.group)
+        out = {k: local[k] + (flat[i] - local[k]).detach() for i, k in enumerate(names)}
+        return {k: out[k] for k in means}, {k: out[k] for k in sums}
+
+    def sync_gradients(self, params) -> None:
+        """Sum the gradients of `params` over the ranks, as one flat bucket
+        (nothing without a group); a parameter without a gradient takes part
+        with zeros."""
+        if self.group is None:
+            return
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset: offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor of the global batch."""
+        if self.group is None:
+            return t
+        n = t.shape[0] // self.world
+        return t[self.rank * n: (self.rank + 1) * n]
 
     # ---------------------------------------------------------------- draws
 
     def draw_shapes(self, batch) -> Dict[str, Tuple[int, ...]]:
-        """The shape of each draw a step on `batch` takes (module docstring)."""
+        """The shape of each draw a step on `batch` takes (module docstring),
+        at the global batch's size under data parallelism."""
         blk = self.model.block
         B, T = batch["audio"].shape[:2]
+        B *= self.world
         T_mel = batch["mel"].shape[1]
         shapes = {}
         if self.dither_level:
@@ -207,14 +287,18 @@ class Trainer:
         return shapes
 
     def _draw(self, draws, name: str, shape) -> torch.Tensor:
+        """This rank's rows of the draw `name`; `shape` is the rank's."""
+        shape = (shape[0] * self.world,) + tuple(shape[1:])
         if draws is not None:
-            t = torch.as_tensor(draws[name]).to(self.device, self.dtype)
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"draw {name!r} has shape {tuple(t.shape)}, the step needs {tuple(shape)}")
-            return t
+            t = torch.as_tensor(draws[name])
+            if tuple(t.shape) != shape:
+                raise ValueError(f"draw {name!r} has shape {tuple(t.shape)}, the step needs {shape}")
+            return self._rows(t).to(self.device, self.dtype)
         if name == "floor":
-            return torch.rand(shape, generator=self.generator, device=self.device, dtype=self.dtype) * 2.0 - 1.0
-        return torch.randn(shape, generator=self.generator, device=self.device, dtype=self.dtype)
+            t = torch.rand(shape, generator=self.generator, device=self.device, dtype=self.dtype) * 2.0 - 1.0
+        else:
+            t = torch.randn(shape, generator=self.generator, device=self.device, dtype=self.dtype)
+        return self._rows(t)
 
     # ------------------------------------------------------ training forward
 
@@ -225,7 +309,8 @@ class Trainer:
     def training_forward(self, audio, mel, F0, step: int, draws=None, F0_ds=None):
         """Training-mode forward: (signal, target audio, aux losses), as the
         JAX package's `training_forward`; `F0_ds` is the pulse-rate F0 target,
-        which replaces striding the sample-rate `F0`."""
+        which replaces striding the sample-rate `F0`.  The aux losses (F0,
+        STFT coherence) are given as (numerator, denominator) batch sums."""
         model, blk, aux = self.model, self.model.block, {}
         if model.norm_mel_components is not None:
             grp_audio, mel_in, _ = model.norm_mel_components.normalize_inputs_by_rms(audio[:, :, None], mel)
@@ -242,9 +327,10 @@ class Trainer:
             pred_mask = f0_pred_loss_mask(t, self.pred_limit)
             rec_mask = f0_rec_loss_mask(t, self.rec_limit)
             if self.pp_F0_loss_weight is not None:
-                aux["F0_loss"] = f0_prediction_loss(pulse_frequency, t, pred_mask, method=self.pp_F0_loss_method,
-                                                    uv_weight=self.pp_F0_UV_loss_weight, rec_mask=rec_mask,
-                                                    min_frequency=self.pp_min_frequency)
+                aux["F0_loss"] = f0_prediction_loss_parts(pulse_frequency, t, pred_mask,
+                                                          method=self.pp_F0_loss_method,
+                                                          uv_weight=self.pp_F0_UV_loss_weight, rec_mask=rec_mask,
+                                                          min_frequency=self.pp_min_frequency)
 
         # teacher forcing: the target F0 inside confidently voiced segments, blended by schedule
         if self.teacher_forcing is not None and F0_ds is not None:
@@ -273,8 +359,8 @@ class Trainer:
         signal = istft(source_stft * source_filter_stft, win, hop, blk.fft_size, blk.istft_window)
         signal = signal[:, win // 2: win // 2 + pulse_frequency.shape[1] * blk.F0_down_sampling_factor]
         if self.stft_coh_loss_weight:
-            aux["stft_coh_loss"] = stft_coherence_loss(source_stft.detach() * source_filter_stft, win, hop,
-                                                       blk.fft_size, blk.istft_window, blk.stft_window)
+            aux["stft_coh_loss"] = stft_coherence_loss_parts(source_stft.detach() * source_filter_stft, win, hop,
+                                                             blk.fft_size, blk.istft_window, blk.stft_window)
         T = min(signal.shape[1], target_audio.shape[1])
         return signal[:, :T], target_audio[:, :T], aux
 
@@ -291,6 +377,13 @@ class Trainer:
         """`loss_fn`'s (total, metrics) and the training forward's (signal,
         target) they were computed from."""
         step = self.step if step is None else step
+        means, sums, signal, target = self.loss_parts(batch, step, draws)
+        total, metrics = self.combine(*self.globalise(means, sums), step)
+        return total, metrics, signal, target
+
+    def loss_parts(self, batch, step: int, draws=None):
+        """The loss's terms on this rank's batch: (batch means, batch sums,
+        signal, target), the sums as "<term>/num" and "<term>/den"."""
         b = self._batch(batch)
         audio = b["audio"]
         with exact_fp32():
@@ -298,23 +391,39 @@ class Trainer:
                 audio = audio + self.dither_level * self._draw(draws, "dither", audio.shape)
             signal, target, aux = self.training_forward(audio, b["mel"], b["F0"], step, draws, F0_ds=b["F0_ds"])
             noises = {name: self._draw(draws, name, target.shape) for name in self.spect_losses.masking_draws}
-            total, spect_aux = self.spect_losses.total_loss(target, signal, step=step, noises=noises)
-            metrics = {k: v for k, v in spect_aux.items() if v is not None}
+            means = {k: v for k, v in self.spect_losses.calc_losses(target, signal, noises=noises).items()
+                     if v is not None}
             if self.TD_loss_weight:
-                metrics["TD_loss"] = td_loss(signal, target, self.TD_loss_win_len)
-                total = total + self.TD_loss_weight * metrics["TD_loss"]
-            if "F0_loss" in aux and self.pp_F0_loss_weight is not None:
-                total = total + aux["F0_loss"] * self.pp_F0_loss_weight(step)
-                metrics["F0_loss"] = aux["F0_loss"]
-            if "stft_coh_loss" in aux and self.stft_coh_loss_weight:
-                total = total + aux["stft_coh_loss"] * self.stft_coh_loss_weight
-                metrics["stft_coh_loss"] = aux["stft_coh_loss"]
+                means["TD_loss"] = td_loss(signal, target, self.TD_loss_win_len)
+        sums = {}
+        for name, on in (("F0_loss", self.pp_F0_loss_weight is not None), ("stft_coh_loss", self.stft_coh_loss_weight)):
+            if name in aux and on:
+                sums[f"{name}/num"], sums[f"{name}/den"] = aux[name]
+        return means, sums, signal, target
+
+    def combine(self, means: Dict[str, torch.Tensor], sums: Dict[str, torch.Tensor], step: int):
+        """(total loss, metrics) from the batch's means and sums: the
+        weighted terms, as the JAX package's `Trainer.loss_fn` adds them."""
+        total = self.spect_losses.combine({k: means.get(k) for k in ("spect_loss", "mel_loss", "NPOW_loss")}, step,
+                                          self.device)
+        metrics = {k: means[k] for k in ("mel_loss", "spect_loss", "NPOW_loss") if k in means}
+        if "TD_loss" in means:
+            metrics["TD_loss"] = means["TD_loss"]
+            total = total + self.TD_loss_weight * means["TD_loss"]
+        if "F0_loss/num" in sums:
+            metrics["F0_loss"] = finish_f0_prediction_loss(sums["F0_loss/num"], sums["F0_loss/den"],
+                                                           self.pp_F0_loss_method, self.pp_F0_UV_loss_weight)
+            total = total + metrics["F0_loss"] * self.pp_F0_loss_weight(step)
+        if "stft_coh_loss/num" in sums:
+            metrics["stft_coh_loss"] = sums["stft_coh_loss/num"] / sums["stft_coh_loss/den"]
+            total = total + metrics["stft_coh_loss"] * self.stft_coh_loss_weight
         metrics["total_loss"] = total
-        return total, metrics, signal, target
+        return total, metrics
 
     def value_and_grad(self, batch, step: Optional[int] = None, draws=None, loss=None):
         """(loss, metrics, {state_dict key: gradient}), the counterpart of
-        `jax.value_and_grad(Trainer.loss_fn)`.  The gradients stay in the
+        `jax.value_and_grad(Trainer.loss_fn)`: of the global batch under data
+        parallelism.  The gradients stay in the
         parameters' `.grad` too; a parameter the loss does not reach gets a
         zero gradient, as in JAX.  `loss(batch, step, draws) -> (total,
         metrics)` replaces `loss_fn` (the adversarial generator loss)."""
@@ -325,6 +434,7 @@ class Trainer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.sync_gradients(self.params)
         grads = {name: p.grad for name, p in self.model.block.named_parameters()}
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 

@@ -27,7 +27,8 @@ differentiable route on the card equals the CPU's (`training.parity` gives
 the rule), and a trained model, folded, synthesises through both kernels.
 The training CLI: two steps (`cli.train`) on the card with a
 tiny config, whose export synthesises through both kernels; one adversarial
-step on the card equals the CPU's.
+step on the card equals the CPU's.  Two cards (skipped with fewer): both
+kernels launch on cuda:1 after cuda:0, under the tensors' device.
 """
 import numpy as np
 import pytest
@@ -315,6 +316,41 @@ def test_causal_streaming_on_the_card(card, monkeypatch, mode):
     assert got.shape == plain.shape == cpu.shape == (2, 150 * 300) and np.isfinite(got).all()
     assert _rel(got, plain) <= 1e-4
     assert _rel(got, cpu) <= 1e-3
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_a_second_card(two_cards):
+    """Both kernels on cuda:0 and then on cuda:1 while cuda:0 stays the
+    current device, at the sizes whose per-device state matters: K1 in bf16
+    at C = 320 (its dynamic shared memory above 48 KB, an attribute of each
+    device) and K2 with a 2049 x 13 table (past 48 KB, and its count of
+    resident blocks, taken per device)."""
+    torch.cuda.set_device(two_cards[0])
+    g = torch.Generator().manual_seed(7)
+    tables = torch.randn(2049, 13, generator=g)
+    f0 = 40.0 + 560.0 * torch.rand(2, 20_000, generator=g)
+    consts = (46.875, 1.25, 1.0, 1.25 ** 12, 12000.0)
+    for dev in two_cards:
+        x, cond, weights = _case(320, 2, 300, (1, 2, 4), torch.bfloat16, dev)
+        before = dict(kernel_lib.launches)
+        with exact_fp32():
+            got = wavenet_stack(x, cond, weights, (1, 2, 4))
+            ref = wavenet_stack_plain(x, cond, weights, (1, 2, 4))
+        audio = oscillate(f0.to(dev), tables.to(dev), *consts)
+        audio_ref = oscillate_plain(f0.to(dev), tables.to(dev), *consts)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0 and got.device == audio.device == dev
+        assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 3
+        assert kernel_lib.launches["oscillator"] - before["oscillator"] == 1
+        rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+        assert torch.isfinite(got).all() and rel <= 2e-2, (dev, rel)
+        assert float((audio - audio_ref).abs().max()) <= 1e-5
 
 
 # ---- training on the card

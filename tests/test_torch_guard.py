@@ -186,14 +186,41 @@ def test_no_silent_cpu_fallback():
         AdversarialTrainer(model, {})
 
 
-def test_streaming_over_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        StreamingSynthesizer(torch.nn.Linear(1, 1), device="cpu", mesh=object())
+def test_synthesis_over_a_mesh_takes_the_mesh_devices():
+    """A mesh replaces `device`: the synthesizers run on its first device
+    and hold one replica per distinct device; a mesh asks for every card
+    unless it is given devices, and a model axis is not ported."""
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh
+
+    hp = _speech_hparams()
+    hp["mbexwn_config"]["pp_mod_subnet"].update(n_channels=8, n_layers=2, n_out_channels=8)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    for synth in (StreamingSynthesizer(model, mesh=mesh), BatchSynthesizer(model, mesh=mesh)):
+        assert synth.device == torch.device("cpu") and list(synth.replicas) == [torch.device("cpu")]
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        make_mesh(n_model=2, devices=["cpu", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
 
 
-def test_training_over_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Trainer(torch.nn.Linear(1, 1), {}, device="cpu", mesh=object())
+def test_training_is_data_parallel_over_a_process_group(monkeypatch):
+    """The trainers take a process group (one process per card), not a
+    mesh; joining one defaults to the card and NCCL, and NCCL without a
+    card raises (no switch to gloo, no fallback to the CPU)."""
+    from mbexwn_vocoder_torch.parallel import multihost
+
+    for entry in (Trainer.__init__, AdversarialTrainer.__init__):
+        params = inspect.signature(entry).parameters
+        assert "mesh" not in params and params["group"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the refusal is about hosts without one")
+    monkeypatch.delenv("MBEXWN_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize("127.0.0.1:1", world_size=1, rank=0)
+    with pytest.raises(RuntimeError, match="nccl backend needs a card"):
+        multihost.initialize("127.0.0.1:1", world_size=1, rank=0, backend="nccl", device="cpu")
 
 
 def _speech_hparams():

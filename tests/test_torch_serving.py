@@ -195,10 +195,18 @@ def test_batch_synthesizer_matches_jax(small_models):
         assert rel_rms(y, r) <= 1e-3
 
 
-def test_batch_synthesizer_refuses_a_mesh(small_models):
-    _, _, model = small_models
-    with pytest.raises(NotImplementedError, match="item 13"):
-        BatchSynthesizer(model, mesh=object(), device="cpu")
+def test_batch_synthesizer_over_a_mesh_matches_jax(small_models):
+    """The five mixed lengths over a mesh of two CPU devices: each row as
+    without a mesh (1e-6) and as the JAX package's (1e-3)."""
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh
+
+    jmodel, params, model = small_models
+    mels = _mels(5, [12, 5, 16, 8, 3], seed=7)
+    got = BatchSynthesizer(model, mesh=make_mesh(devices=["cpu", "cpu"]), length_buckets=BUCKETS).synth_batch(mels)
+    single = BatchSynthesizer(model, length_buckets=BUCKETS, device="cpu").synth_batch(mels)
+    ref = JaxBatchSynthesizer(jmodel, params, length_buckets=BUCKETS).synth_batch(mels)
+    for y, s, r in zip(got, single, ref):
+        assert y.shape == r.shape and rel_rms(y, s) <= 1e-6 and rel_rms(y, r) <= 1e-3
 
 
 def test_results_outlive_later_groups(small_models):

@@ -206,9 +206,14 @@ def test_export_loads_in_both_mel_inverters(run):
     assert rel_rms(y, y_jax) <= 1e-3, rel_rms(y, y_jax)
 
 
-def test_n_devices_is_not_ported(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_cli.main("SPEECH", data_dir, str(tmp_path), steps=1, n_devices=2)
+def test_n_devices_must_divide_the_batch(data_dir, tmp_path, monkeypatch):
+    """The JAX CLI's check and message, before any process starts; on the
+    CPU, 0 (every visible card) is not a count."""
+    monkeypatch.setenv("MBEXWN_PLATFORM", "cpu")
+    with pytest.raises(RuntimeError, match="batch_size 3 must be divisible by n_devices 2"):
+        train_cli.main("SPEECH", data_dir, str(tmp_path), steps=1, batch_size=3, n_devices=2, cargs=CARGS)
+    with pytest.raises(ValueError, match="counts the visible cards"):
+        train_cli.main("SPEECH", data_dir, str(tmp_path), steps=1, batch_size=2, n_devices=0, cargs=CARGS)
 
 
 # ---- the config, observability and summary pieces against the JAX package's
