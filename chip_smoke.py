@@ -171,16 +171,41 @@ prints no result line:
      audio-s/s and idle share beside [7]'s batch 8; `synth_batched` over
      the same meshes on [8]'s 60 s long form against mesh=None (fp32 <=
      1e-4, bf16 reported) with its audio-s/s; launches per device.
+ 12. the AOT export path, remat training and the diagnostics, SPEECH as
+     shipped at full width:
+     (a) `compat.export.export_synthesis` at 512 frames on the card (bf16
+     at batch 1 and 8, fp32 at batch 1): each artifact loaded and run in a
+     fresh process (`chip_smoke.py --artifact-child DIR`) that imports none
+     of the port's models, nn, config or mel_inverter: one call's launches
+     (24 K1 + 1 K2), the audio against `MELInverter.synth_from_mel` (batch
+     1) or `BatchSynthesizer` (batch 8) given the same noise rows (fp32
+     <= 1e-5, bf16 <= 2e-2 rel-RMS; bit-equal printed), the call's ms by
+     CUDA events and by the host clock with the copies beside [5]'s
+     synthesis; export s, artifact bytes, load s;
+     (b) [9](c)'s configuration, batch and draws with
+     remat_wavenet_blocks: step 1's loss equal to [9](c)'s, peak memory
+     below [9](c)'s, the step by CUDA events (median of steps 3-6); the
+     worst fp32 gradient leaf against the non-remat step on the same
+     draws (reported); the tiny fp64 case, card remat against card
+     non-remat (loss and every leaf within 1e-12);
+     (c) `observability`: `profile_trace` over one bf16 synthesis writes a
+     trace naming K1's kernel; `debug_nans` silent over one synthesis (its
+     cost printed) and raising on a NaN planted in the mel; `dump_controls`
+     at 512 frames; `synthesis_flops(SPEECH, 512, 1)` with the FLOP/s it
+     implies at [5]'s synthesis time; each synthesis 24 K1 + 1 K2.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, a
 `training_driver:` JSON line with phase [10]'s, a `parallel:` JSON line
-with phase [11]'s, the card's name and power limit, a `kernels` JSON line
+with phase [11]'s, an `export_remat_observability:` JSON line with phase
+[12]'s, the card's name and power limit, a `kernels` JSON line
 (its launches: the main path of [4], SPEECH bf16, plus one pass of each
 long-form mode of [8](b), the live streams of [8](c), the trained and the
 reloaded model's syntheses of [9](d), the CLI export's synthesis of
 [10](a), and [11]'s: the data-parallel CLI export's synthesis and the bf16
-mesh passes of (d), each counted from 0 just before it), and
+mesh passes of (d); [12]'s: one call of each loaded artifact and the
+syntheses under profile_trace, debug_nans and dump_controls; each counted
+from 0 just before it), and
 `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
@@ -1767,6 +1792,313 @@ def phase_parallel(inverter, check, dev, serving, streaming, training, cli_run):
     return numbers
 
 
+EXPORT_CASES = (("bf16 batch 1", None, 1), ("bf16 batch 8", None, 8), ("fp32 batch 1", "", 1))
+EXPORT_REPS, REMAT_STEPS = 10, 6
+
+
+def artifact_child(work: str) -> int:
+    """Phase [12](a)'s fresh process (`chip_smoke.py --artifact-child DIR`):
+    loads each artifact of DIR/cases.json with `compat.export.load_exported`
+    alone, asserts that no module of the port's models, nn, config or
+    mel_inverter was imported, counts one call's launches, times the call
+    (CUDA events on a device mel; host clock with the mel's upload and the
+    audio's readback, as `synth_from_mel` does), and writes DIR/child.json
+    and DIR/<case>.npy (the audio of the counted call)."""
+    import torch
+    from mbexwn_vocoder_torch.compat.export import load_exported
+    from mbexwn_vocoder_torch.ops import kernel_lib
+
+    with open(os.path.join(work, "cases.json")) as f:
+        cases = json.load(f)
+    out = {}
+    for case in cases:
+        t0 = time.perf_counter()
+        call, meta = load_exported(os.path.join(work, case["file"]), device="cuda")
+        load_s = time.perf_counter() - t0
+        mel = np.load(os.path.join(work, case["mel"]))
+        mel_dev = torch.from_numpy(mel).cuda()
+        for _ in range(3):
+            call(mel_dev)
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+        y = call(mel_dev)
+        counts = dict(kernel_lib.launches)
+        np.save(os.path.join(work, case["name"] + ".npy"), y.cpu().numpy())
+        events, host = [], []
+        for _ in range(EXPORT_REPS):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            call(mel_dev)
+            stop.record()
+            torch.cuda.synchronize()
+            events.append(start.elapsed_time(stop))
+            t0 = time.perf_counter()
+            call(mel).cpu().numpy()
+            host.append(1e3 * (time.perf_counter() - t0))
+        out[case["name"]] = {"load_s": load_s, "launches": counts, "meta": meta,
+                             "ms_cuda_events": float(np.median(events)), "ms_host_with_copies": float(np.median(host))}
+    forbidden = sorted(k for k in sys.modules if sys.modules[k] is not None and any(
+        k == f"mbexwn_vocoder_torch.{m}" or k.startswith(f"mbexwn_vocoder_torch.{m}.")
+        for m in ("models", "nn", "config", "mel_inverter")))
+    out["imported_model_modules"] = forbidden
+    with open(os.path.join(work, "child.json"), "w") as f:
+        json.dump(out, f)
+    return 0 if not forbidden else 1
+
+
+def phase_export(inverter, check, dev, synth_ms: float):
+    """Phase [12](a): SPEECH exported (bf16 at batch 1 and 8, fp32 at batch
+    1; 512 frames; platform cuda), each artifact loaded and run in a fresh
+    process that imports no model code, against MELInverter /
+    BatchSynthesizer given the same noise rows."""
+    import tempfile
+
+    import torch
+    from mbexwn_vocoder_torch.compat.export import export_synthesis
+    from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+
+    numbers = {}
+    with tempfile.TemporaryDirectory() as work:
+        cases, refs = [], {}
+        for name, wn_dtype, B in EXPORT_CASES:
+            inv = inverter("SPEECH", wn_dtype)
+            mels = [make_mel(N_FRAMES, 80, SEED + 100 + i) for i in range(B)]
+            t0 = time.perf_counter()
+            blob = export_synthesis(inv.model, T_mel=N_FRAMES, batch_size=B, platforms=("cuda",))
+            export_s = time.perf_counter() - t0
+            fname = name.replace(" ", "_")
+            with open(os.path.join(work, fname + ".pt2aot"), "wb") as f:
+                f.write(blob)
+            np.save(os.path.join(work, fname + "_mel.npy"), np.concatenate(mels))
+            cases.append({"name": name, "file": fname + ".pt2aot", "mel": fname + "_mel.npy"})
+            if B == 1:  # synth_from_mel draws the noise a group of one draws
+                refs[name] = inv.synth_from_mel(mels[0])[None]
+            else:  # one group of B in the 512 bucket: row i of one (B, L, 1) draw
+                refs[name] = np.stack(BatchSynthesizer(inv.model, device=dev).synth_batch([m[0] for m in mels]))
+            numbers[name] = {"export_s": export_s, "bytes": len(blob)}
+            print(f"  (a) exported {name}: {export_s:.1f} s, {len(blob)} bytes", flush=True)
+        with open(os.path.join(work, "cases.json"), "w") as f:
+            json.dump(cases, f)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--artifact-child", work],
+                               capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0 or not os.path.exists(os.path.join(work, "child.json")):
+            check(False, f"(a) the artifact process failed (exit {child.returncode}):\n{child.stderr[-4000:]}")
+            return numbers
+        with open(os.path.join(work, "child.json")) as f:
+            got = json.load(f)
+        outs = {name: np.load(os.path.join(work, name + ".npy")) for name, _, _ in EXPORT_CASES}
+    check(not got["imported_model_modules"],
+          f"(a) the loading process ({child_s:.1f} s) imported none of the port's models, nn, config, mel_inverter "
+          f"({got['imported_model_modules']})")
+    launches = {"wavenet_layer": 0, "oscillator": 0}
+    for name, wn_dtype, B in EXPORT_CASES:
+        g, tol = got[name], (2e-2 if wn_dtype is None else 1e-5)
+        err = rel_rms(outs[name], refs[name])
+        numbers[name].update(load_s=g["load_s"], launches=g["launches"], rel_rms=err,
+                             bit_equal=bool(np.array_equal(outs[name], refs[name])),
+                             ms_cuda_events=g["ms_cuda_events"], ms_host_with_copies=g["ms_host_with_copies"],
+                             meta=g["meta"])
+        for k in launches:
+            launches[k] += g["launches"][k]
+        check(g["launches"] == {"wavenet_layer": 24, "oscillator": 1},
+              f"(a) {name}: one call of the loaded artifact launches {g['launches']} (24 K1 + 1 K2)")
+        check(outs[name].shape == refs[name].shape and np.isfinite(outs[name]).all() and err <= tol,
+              f"(a) {name}: the artifact against {'MELInverter.synth_from_mel' if B == 1 else 'BatchSynthesizer'} "
+              f"with the same noise rows: rel-RMS {err:.3e} (<= {tol:g}), bit-equal "
+              f"{numbers[name]['bit_equal']}; load {g['load_s']:.2f} s; call {g['ms_cuda_events']:.2f} ms "
+              f"(CUDA events) / {g['ms_host_with_copies']:.2f} ms (host clock with the copies; [5]'s synth_from_mel "
+              f"{synth_ms:.2f} ms)")
+    numbers["launches"] = launches
+    numbers["child_s"] = child_s
+    return numbers
+
+
+def phase_remat(check, dev, training):
+    """Phase [12](b): [9](c)'s configuration with remat_wavenet_blocks:
+    step ms, peak memory and step 1's loss beside [9](c)'s; the fp32
+    gradient against the non-remat step on the same draws; the tiny fp64
+    case, card remat against card non-remat."""
+    import torch
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.config import read_config
+    from mbexwn_vocoder_torch.models import create_model, create_registry_model
+    from mbexwn_vocoder_torch.training.parity import hold_leaves, tiny_batch, tiny_hparams
+    from mbexwn_vocoder_torch.training.trainer import Trainer
+
+    full = training["full_width"]
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):  # as shipped: bf16, as [9](c)
+        os.environ.pop(var, None)
+    hp = read_config(get_config_file("SPEECH"))
+    hp_remat = read_config(get_config_file("SPEECH"))
+    hp_remat["mbexwn_config"]["remat_wavenet_blocks"] = True
+    batch = training_batch(hp["preprocess_config"], hp["training_config"]["train_batch_size"], SEED + 90)
+    batch = {k: v[:full["batch"]] for k, v in batch.items()}
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    tr = Trainer(create_registry_model("SPEECH", trainable=True, remat_wavenet_blocks=True), hp_remat, device=dev)
+    check(tr.model.block.remat_wavenet_blocks, "(b) the trainer takes remat_wavenet_blocks")
+    torch.cuda.reset_peak_memory_stats()
+    losses, event_ms = [float(tr.train_step(batch)["total_loss"])], []
+    for _ in range(1, REMAT_STEPS):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        metrics = tr.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        event_ms.append(start.elapsed_time(stop))
+        losses.append(float(metrics["total_loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median(event_ms[1:]))
+    del tr
+    numbers = {"batch": full["batch"], "losses": losses, "step_ms_cuda_events": step_ms, "step_ms_all": event_ms,
+               "peak_memory_gb": peak_gb, "allocated_before_gb": base_gb,
+               "no_remat_step_ms": full["step_ms_cuda_events"], "no_remat_peak_gb": full["peak_memory_gb"],
+               "no_remat_first_loss": full["losses"][0]}
+    check(losses[0] == full["losses"][0] and all(math.isfinite(v) for v in losses),
+          f"(b) SPEECH bf16 batch {full['batch']} with remat: step 1's loss {losses[0]:.7g} equals [9](c)'s "
+          f"{full['losses'][0]:.7g} (same weights and draws); {REMAT_STEPS} losses finite")
+    check(peak_gb < full["peak_memory_gb"],
+          f"(b) remat step {step_ms:.2f} ms (CUDA events, median of steps 3-{REMAT_STEPS}) against [9](c)'s "
+          f"{full['step_ms_cuda_events']:.2f} ms; peak memory {peak_gb:.2f} GB (of which {base_gb:.2f} GB held "
+          f"before) below [9](c)'s {full['peak_memory_gb']:.2f} GB")
+
+    # the fp32 gradient of one step with and without remat, on the same weights and draws
+    grads = {}
+    g = torch.Generator().manual_seed(SEED + 12)
+    draws = None
+    for name, hparams, remat in (("no remat", hp, False), ("remat", hp_remat, True)):
+        t = Trainer(create_registry_model("SPEECH", trainable=True, remat_wavenet_blocks=remat), hparams,
+                    device=dev)
+        if draws is None:
+            draws = {k: (torch.rand(s, generator=g) * 2 - 1 if k == "floor" else torch.randn(s, generator=g))
+                     for k, s in t.draw_shapes(batch).items()}
+        _, _, gr = t.value_and_grad(batch, 0, draws)
+        grads[name] = {k: v.detach().double().cpu().numpy() for k, v in gr.items()}
+        del t, gr
+        torch.cuda.empty_cache()
+    worst = max((rel_rms(grads["remat"][k], grads["no remat"][k]), k) for k in grads["remat"])
+    numbers["fp32_gradient_worst_rel_rms"] = {"leaf": worst[1], "rel_rms": worst[0]}
+    print(f"  (b) fp32 gradient, remat against no remat (same weights, batch, draws; bf16 compute): worst leaf "
+          f"{worst[1]} rel-RMS {worst[0]:.3e} (reported: cuDNN's bf16 backward is not deterministic)", flush=True)
+
+    # the tiny case in fp64: card remat against card non-remat
+    saved = {v: os.environ.get(v) for v in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE")}
+    try:
+        for v in saved:
+            os.environ[v] = ""
+        tiny = {}
+        for remat in (False, True):
+            thp = tiny_hparams(**{"mbexwn_config.remat_wavenet_blocks": remat})
+            m, _ = create_model(thp, thp["training_config"], thp["preprocess_config"], trainable=True)
+            m.init(torch.Generator().manual_seed(SEED))
+            t = Trainer(m.double(), thp, device=dev)
+            tb = tiny_batch()
+            tdraws = {k: torch.randn(s, generator=torch.Generator().manual_seed(SEED + 1), dtype=torch.float64)
+                      for k, s in t.draw_shapes(tb).items()}
+            loss, _, gr = t.value_and_grad(tb, 0, tdraws)
+            tiny[remat] = (float(loss), {k: v.detach().cpu().numpy() for k, v in gr.items()})
+    finally:
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+    bad, rows = hold_leaves(tiny[True][1], tiny[False][1], 1e-12)
+    loss_rel = abs(tiny[True][0] / tiny[False][0] - 1)
+    numbers["tiny_fp64"] = {"loss_rel": loss_rel, "worst_leaf": rows[0][1], "worst_rel_rms": rows[0][0]}
+    check(not bad and loss_rel <= 1e-12,
+          f"(b) tiny case in fp64 on the card, remat against no remat: loss rel {loss_rel:.1e} (<= 1e-12), worst "
+          f"leaf {rows[0][1]} {rows[0][0]:.1e} (<= 1e-12); failing {bad}")
+    return numbers
+
+
+def phase_observability(inverter, check, dev, synth_ms: float):
+    """Phase [12](c): profile_trace, debug_nans, dump_controls and
+    synthesis_flops on SPEECH as shipped (bf16), 512 frames."""
+    import glob
+    import tempfile
+
+    import torch
+    from mbexwn_vocoder_torch.compat.iovar import load_var
+    from mbexwn_vocoder_torch.observability import debug_nans, dump_controls, profile_trace, synthesis_flops
+    from mbexwn_vocoder_torch.ops import kernel_lib
+
+    inv = inverter("SPEECH", None)
+    mel = make_mel(N_FRAMES, 80, SEED)
+    numbers, launches = {}, {"wavenet_layer": 0, "oscillator": 0}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(kernel_lib.launches)
+        for k in launches:
+            launches[k] += counts[k]
+        check(counts == {"wavenet_layer": 24, "oscillator": 1}, f"(c) {what}: launches {counts} (24 K1 + 1 K2)")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "trace")
+        with profile_trace(log_dir) as prof:
+            counted("one synthesis under profile_trace", lambda: inv.synth_from_mel(mel))
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        k1_ms = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                    for e in prof.key_averages() if "wavenet_layer_bf16" in e.key) / 1e3
+        numbers["trace_bytes"] = len(text)
+        numbers["trace_k1_device_ms"] = k1_ms
+        check(len(files) == 1 and "wavenet_layer_bf16" in text and "mbexwn::wavenet_stack" in text,
+              f"(c) profile_trace wrote {len(files)} trace file(s) ({len(text)} bytes) naming K1's kernel "
+              f"wavenet_layer_bf16 ({k1_ms:.3f} ms of device time there) and the op mbexwn::wavenet_stack")
+
+        t0 = time.perf_counter()
+        for _ in range(3):
+            inv.synth_from_mel(mel)
+        plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+        with debug_nans():
+            counted("one synthesis under debug_nans", lambda: inv.synth_from_mel(mel))
+            t0 = time.perf_counter()
+            for _ in range(3):
+                inv.synth_from_mel(mel)
+            nan_ms = 1e3 * (time.perf_counter() - t0) / 3
+        bad = mel.copy()
+        bad[0, 100, 10] = np.nan
+        raised = None
+        try:
+            with debug_nans():
+                inv.synth_from_mel(bad)
+        except FloatingPointError as e:
+            raised = str(e)
+        numbers.update(debug_nans_ms=nan_ms, plain_ms=plain_ms, debug_nans_raised=raised)
+        check(raised is not None and "produced a NaN" in raised,
+              f"(c) debug_nans: silent over one bf16 synthesis ({nan_ms:.2f} ms against {plain_ms:.2f} ms without, "
+              f"host clock, mean of 3); a NaN planted in the mel raises: {raised}")
+
+        path = os.path.join(tmp, "controls.pkl")
+        data = counted("dump_controls", lambda: dump_controls(path, inv.model, mel))
+        saved = load_var(path)
+        shapes = {k: tuple(v.shape) for k, v in saved.items()}
+        numbers["dump_controls_shapes"] = shapes
+        check(sorted(saved) == sorted(data) == ["PulseFilterSpectrum", "pulse_frequency", "pulse_signal",
+                                                "upsampled_rms"] and all(np.isfinite(v).all() for v in saved.values()),
+              f"(c) dump_controls at {N_FRAMES} frames: {shapes}, finite")
+    flops = synthesis_flops(inv.model, N_FRAMES, 1)
+    numbers["synthesis_flops"] = flops
+    numbers["tflops_per_s_at_synthesis_ms"] = flops["flops_per_call"] / (synth_ms / 1e3) / 1e12
+    print(f"  (c) synthesis_flops(SPEECH, {N_FRAMES}, 1): {flops['flops_per_call'] / 1e9:.2f} GFLOP a call "
+          f"({', '.join(f'{k} {v / 1e9:.2f}' for k, v in flops['breakdown'].items())} GFLOP), "
+          f"{numbers['tflops_per_s_at_synthesis_ms']:.2f} TFLOP/s at [5]'s {synth_ms:.2f} ms "
+          f"({100 * numbers['tflops_per_s_at_synthesis_ms'] * 1e12 / H100_BF16_FLOPS:.2f} % of 989 TFLOP/s)",
+          flush=True)
+    numbers["launches"] = launches
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2049,14 +2381,27 @@ def main() -> int:
                         if k.endswith("bfloat16")])
     k2_err = max(k2_err, parallel.get("cli", {}).get("k2_vs_plain_max_abs", 0.0))
     print(f"  phase [11] {parallel['seconds']:.1f} s", flush=True)
+    # ---- 12. the AOT export path, remat training, observability
+    print("[12] export, remat, observability (SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    slice9 = {"export": phase_export(inverter, check, dev, synth_ms)}
+    slice9["remat"] = phase_remat(check, dev, training)
+    slice9["observability"] = phase_observability(inverter, check, dev, synth_ms)
+    slice9["seconds"] = time.perf_counter() - t0
+    slice9["card"] = card
+    print(f"  phase [12] {slice9['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
     # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
     # model's syntheses ([9](d)), the CLI export's synthesis ([10](a)), and [11]'s: the data-parallel CLI
-    # export's synthesis and the bf16 mesh passes of BatchSynthesizer and synth_batched
+    # export's synthesis and the bf16 mesh passes of BatchSynthesizer and synth_batched; [12]'s: one call of
+    # each loaded artifact (in the artifact process) and the syntheses under profile_trace, debug_nans and
+    # dump_controls
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
-                + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k] for k in main_launches}
+                + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k]
+                + slice9["export"].get("launches", {}).get(k, 0) + slice9["observability"]["launches"][k]
+                for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -2085,6 +2430,7 @@ def main() -> int:
     print("training: " + json.dumps(training), flush=True)
     print("training_driver: " + json.dumps(cli_run), flush=True)
     print("parallel: " + json.dumps(parallel), flush=True)
+    print("export_remat_observability: " + json.dumps(slice9, default=str), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2093,4 +2439,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--artifact-child":
+        sys.exit(artifact_child(sys.argv[2]))
     sys.exit(main())

@@ -67,10 +67,17 @@ def _write_atomic(path: str, write) -> None:
 
 
 def _export(output_dir: str, model, hparams: Dict, step: int) -> None:
-    from ..compat.params_io import params_to_jax, save_params
+    from ..compat.params_io import params_to_jax
+
+    write_export(output_dir, params_to_jax(model.block.state_dict()), hparams, step)
+
+
+def write_export(output_dir: str, flat: Dict[str, np.ndarray], hparams: Dict, step: int) -> None:
+    """The run's model export: `weights.npz` (the JAX-named parameters
+    `flat`), `config.yaml` and, last, `weights.step`."""
+    from ..compat.params_io import save_params
     from ..config import dump_config
 
-    flat = params_to_jax(model.block.state_dict())
     # np.savez appends ".npz" to a name without it
     tmp = os.path.join(output_dir, "weights.tmp.npz")
     save_params(tmp, flat)

@@ -17,10 +17,12 @@ will port them.
 `differentiable` (set by the trainer through `PaNWaveNet.set_differentiable`)
 selects the training route: the oscillator runs `oscillate_plain`, the port
 of the JAX package's XLA oscillator, with gradients to the F0 and to the
-wavetables, and the WaveNet stacks run layer by layer (nn/wavenet.py).  The
-wavetables are a buffer in the folded (inference) form and a parameter in
-the trainable one, under the same state_dict key: the JAX trainer updates
-them with every other leaf of its parameter tree.
+wavetables, and the WaveNet stacks run layer by layer (nn/wavenet.py).
+`remat_wavenet_blocks` recomputes each WaveNet block in the backward pass
+on that route (`torch.utils.checkpoint`) instead of keeping its
+activations.  The wavetables are a buffer in the folded (inference) form
+and a parameter in the trainable one, under the same state_dict key: the
+JAX trainer updates them with every other leaf of its parameter tree.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..dsp.db import log_to_db
 from ..dsp.pqmf import pqmf_filters
@@ -50,7 +53,7 @@ _TRAINING_ONLY_KEYS = {
     "pp_teacher_forcing_schedule", "pp_F0_pred_loss_limits_ms", "pp_F0_rec_loss_limits_ms",
     "pp_F0_loss_weight", "pp_F0_loss_method", "pp_F0_UV_loss_weight", "pp_subnet_exclude_from_pretrain",
     "pp_subnet_suppress_uv_gradient", "psns_gain_loss_weight", "psns_cepstral_loss_weight",
-    "stft_coh_loss_weight", "dump_controls", "remat_wavenet_blocks",
+    "stft_coh_loss_weight", "dump_controls",
 }
 
 
@@ -109,6 +112,7 @@ class MBExWN(nn.Module):
         quiet: bool = True,
         wn_compute_dtype=None,
         subnet_compute_dtype=None,
+        remat_wavenet_blocks: bool = False,
         **training_only,
     ):
         super().__init__()
@@ -150,6 +154,7 @@ class MBExWN(nn.Module):
         self.subnet_compute_dtype = _dtype_pref("MBEXWN_SUBNET_DTYPE", subnet_compute_dtype)
         self.wn_compute_dtype = _dtype_pref("MBEXWN_WN_DTYPE", wn_compute_dtype)
         self.pp_subnet_training_only = pp_subnet_training_only
+        self.remat_wavenet_blocks = remat_wavenet_blocks
         self.differentiable = False
 
         self.pp_subnet = None
@@ -366,8 +371,16 @@ class MBExWN(nn.Module):
                             phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Excitation waveform (B, T_mel*hop) at the output sample rate."""
         x = self.fold_pulse_channels(self.oscillate(pulse_frequency, phase_offset), noise, generator)
+        remat = self.remat_wavenet_blocks and self.differentiable and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x, mel)
+            block = getattr(self, name)
+            if remat:
+                # the backward pass runs the block's forward again instead of
+                # keeping its ~n_layers x (B, T, n_channels) activations (the
+                # JAX package's jax.checkpoint around each block)
+                x = checkpoint(block, x, mel, use_reentrant=False)
+            else:
+                x = block(x, mel)
         x = self.wn_post_net(x)
         mb = self.multi_band_config
         return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"], mb.get("max_band"))[:, :, 0]
@@ -403,20 +416,30 @@ class MBExWN(nn.Module):
 
     @exact_fp32()
     def forward(self, mel: torch.Tensor, F0: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
-                phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, phase_offset: Optional[torch.Tensor] = None,
+                return_PP: bool = False):
         """Full synthesis: (B, T_mel, mel_channels) -> (B, T_mel*hop) audio.
         A given F0 (B, T_mel*spect_to_pulse_ups) replaces the F0 net's, which
-        is then not run."""
-        f0 = F0 if F0 is not None else self.generate_f0(mel)
+        is then not run unless `return_PP` asks for it.  With `return_PP`,
+        (signal, PP): PP is [["F0", the F0 net's contour at the output rate
+        (strided by F0_down_sampling_factor)], ["PSig", the excitation],
+        ["PS", |envelope filter| (B, T_mel, fft//2+1)]], as the JAX package's
+        `__call__` returns them."""
+        pulse_frequency = self.generate_f0(mel) if F0 is None or return_PP else None
+        f0 = F0 if F0 is not None else pulse_frequency
         excitation = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset)
         win, hop = self.stft_win_size, self.spect_hop_size
         padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))
         source_stft = stft(padded, win, hop, self.fft_size, self.stft_window)[:, : mel.shape[1]]
-        signal_stft = source_stft * self.generate_specenv(mel, f0)
-        signal = istft(signal_stft, win, hop, self.fft_size, self.istft_window)
+        source_filter = self.generate_specenv(mel, f0)
+        signal = istft(source_stft * source_filter, win, hop, self.fft_size, self.istft_window)
         n_pulse = mel.shape[1] * self.spect_to_pulse_upsampling_factor
-        return signal[:, win // 2: win // 2 + n_pulse * self.F0_down_sampling_factor]
+        signal = signal[:, win // 2: win // 2 + n_pulse * self.F0_down_sampling_factor]
+        if not return_PP:
+            return signal
+        n = signal.shape[1]
+        return signal, [["F0", pulse_frequency[:, :n:self.F0_down_sampling_factor]],
+                        ["PSig", excitation[:, :n]], ["PS", torch.abs(source_filter)]]
 
     def output_length(self, T_mel: int) -> int:
         return T_mel * self.spect_hop_size

@@ -138,19 +138,57 @@ class PaNWaveNet(nn.Module):
         the kernels' (False, the default)."""
         self.block.set_differentiable(on)
 
+    @property
+    def has_components(self) -> bool:
+        return True
+
     @exact_fp32()
     def infer(self, spect: torch.Tensor, synth_length: int = 0, F0: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-              phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Generate sound (B, synth_length) from a log-mel spectrogram (B, T, C)."""
+              phase_offset: Optional[torch.Tensor] = None, return_F0: bool = False,
+              return_components: bool = False):
+        """Generate sound (B, synth_length) from a log-mel spectrogram (B, T, C).
+        As the JAX package's `infer`: with `return_F0`, (sound, PP), PP the
+        block's control signals (`MBExWN.forward`'s return_PP) cut to
+        synth_length; `return_components` puts the sound in a list."""
         synth_length = synth_length if synth_length else self.segment_length
         if spect.shape[1] * self.spect_hop_size < synth_length:
             spect = torch.cat((spect, spect[:, -1:]), dim=1)
         upsampled_rms = None
         if self.norm_mel_components is not None:
             _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
-        signal = self.block(spect, F0=F0, noise=noise, generator=generator, phase_offset=phase_offset)
-        out = signal[:, :synth_length]
+        out = self.block(spect, F0=F0, noise=noise, generator=generator, phase_offset=phase_offset,
+                         return_PP=return_F0)
+        signal, PP = out if return_F0 else (out, None)
+        signal = signal[:, :synth_length]
         if upsampled_rms is not None:
-            out = out * upsampled_rms[:, :synth_length, 0]
-        return out
+            signal = signal * upsampled_rms[:, :synth_length, 0]
+        if return_F0:
+            PP = [[name, value[:, :synth_length]] for name, value in PP]
+            return ([signal], PP) if return_components else (signal, PP)
+        return [signal] if return_components else signal
+
+    @exact_fp32()
+    def infer_components(self, spect: torch.Tensor, synth_length: int = 0, F0: Optional[torch.Tensor] = None,
+                         transposition_factor: Optional[float] = None, noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None):
+        """Decomposed inference, as the JAX package's `infer_components`:
+        (F0 (B, T_mel*spect_to_pulse_ups), excitation (B, T_mel*hop),
+        complex envelope filter (B, T_mel, fft//2+1), upsampled RMS (B, T) or
+        None).  A given F0 sets synth_length to its length;
+        `transposition_factor` scales the F0."""
+        synth_length = synth_length if F0 is None else F0.shape[1]
+        if synth_length and spect.shape[1] * self.spect_hop_size < synth_length:
+            spect = torch.cat((spect, spect[:, -1:]), dim=1)
+        upsampled_rms = None
+        if self.norm_mel_components is not None:
+            _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(
+                None, spect, synth_length or spect.shape[1] * self.spect_hop_size)
+            upsampled_rms = upsampled_rms[:, :, 0]
+        if F0 is None:
+            F0 = self.block.generate_f0(spect)
+        if transposition_factor:
+            F0 = transposition_factor * F0
+        excitation = self.block.generate_excitation(spect, F0, noise=noise, generator=generator)
+        specenv = self.block.generate_specenv(spect, F0)
+        return F0, excitation, specenv, upsampled_rms

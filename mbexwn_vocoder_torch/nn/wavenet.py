@@ -27,9 +27,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.wavenet_stack import PackedStackWeights, gate, pack_stack_weights, wavenet_stack
+from ..ops.wavenet_stack import PackedStackWeights, gate, pack_stack_weights, padded_channels, wavenet_stack
 from .layers import Conv1DUpDownSample, Conv1DWeightNorm, LinInterpLayer
 
+_PACKED = ("w_dil", "b_dil", "w_rs", "b_rs")
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
 
@@ -114,6 +115,7 @@ class WaveNetAE(nn.Module):
                 n_channels, res_skip_ch, 1, name=f"res_skip_{index}", **conv_kw))
         self.end = Conv1DWeightNorm(n_channels, n_out_channels, 1, name="end", **conv_kw)
         self._stack_cache = None
+        self.frozen_dtype = None
         self.differentiable = False
 
     def stack_weights(self, dtype: torch.dtype) -> PackedStackWeights:
@@ -121,27 +123,56 @@ class WaveNetAE(nn.Module):
         the kernel layout of ops/wavenet_stack.py (reduction dimension padded
         with zeros to Cp).  Built once and kept until a parameter is replaced
         or changed in place (load_state_dict, .to()), so a synthesis does not
-        re-cast and re-lay out 20 MB of weights or re-encode their tensor maps.
+        re-cast and re-lay out 20 MB of weights.  While a graph is traced
+        (torch.export) they are built from the traced parameters and not
+        kept.  A frozen stack (`freeze_stack_`) returns its buffers.
         The packed weights carry no gradient: with grad mode on and a weight
         that requires grad this raises (the differentiable route is the
         trainer's, `differentiable = True`)."""
+        if self.frozen_dtype is not None:
+            if dtype != self.frozen_dtype:
+                raise ValueError(f"{self.name}: the stack is frozen in {self.frozen_dtype}, not {dtype}")
+            return PackedStackWeights(*(getattr(self, f"packed_{k}") for k in _PACKED), self.frozen_skip_only,
+                                      self.n_channels, padded_channels(self.n_channels))
         params = list(self.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
             raise RuntimeError(
                 f"{self.name}: the WaveNet stack's inference route has no backward pass and would drop the "
                 f"gradients of its weights; run it under torch.no_grad()/torch.inference_mode(), or train "
                 f"through the differentiable route (training.Trainer sets `differentiable`)")
+        tracing = torch.compiler.is_compiling()
         key = (dtype, tuple((id(p), p._version) for p in params))
-        if self._stack_cache is None or self._stack_cache[0] != key:
+        if tracing or self._stack_cache is None or self._stack_cache[0] != key:
             out = []
             for i in range(self.n_layers):
                 conv = getattr(self, f"conv1D_{i}")
                 rs = getattr(self, f"res_skip_{i}")
                 out.append((conv.kernel().detach().permute(0, 2, 1).to(dtype), conv.bias.detach().to(dtype),
                             rs.kernel().detach()[:, :, 0].to(dtype), rs.bias.detach().to(dtype)))
+            packed = pack_stack_weights(out)
+            if tracing:
+                return packed
             # the params are held too, so their ids cannot be reused while cached
-            self._stack_cache = (key, pack_stack_weights(out), params)
+            self._stack_cache = (key, packed, params)
         return self._stack_cache[1]
+
+    def freeze_stack_(self, dtype: torch.dtype) -> "WaveNetAE":
+        """The serving form of an exported program, in place: the stack's
+        weights packed in `dtype` become buffers (`packed_w_dil`, ...) and
+        the layers' own convs are dropped, so an exported graph reads the
+        packed weights as they are instead of re-laying them out on every
+        call.  The differentiable route is gone with the convs."""
+        with torch.no_grad():
+            packed = self.stack_weights(dtype)
+        for k in _PACKED:
+            self.register_buffer(f"packed_{k}", getattr(packed, k))
+        for i in range(self.n_layers):
+            delattr(self, f"conv1D_{i}")
+            delattr(self, f"res_skip_{i}")
+        self._stack_cache = None
+        self.frozen_skip_only = packed.skip_only
+        self.frozen_dtype = dtype
+        return self
 
     def forward(self, audio: torch.Tensor, spect: torch.Tensor) -> torch.Tensor:
         in_dtype = audio.dtype

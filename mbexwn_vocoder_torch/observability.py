@@ -1,22 +1,32 @@
-"""Observability of a training run: a finite-value guard, the JSONL metrics
-stream and the architecture summary.
+"""Observability: profiling traces, NaN and finite guards, the JSONL
+metrics stream, the architecture summary, the control-signal dump and the
+analytic FLOP count.
 
-Counterpart of `check_finite`, `MetricsLogger` and `model_summary` of the
-JAX package's observability.py (the rest of that module, the profiler
-context, the NaN-debug scope, the control dump and the FLOP count, is not
-ported: ROADMAP.md queue 1, item 13).  `model_summary` counts the
-parameters of the JAX package's tree (`compat.params_io.params_to_jax`), so
-a model in the trainable form counts `v` and `g` as the JAX package does.
+Counterpart of the JAX package's observability.py:
+
+- `profile_trace`: a `torch.profiler` trace of the host and the card,
+  written where TensorBoard's profiler plugin or Perfetto opens it;
+- `debug_nans` (a dispatch mode that raises at the first op whose output
+  holds a NaN, the `mbexwn::` kernel ops included) and `check_finite`;
+- `MetricsLogger`: the JSONL scalar stream;
+- `model_summary`: per-stage shapes and parameter counts, counted on the
+  JAX package's tree (`compat.params_io.params_to_jax`), so a model in the
+  trainable form counts `v` and `g` as the JAX package does;
+- `dump_controls`: F0, excitation, envelope and RMS of one synthesis;
+- `synthesis_flops`: the JAX package's analytic FLOP count per call.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .compat.params_io import params_to_jax
 
@@ -32,6 +42,58 @@ def _leaves_with_path(tree, path: str = ""):
             yield from _leaves_with_path(v, f"{path}[{i}]")
     elif tree is not None:
         yield path, tree
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the scope (host and, where there is one, the card) and write
+    a Chrome trace (`<worker>.<time>.pt.trace.json`) into `log_dir`, which
+    TensorBoard's profiler plugin or Perfetto opens.  Yields the profiler
+    (`key_averages()`)."""
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [a for a in (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+                  if a in torch.profiler.supported_activities()]
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+# the innermost debug_nans scope's flag (None outside every scope)
+_debug_nans = contextvars.ContextVar("mbexwn_debug_nans", default=None)
+
+
+class _NaNCheck(TorchDispatchMode):
+    """Raises FloatingPointError after the first op whose floating output
+    holds a NaN, naming the op, while the innermost scope is enabled."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _debug_nans.get():
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for i, t in enumerate(outs):
+                if torch.is_tensor(t) and (t.is_floating_point() or t.is_complex()) and bool(torch.isnan(t).any()):
+                    raise FloatingPointError(f"debug_nans: {func} produced a NaN (output {i}, shape "
+                                             f"{tuple(t.shape)})")
+        return out
+
+
+@contextlib.contextmanager
+def debug_nans(enable: bool = True) -> Iterator[None]:
+    """Within the scope, every op's floating output is checked for NaN (a
+    host read each op, so the card waits for every op) and the first NaN
+    raises FloatingPointError naming the op: an aten op, or one of the
+    `mbexwn::` kernel ops.  Scopes nest as the JAX package's flag does: the
+    innermost one's `enable` holds, and leaving a scope restores the
+    outer one's."""
+    token = _debug_nans.set(enable)
+    try:
+        if enable:
+            with _NaNCheck():
+                yield
+        else:
+            yield
+    finally:
+        _debug_nans.reset(token)
 
 
 def check_finite(tree, name: str = "value") -> None:
@@ -98,3 +160,87 @@ def model_summary(model, T_mel: int = 64, print_fn=print) -> None:
     print_fn(f"{'STFT filter + iSTFT':28s} -> (B, {T_mel * hop})")
     print_fn(f"{'total params':28s} ## {_count(flat)}")
     print_fn("---------------------------------------")
+
+
+def dump_controls(path: str, model, mel, noise=None) -> Dict:
+    """Debug dump of the control signals of one synthesis (F0, excitation,
+    |envelope|, upsampled RMS) with `compat.iovar.save_var`, under the JAX
+    package's keys; `mel` (B, T_mel, C) log-mel, `noise` the noise channel
+    (`MBExWN.fold_pulse_channels`).  Returns the dict."""
+    from .compat.iovar import save_var
+
+    device = model.block.wavetables.device
+    mel = torch.as_tensor(np.asarray(mel, np.float32) if not torch.is_tensor(mel) else mel).to(device)
+    noise = None if noise is None else torch.as_tensor(noise).to(device, torch.float32)
+    with torch.no_grad():
+        F0, excitation, specenv, rms = model.infer_components(mel, noise=noise)
+    data = {
+        "pulse_frequency": F0.cpu().numpy(),
+        "pulse_signal": excitation.cpu().numpy(),
+        "PulseFilterSpectrum": torch.abs(specenv).cpu().numpy(),
+    }
+    if rms is not None:
+        data["upsampled_rms"] = rms.cpu().numpy()
+    save_var(path, data)
+    return data
+
+
+def synthesis_flops(model, T_mel: int = 1, batch: int = 1) -> Dict:
+    """Analytic FLOP count per synthesis call, the JAX package's
+    `synthesis_flops` (the same terms and numbers): subnets, WaveNet stacks,
+    post net, PQMF, the oscillator's tent cross-fade and the rDFTs of the
+    envelope and the STFT/iSTFT."""
+    blk = model.block
+    hop = blk.spect_hop_size
+    t12k = T_mel * blk.spect_to_pulse_upsampling_factor
+
+    def conv_flops(t, cin, cout, k):
+        return 2 * t * cin * cout * k
+
+    def seq_flops(seq, t, cin):
+        f = 0
+        for layer in seq.children():
+            name = type(layer).__name__
+            if name == "Conv1DWeightNorm":
+                f += conv_flops(layer.out_length(t), cin, layer.filters, layer.kernel_size)
+                cin = layer.filters
+            elif name == "Conv1DUpDownSample":
+                f += conv_flops(t, cin, layer.filters, layer.kernel_size)
+                cin = layer.out_filters
+            t = layer.out_length(t)
+        return f
+
+    breakdown = {}
+    if blk.pp_subnet is not None:
+        breakdown["pp_subnet"] = seq_flops(blk.pp_subnet, T_mel, blk.mel_channels)
+    breakdown["ps_subnet"] = seq_flops(blk.ps_subnet, T_mel, blk.mel_channels)
+    wn = 0
+    t = t12k // blk.pulse_channels
+    for name in blk.block_names:
+        bl = getattr(blk, name)
+        w = bl.wavenet
+        n_out = w.end.filters
+        wn += conv_flops(t, blk.wn_in_channels, w.n_channels, 1)  # start
+        for i in range(w.n_layers):  # the dilated conv (kernel 3) and the res/skip 1x1 (skip only last)
+            wn += conv_flops(t, w.n_channels, 2 * w.n_channels, 3)
+            wn += conv_flops(t, w.n_channels, (2 if i < w.n_layers - 1 else 1) * w.n_channels, 1)
+        wn += conv_flops(t, w.n_channels, n_out, 1)  # end
+        wn += conv_flops(T_mel, blk.mel_channels, 2 * w.n_channels, w.cond.kernel_size)
+        if bl.up_down is not None:
+            wn += conv_flops(t, n_out, bl.up_down.filters, 3)
+            t = bl.out_length(t)
+    breakdown["wavenet"] = wn
+    breakdown["post_pqmf"] = (conv_flops(t, blk.wn_post_net.filters, blk.mb_factor, 1)
+                              + conv_flops(T_mel * hop, blk.mb_factor, 1, blk.multi_band_config["taps"] + 1))
+    breakdown["oscillator"] = 2 * t12k * blk.wavetable.n_wavetable * len(blk.wavetable.F0_list)
+    K = blk.fft_size // 2 + 1
+    breakdown["envelope_rdft"] = 2 * T_mel * blk.ps_max_ceps_coefs * K * 2
+    breakdown["stft_istft"] = 2 * (T_mel + 2) * blk.stft_win_size * K * 2 * 2
+
+    total = batch * sum(breakdown.values())
+    audio_seconds = batch * T_mel * hop / blk.sample_rate
+    return {
+        "flops_per_call": total,
+        "flops_per_audio_second": total / audio_seconds,
+        "breakdown": {k: batch * v for k, v in breakdown.items()},
+    }

@@ -8,8 +8,9 @@ one is reused.  The build happens at first use, never at import, and writes
 only under the package's `_build/` directory (listed in .gitignore).
 
 Each wrapper that launches a kernel adds one to its entry in `launches`,
-right where it launches, so a caller can show that a path really ran the
-kernels.
+right where it launches (inside the CUDA implementation of its
+`torch.library` op, so a program loaded from disk counts too), so a caller
+can show that a path really ran the kernels.
 """
 from __future__ import annotations
 
@@ -134,15 +135,22 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """The kernels have no backward pass (nor have the JAX package's Pallas
-    kernels): with grad mode on and an input that requires grad, raise
-    instead of cutting the autograd graph."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"CUDA kernel {name} has no backward pass and an input requires grad; run it under "
-            f"torch.no_grad()/torch.inference_mode(), or train through the differentiable route "
-            f"(training.Trainer: the per-layer WaveNet and oscillate_plain)")
+def no_backward(op, name: str) -> None:
+    """Register the autograd of the custom op `op`, whose kernel has no
+    backward pass (nor have the JAX package's Pallas kernels): with grad
+    mode on and an input that requires grad, the call raises instead of
+    cutting the autograd graph.  Without grad the op runs as it is."""
+    message = (f"CUDA kernel {name} has no backward pass and an input requires grad; run it under "
+               f"torch.no_grad()/torch.inference_mode(), or train through the differentiable route "
+               f"(training.Trainer: the per-layer WaveNet and oscillate_plain)")
+
+    def refuse(ctx, inputs, output):
+        raise RuntimeError(message)
+
+    def backward(ctx, *grads):
+        raise RuntimeError(message)
+
+    op.register_autograd(backward, setup_context=refuse)
 
 
 def on_device(device: torch.device):

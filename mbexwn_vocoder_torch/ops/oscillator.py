@@ -8,10 +8,18 @@ the whole stage (phase, lookup, cross-fade) in one launch of the CUDA kernel
 `csrc/oscillator.cu`; on a CPU tensor it runs `oscillate_plain`, the same
 function in plain PyTorch (chunked phase, then a 2-tap gather lerp in every
 table and the tent cross-fade over the grid).
+
+The stage is the `torch.library` custom op `mbexwn::oscillate` (the
+grid's constants as float arguments; it always returns (audio, phase),
+the phase empty unless asked for): its CUDA implementation launches the
+kernel, its CPU implementation is the plain version, and a fake
+implementation gives the shapes, so a traced or exported graph holds one
+node per oscillator stage.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,22 +104,49 @@ def oscillate(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_tr
     """(B, T) fp32 F0 in Hz at `sample_rate`, (n_wavetable, n_grid) fp32
     tables -> (B, T) fp32 excitation, or (excitation, phase) with
     `return_phase`.  `phase_offset` (B,): the phase (mod 1) just before the
-    first sample, the carry of chunked synthesis.  CUDA tensors launch the
-    kernel once (it has no backward pass: with grad mode on, inputs that
-    require grad raise); CPU tensors take `oscillate_plain`."""
-    args = (f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate)
-    if f0.device.type == "cpu":
-        return oscillate_plain(*args, phase_offset=phase_offset, return_phase=return_phase)
-    if f0.device.type != "cuda":
+    first sample, the carry of chunked synthesis.  Calls the op
+    `mbexwn::oscillate`: CUDA tensors launch the kernel once, CPU tensors
+    take `oscillate_plain`.  The op has no backward pass: with grad mode
+    on, inputs that require grad raise."""
+    if f0.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"oscillate: unsupported device {f0.device}")
+    audio, phase = torch.ops.mbexwn.oscillate(f0, wavetables, float(nominal_f0), float(grid_factor),
+                                              float(min_transposition), float(max_transposition),
+                                              float(sample_rate), phase_offset, bool(return_phase))
+    return (audio, phase) if return_phase else audio
+
+
+@torch.library.custom_op("mbexwn::oscillate", mutates_args=(), device_types="cpu")
+def _oscillate_op(f0: torch.Tensor, wavetables: torch.Tensor, nominal_f0: float, grid_factor: float,
+                  min_transposition: float, max_transposition: float, sample_rate: float,
+                  phase_offset: Optional[torch.Tensor], return_phase: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version."""
+    audio, phase = oscillate_plain(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition,
+                                   sample_rate, phase_offset=phase_offset, return_phase=True)
+    return audio, phase if return_phase else f0.new_empty(0)
+
+
+@_oscillate_op.register_kernel("cuda")
+def _oscillate_op_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate,
+                       phase_offset, return_phase):
+    """The op on CUDA tensors: the kernel, under the tensors' device."""
     with kernel_lib.on_device(f0.device):
-        return _oscillate_cuda(*args, phase_offset=phase_offset, return_phase=return_phase)
+        return _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition,
+                               sample_rate, phase_offset, return_phase)
+
+
+@_oscillate_op.register_fake
+def _(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate, phase_offset,
+      return_phase):
+    return torch.empty_like(f0), f0.new_empty(f0.shape if return_phase else (0,))
+
+
+kernel_lib.no_backward(_oscillate_op, "oscillator")
 
 
 def _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate,
                     phase_offset, return_phase):
-    """`oscillate` on CUDA tensors, under their device."""
-    kernel_lib.refuse_grad("oscillator", f0, wavetables, phase_offset)
+    """The op on CUDA tensors, under their device: (audio, phase or empty)."""
     for name, t in (("f0", f0), ("wavetables", wavetables), ("phase_offset", phase_offset)):
         if t is not None and (t.device != f0.device or t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(f"oscillate: {name} must be a contiguous float32 tensor on {f0.device}")
@@ -125,7 +160,7 @@ def _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, 
     if wavetables.data_ptr() % 16:
         raise ValueError("oscillate: the tables must start on a 16-byte boundary (the kernel bulk-copies them)")
     out = torch.empty_like(f0)
-    phase = torch.empty_like(f0) if return_phase else None
+    phase = torch.empty_like(f0) if return_phase else f0.new_empty(0)
     B, T = f0.shape
     if f0.numel():
         scratch = torch.empty(B * -(-T // PHASE_CHUNK), dtype=torch.float32, device=f0.device)
@@ -133,10 +168,10 @@ def _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, 
         stream = torch.cuda.current_stream(f0.device).cuda_stream
         err = lib.mbexwn_oscillate(f0.data_ptr(), wavetables.data_ptr(),
                                    None if phase_offset is None else phase_offset.data_ptr(), out.data_ptr(),
-                                   None if phase is None else phase.data_ptr(), scratch.data_ptr(), B, T,
+                                   phase.data_ptr() if return_phase else None, scratch.data_ptr(), B, T,
                                    PHASE_CHUNK, n_wt, n_grid, 1.0 / sample_rate, float(nominal_f0),
                                    float(min_transposition), float(max_transposition),
                                    float(1.0 / math.log(grid_factor)), stream)
         kernel_lib.check(err, "oscillator")
         kernel_lib.launches["oscillator"] += 1
-    return (out, phase) if return_phase else out
+    return out, phase

@@ -23,14 +23,29 @@ The kernel's operand layout pads the reduction dimension with zeros to
 aligned: w_dil (2C, 3, Cp), w_rs (., Cp) and x (B, T, Cp); the biases and the
 skip sum keep their widths, and so does cond except in bf16 at a C that is
 not a multiple of 8 (`_kernel_cond`).  `pack_stack_weights` brings a list of
-layers into that layout once (`PackedStackWeights`); `wavenet_stack` and
-`wavenet_stack_plain` take either form.  The pad contributes exact zeros to
-the kernel's products; the plain version does not read it.
+layers into that layout once, stacked into four tensors
+(`PackedStackWeights`: w_dil (n, 2C, 3, Cp), b_dil (n, 2C), w_rs
+(n, 2C, Cp), b_rs (n, 2C), a skip-only layer's rows C..2C zero, and one
+skip-only flag a layer); `wavenet_stack` and `wavenet_stack_plain` take
+either form.  The pad contributes exact zeros to the kernel's products;
+the plain version does not read it.
+
+The stack is the `torch.library` custom op `mbexwn::wavenet_stack` (the
+four stacked weights, the dilations, the skip-only flags, the gate and
+`causal` as arguments): its CUDA implementation launches the kernel, its
+CPU implementation is the plain version, and a fake implementation gives
+the skip sum's shape, so a traced or exported graph holds one node per
+stack.  The kernel's host-side launch arguments (the per-layer pointer
+arrays and, in bf16, the weights' tensor maps) are built inside the CUDA
+implementation and kept by the weights' device addresses, so a program
+loaded from disk, whose weights live elsewhere, builds its own.
 """
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, field
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple, Union
 
 import torch
@@ -51,47 +66,80 @@ def padded_channels(C: int) -> int:
 
 @dataclass
 class PackedStackWeights:
-    """A stack's layers in the kernel's operand layout: per layer
-    (w_dil (2C, 3, Cp), b_dil (2C,), w_rs (2C or C, Cp), b_rs), zeros in the
-    pad, all of one dtype on one device, checked once when packed."""
-    layers: List[LayerWeights]
+    """A stack's n layers in the kernel's operand layout, stacked: w_dil
+    (n, 2C, 3, Cp), b_dil (n, 2C), w_rs (n, 2C, Cp), b_rs (n, 2C), zeros in
+    the pad and in the rows C..2C of a skip-only layer (`skip_only[i]`), all
+    contiguous, of one dtype on one device, checked once when packed."""
+    w_dil: torch.Tensor
+    b_dil: torch.Tensor
+    w_rs: torch.Tensor
+    b_rs: torch.Tensor
+    skip_only: Tuple[bool, ...]
     C: int
     C_pad: int
-    _launch_args: dict = field(default_factory=dict, repr=False)
 
     def __len__(self) -> int:
-        return len(self.layers)
+        return len(self.skip_only)
 
     def __getitem__(self, index):
         return self.layers[index]
 
     @property
+    def layers(self) -> List[LayerWeights]:
+        """Per layer (w_dil (2C, 3, Cp), b_dil (2C,), w_rs (2C or C, Cp),
+        b_rs (2C or C,)): views of the stacked tensors."""
+        return _layer_views(self.w_dil, self.b_dil, self.w_rs, self.b_rs, self.skip_only, self.C)
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.layers[0][0].dtype
+        return self.w_dil.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.layers[0][0].device
+        return self.w_dil.device
 
-    def launch_args(self):
-        """ctypes arrays of the per-layer device pointers and skip-only flags
-        and, for bf16, the host buffer of the weights' tensor maps: built at
-        the first launch and kept, since they depend on nothing but this
-        weight set."""
-        if not self._launch_args:
-            n = len(self.layers)
-            ptrs = [(ctypes.c_void_p * n)(*[lw[k].data_ptr() for lw in self.layers]) for k in range(4)]
-            skip_only = (ctypes.c_int * n)(*[int(lw[2].shape[0] == self.C) for lw in self.layers])
-            maps = None
-            if self.dtype == torch.bfloat16:
-                lib = kernel_lib.library()
-                maps = torch.zeros((n, 2, _TENSOR_MAP_BYTES), dtype=torch.uint8)
-                for i, (wd, _, wr, _) in enumerate(self.layers):
-                    kernel_lib.check(lib.mbexwn_wavenet_weight_maps(maps[i].data_ptr(), wd.data_ptr(), wr.data_ptr(),
-                                                                    self.C, self.C_pad, wr.shape[0]),
-                                     "wavenet_layer (tensor map of the weights)")
-            self._launch_args.update(ptrs=ptrs, skip_only=skip_only, maps=maps)
-        return self._launch_args["ptrs"], self._launch_args["skip_only"], self._launch_args["maps"]
+
+def _layer_views(w_dil, b_dil, w_rs, b_rs, skip_only, C) -> List[LayerWeights]:
+    return [(w_dil[i], b_dil[i], w_rs[i, :C] if so else w_rs[i], b_rs[i, :C] if so else b_rs[i])
+            for i, so in enumerate(skip_only)]
+
+
+# launch arguments by (device, dtype, C, the stacked weights' addresses, the
+# skip-only flags): they encode nothing but where the weights lie
+_LAUNCH_ARGS_KEPT = 64
+_launch_args_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+_launch_args_lock = threading.Lock()
+
+
+def _launch_args(w_dil, b_dil, w_rs, b_rs, skip_only, C: int, Cp: int):
+    """ctypes arrays of the per-layer device pointers and skip-only flags
+    and, for bf16, the host buffer of the weights' tensor maps, for stacked
+    weights in the kernel layout: built at the first launch on these
+    addresses and kept (the last `_LAUNCH_ARGS_KEPT` weight sets)."""
+    stacked = (w_dil, b_dil, w_rs, b_rs)
+    key = (w_dil.device, w_dil.dtype, C, tuple(t.data_ptr() for t in stacked), tuple(skip_only))
+    with _launch_args_lock:
+        hit = _launch_args_cache.get(key)
+        if hit is not None:
+            _launch_args_cache.move_to_end(key)
+            return hit
+    n = len(skip_only)
+    ptrs = [(ctypes.c_void_p * n)(*[t[i].data_ptr() for i in range(n)]) for t in stacked]
+    flags = (ctypes.c_int * n)(*[int(so) for so in skip_only])
+    maps = None
+    if w_dil.dtype == torch.bfloat16:
+        lib = kernel_lib.library()
+        maps = torch.zeros((n, 2, _TENSOR_MAP_BYTES), dtype=torch.uint8)
+        for i, so in enumerate(skip_only):
+            kernel_lib.check(lib.mbexwn_wavenet_weight_maps(maps[i].data_ptr(), w_dil[i].data_ptr(),
+                                                            w_rs[i].data_ptr(), C, Cp, C if so else 2 * C),
+                             "wavenet_layer (tensor map of the weights)")
+    args = (ptrs, flags, maps)
+    with _launch_args_lock:
+        _launch_args_cache[key] = args
+        while len(_launch_args_cache) > _LAUNCH_ARGS_KEPT:
+            _launch_args_cache.popitem(last=False)
+    return args
 
 
 StackWeights = Union[PackedStackWeights, Sequence[LayerWeights]]
@@ -99,13 +147,13 @@ StackWeights = Union[PackedStackWeights, Sequence[LayerWeights]]
 
 def pack_stack_weights(layer_weights: Sequence[LayerWeights]) -> PackedStackWeights:
     """Check a stack's layers (w_dil (2C, 3, C), b_dil (2C,), w_rs (2C or C, C),
-    b_rs, one dtype, one device) and pad their reduction dimension to the
-    kernel layout."""
+    b_rs, one dtype, one device), pad their reduction dimension to the
+    kernel layout and stack them."""
     if not layer_weights:
         raise ValueError("pack_stack_weights: a stack needs at least one layer")
     w0 = layer_weights[0][0]
     C, Cp = w0.shape[-1], padded_channels(w0.shape[-1])
-    layers = []
+    skip_only = []
     for i, (wd, bd, wr, br) in enumerate(layer_weights):
         n_rs = wr.shape[0]
         expected = {"w_dil": (wd, (2 * C, 3, C)), "b_dil": (bd, (2 * C,)),
@@ -114,9 +162,16 @@ def pack_stack_weights(layer_weights: Sequence[LayerWeights]) -> PackedStackWeig
             if t.device != w0.device or t.dtype != w0.dtype or tuple(t.shape) != shape:
                 raise ValueError(f"pack_stack_weights: layer {i} {name} must be a {w0.dtype} tensor of shape {shape} "
                                  f"on {w0.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-        layers.append((_pad_columns(wd, Cp - C).contiguous(), bd.contiguous(),
-                       _pad_columns(wr, Cp - C).contiguous(), br.contiguous()))
-    return PackedStackWeights(layers, C, Cp)
+        skip_only.append(n_rs == C)
+
+    def rows(t):  # a skip-only layer's C rows, zeros to 2C
+        return F.pad(t, (0, 0) * (t.dim() - 1) + (0, C)) if t.shape[0] == C else t
+
+    w_dil = torch.stack([_pad_columns(lw[0], Cp - C) for lw in layer_weights])
+    b_dil = torch.stack([lw[1] for lw in layer_weights])
+    w_rs = torch.stack([rows(_pad_columns(lw[2], Cp - C)) for lw in layer_weights])
+    b_rs = torch.stack([rows(lw[3]) for lw in layer_weights])
+    return PackedStackWeights(w_dil, b_dil, w_rs, b_rs, tuple(skip_only), C, Cp)
 
 
 def _pad_columns(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -238,50 +293,75 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
                   dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
     """(B, T, C) x and (B, T, 2C) cond in the operand dtype (fp32 or bf16),
     weights as listed in the module docstring or packed by
-    `pack_stack_weights` -> (B, T, C) fp32 skip sum; `causal` selects the
-    taps t-2d, t-d, t in place of t-d, t, t+d.  CUDA tensors go through
-    the kernel: x is copied once into a zero-padded (B, T, Cp) buffer, the
-    layers ping-pong between that and a second one, and one host call
-    enqueues them all.  CPU tensors take the plain version.  The kernel has
-    no backward pass: with grad mode on, CUDA inputs that require grad
-    raise."""
-    if x.device.type == "cpu":
-        return wavenet_stack_plain(x, cond, layer_weights, dils, activation, causal)
-    if x.device.type != "cuda":
+    `pack_stack_weights` (a list is packed first) -> (B, T, C) fp32 skip
+    sum; `causal` selects the taps t-2d, t-d, t in place of t-d, t, t+d.
+    Calls the op `mbexwn::wavenet_stack`: on CUDA tensors the kernel: x is
+    copied once into a zero-padded (B, T, Cp) buffer, the layers ping-pong
+    between that and a second one, and one host call enqueues them all.
+    CPU tensors take the plain version.  The op has no backward pass: with
+    grad mode on, inputs that require grad raise."""
+    if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"wavenet_stack: unsupported device {x.device}")
+    p = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
+    return torch.ops.mbexwn.wavenet_stack(x, cond, p.w_dil, p.b_dil, p.w_rs, p.b_rs, [int(d) for d in dils],
+                                          list(p.skip_only), activation, bool(causal))
+
+
+@torch.library.custom_op("mbexwn::wavenet_stack", mutates_args=(), device_types="cpu")
+def _wavenet_stack_op(x: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b_dil: torch.Tensor,
+                      w_rs: torch.Tensor, b_rs: torch.Tensor, dilations: List[int], skip_only: List[bool],
+                      activation: str, causal: bool) -> torch.Tensor:
+    """The op on CPU tensors: the plain version."""
+    layers = _layer_views(w_dil, b_dil, w_rs, b_rs, skip_only, cond.shape[-1] // 2)
+    return wavenet_stack_plain(x, cond, layers, dilations, activation, causal)
+
+
+@_wavenet_stack_op.register_kernel("cuda")
+def _wavenet_stack_op_cuda(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal):
+    """The op on CUDA tensors: the kernel, under the tensors' device."""
     if activation != "gtu":
         raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation} "
                                   f"(ROADMAP.md queue 1, item 13)")
     with kernel_lib.on_device(x.device):
-        return _wavenet_stack_cuda(x, cond, layer_weights, dils, causal)
+        return _wavenet_stack_cuda(x, cond, (w_dil, b_dil, w_rs, b_rs), dilations, skip_only, causal)
 
 
-def _wavenet_stack_cuda(x, cond, layer_weights, dils, causal):
-    """`wavenet_stack` on CUDA tensors, under their device."""
-    packed = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
-    kernel_lib.refuse_grad("wavenet_layer", x, cond, *(t for lw in packed.layers for t in lw))
+@_wavenet_stack_op.register_fake
+def _(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal):
+    C = cond.shape[-1] // 2
+    return x.new_empty((x.shape[0], x.shape[1], C), dtype=torch.float32)
+
+
+kernel_lib.no_backward(_wavenet_stack_op, "wavenet_layer")
+
+
+def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
+    """The op on CUDA tensors, under their device: the stacked weights in
+    the kernel layout (`PackedStackWeights`)."""
     B, T, C = x.shape
     _check_kernel_dtype("wavenet_stack", x.dtype, C)
-    if packed.C != C or packed.dtype != x.dtype or packed.device != x.device:
-        raise ValueError(f"wavenet_stack: weights are C={packed.C} {packed.dtype} on {packed.device}, "
-                         f"x is C={C} {x.dtype} on {x.device}")
-    if len(dils) != len(packed.layers):
-        raise ValueError(f"wavenet_stack: {len(dils)} dilations for {len(packed.layers)} layers")
+    Cp, n = padded_channels(C), len(skip_only)
+    if n == 0:
+        raise ValueError("wavenet_stack: a stack needs at least one layer")
+    if len(dils) != n:
+        raise ValueError(f"wavenet_stack: {len(dils)} dilations for {n} layers")
+    for name, t, shape in zip(("w_dil", "b_dil", "w_rs", "b_rs"), stacked,
+                              ((n, 2 * C, 3, Cp), (n, 2 * C), (n, 2 * C, Cp), (n, 2 * C))):
+        _check_operand("wavenet_stack", f"{name} (the stacked kernel layout: pack_stack_weights)", t, shape,
+                       x.dtype, x.device)
     _check_operand("wavenet_stack", "cond", cond, (B, T, 2 * C), x.dtype, x.device, contiguous=False)
     skip = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return skip
-    Cp = packed.C_pad
     # ping-pong buffers in the kernel layout; the caller's x is only read
     alloc = torch.empty if Cp == C else torch.zeros
     bufs = alloc((2, B, T, Cp), dtype=x.dtype, device=x.device)
     bufs[0, :, :, :C].copy_(x)
-    n = len(packed.layers)
-    ptrs, skip_only, maps = packed.launch_args()
+    ptrs, flags, maps = _launch_args(*stacked, skip_only, C, Cp)
     cond, Ch = _kernel_cond(cond)
     count = kernel_lib.library().mbexwn_wavenet_stack(
         _KERNEL_DTYPES[x.dtype], n, bufs[0].data_ptr(), bufs[1].data_ptr(), cond.data_ptr(), *ptrs,
-        (ctypes.c_int * n)(*[int(d) for d in dils]), skip_only, None if maps is None else maps.data_ptr(),
+        (ctypes.c_int * n)(*[int(d) for d in dils]), flags, None if maps is None else maps.data_ptr(),
         skip.data_ptr(), B, T, C, Cp, Ch, int(causal), torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(count, "wavenet_layer")
     return skip

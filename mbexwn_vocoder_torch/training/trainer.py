@@ -11,6 +11,10 @@ package's XLA route, which its trainer differentiates (it pins its Pallas
 stack off).  The CUDA kernels stay the inference route; they have no
 backward pass and raise where a gradient is asked of them.
 
+With `remat_wavenet_blocks: true` in the model's config, each WaveNet block
+is recomputed in the backward pass instead of keeping its activations
+(models/mbexwn.py); the step's value and gradient are the same.
+
 The random draws of a step (the noise channel, the excitation's noise
 floor, the input dither and the loss's masking noises) are taken from
 `draws`, a dict of tensors, when given (every draw the step needs must be
@@ -173,9 +177,6 @@ class Trainer:
             raise ValueError("Trainer: the model is in its folded (inference) form; build it trainable "
                              "(create_model(..., trainable=True)) or call model.trainable_()")
         mc = model.model_config
-        if mc.get("remat_wavenet_blocks"):
-            raise NotImplementedError("remat_wavenet_blocks (torch.utils.checkpoint) is not ported "
-                                      "(ROADMAP.md queue 1, item 13b)")
         self.model = model.to(self.device).train()
         model.set_differentiable(True)
         self.hparams = hparams

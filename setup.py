@@ -32,6 +32,7 @@ setup(
             "mbexwn_torch_resynth_mel=mbexwn_vocoder_torch.cli.resynth_mel:cli",
             "mbexwn_torch_view_mel=mbexwn_vocoder_torch.cli.view_mel:cli",
             "mbexwn_torch_train=mbexwn_vocoder_torch.cli.train:cli",
+            "mbexwn_torch_export_model=mbexwn_vocoder_torch.cli.export_model:cli",
         ]
     },
 )

@@ -28,7 +28,10 @@ the rule), and a trained model, folded, synthesises through both kernels.
 The training CLI: two steps (`cli.train`) on the card with a
 tiny config, whose export synthesises through both kernels; one adversarial
 step on the card equals the CPU's.  Two cards (skipped with fewer): both
-kernels launch on cuda:1 after cuda:0, under the tensors' device.
+kernels launch on cuda:1 after cuda:0, under the tensors' device.  The
+kernels as `torch.library` ops launch or raise on CUDA tensors; a tiny
+model's exported program on the card launches both and equals the model's
+synthesis; the fp64 remat step on the card equals the step without.
 """
 import numpy as np
 import pytest
@@ -455,3 +458,79 @@ def test_gan_step_on_the_card_matches_the_cpu(card):
     failures, numbers = gan_card_against_cpu(card)
     print(numbers)
     assert not failures, failures
+
+
+# ---- the kernels as torch.library ops, the AOT export and remat on the card
+
+def test_kernel_ops_launch_or_raise_on_the_card(card):
+    """`mbexwn::wavenet_stack` and `mbexwn::oscillate` on CUDA tensors
+    launch their kernels (counted inside the ops) or raise; nothing falls
+    back to the plain version."""
+    x, cond, weights = _case(64, 1, 200, (1, 2), torch.bfloat16, card)
+    p = pack_stack_weights(weights)
+    w = [p.w_dil, p.b_dil, p.w_rs, p.b_rs]
+    before = dict(kernel_lib.launches)
+    skip = torch.ops.mbexwn.wavenet_stack(x, cond, *w, [1, 2], list(p.skip_only), "gtu", False)
+    audio, phase = torch.ops.mbexwn.oscillate(torch.full((1, 3000), 140.0, device=card),
+                                              torch.rand((65, 5), device=card), 50.0, 1.25, 1.0, 13.0, 12000.0,
+                                              None, True)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 2
+    assert kernel_lib.launches["oscillator"] - before["oscillator"] == 1
+    assert skip.dtype == torch.float32 and skip.shape == (1, 200, 64) and phase.shape == audio.shape
+    with pytest.raises(NotImplementedError, match="gtu"):
+        torch.ops.mbexwn.wavenet_stack(x, cond, *w, [1, 2], list(p.skip_only), "glu", False)
+    with pytest.raises(ValueError, match="kernel layout"):
+        torch.ops.mbexwn.wavenet_stack(x, cond, w[0][..., :-1].contiguous(), *w[1:], [1, 2], list(p.skip_only),
+                                       "gtu", False)
+
+
+def test_export_round_trip_on_the_card(card, tmp_path):
+    """The tiny model exported for the card and loaded: each call launches
+    K1 once a layer and K2 once, and equals the model's own synthesis on
+    the card given the same noise draw."""
+    from mbexwn_vocoder_torch.compat.export import export_synthesis, load_exported
+    from mbexwn_vocoder_torch.models import create_model
+    from mbexwn_vocoder_torch.training.parity import tiny_hparams
+
+    hp = tiny_hparams()
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    model.init(torch.Generator().manual_seed(0))
+    model = model.eval().to(card)
+    blob = export_synthesis(model, T_mel=16, batch_size=2, platforms=("cuda",))
+    call, meta = load_exported(blob, device="cuda")
+    mel = torch.from_numpy(np.random.RandomState(0).randn(2, 16, 80).astype(np.float32) * 0.5 - 4).to(card)
+    kernel_lib.reset_launch_counts()
+    y = call(mel)
+    torch.cuda.synchronize()
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1}
+    noise = torch.randn((2, model.block.wn_input_length(16), 1), generator=torch.Generator(device=card).manual_seed(0),
+                        device=card)
+    with torch.inference_mode():
+        ref = model.infer(mel, synth_length=16 * 300, noise=noise)
+    assert meta["platforms"] == ["cuda"] and float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_remat_step_on_the_card_equals_the_step_without(card, monkeypatch):
+    """The tiny case in fp64 on the card: with remat_wavenet_blocks the loss
+    and every gradient leaf within 1e-12 of the step without."""
+    from mbexwn_vocoder_torch.models import create_model
+    from mbexwn_vocoder_torch.training.parity import hold_leaves, tiny_batch, tiny_hparams
+    from mbexwn_vocoder_torch.training.trainer import Trainer
+
+    monkeypatch.setenv("MBEXWN_WN_DTYPE", "")
+    monkeypatch.setenv("MBEXWN_SUBNET_DTYPE", "")
+    out = {}
+    for remat in (False, True):
+        hp = tiny_hparams(**{"mbexwn_config.remat_wavenet_blocks": remat})
+        m, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+        m.init(torch.Generator().manual_seed(0))
+        tr = Trainer(m.double(), hp, device=card)
+        batch = tiny_batch()
+        draws = {k: torch.randn(s, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+                 for k, s in tr.draw_shapes(batch).items()}
+        loss, _, grads = tr.value_and_grad(batch, 0, draws)
+        out[remat] = (float(loss), {k: v.cpu().numpy() for k, v in grads.items()})
+    assert abs(out[True][0] / out[False][0] - 1) <= 1e-12
+    bad, _ = hold_leaves(out[True][1], out[False][1], 1e-12)
+    assert not bad, bad

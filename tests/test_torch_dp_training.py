@@ -7,7 +7,8 @@
   metric within 1e-12 relative, every gradient leaf and updated parameter
   within 1e-9 rel-RMS.  The same step under DDP's rule (each rank's own
   loss, gradients averaged) is off by more than 1e-6, so the check sees the
-  coupling of the F0 and coherence terms.
+  coupling of the F0 and coherence terms.  With remat_wavenet_blocks the
+  2-rank steps equal the one-process step without it, to the same bounds.
 - The port's 2-rank step in fp32 against the JAX package's jitted step over
   its virtual 8-device mesh, at a global batch of 8 on the same weights,
   batch and draws: the loss within 2e-5 (the bound tests/test_training.py
@@ -89,6 +90,27 @@ def test_a_per_rank_mean_is_not_the_global_step(dp_fp64, what):
     _, numbers = dp_fp64
     n = numbers[what]
     assert n["naive_worst_metric_rel"] > 1e-6 and n["naive_worst_gradient_rel_rms"] > 1e-6, n
+
+
+def test_dp_step_with_remat_equals_the_one_process_step():
+    """remat_wavenet_blocks on 2 gloo ranks (the blocks recomputed in each
+    rank's backward pass, the draws injected): the Trainer's and the
+    AdversarialTrainer's fp64 steps equal the one-process step without
+    remat, every metric within 1e-12 and every gradient leaf and updated
+    parameter within 1e-9 rel-RMS."""
+    case = dict(parity.tiny_dp_case(), naive=False)
+    ref = parity.dp_step(case, "cpu")
+    remat = dict(case, hp=copy.deepcopy(case["hp"]))
+    remat["hp"]["mbexwn_config"]["remat_wavenet_blocks"] = True
+    for rank, out in enumerate(parity.run_dp(remat, "cpu", world=2)):
+        for metrics, leaves in (("metrics", ("grads", "params")), ("gan_metrics", ("gan_grads", "gan_params"))):
+            got = out["exact"]
+            assert got[metrics].keys() == ref[metrics].keys()
+            for k in ref[metrics]:
+                assert abs(got[metrics][k] / ref[metrics][k] - 1) <= 1e-12, (rank, k, got[metrics][k], ref[metrics][k])
+            for key in leaves:
+                bad, _ = parity.hold_leaves(got[key], ref[key], 1e-9)
+                assert not bad, (rank, key, bad)
 
 
 def test_dp_step_matches_the_jax_mesh_trainer(monkeypatch):

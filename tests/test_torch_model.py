@@ -82,6 +82,37 @@ def test_full_width_slice_matches_jax(model_id):
     assert rel_rms(y, y_ref) <= 1e-3
 
 
+def test_infer_components_and_return_F0_match_jax():
+    """`infer_components` and `infer(return_F0=True)` of SPEECH against the
+    JAX package's, the noise the JAX package draws (PRNGKey(0)) injected:
+    F0 1e-6, excitation 3e-4, envelope 1e-5 and RMS 1e-6 (the stage
+    budgets above), the sound 1e-3; `transposition_factor` scales the F0."""
+    mel = make_mel(9)
+    port = MELInverter("SPEECH", device="cpu", length_buckets=(T_MEL,))
+    ref = JaxMELInverter("SPEECH", length_buckets=(T_MEL,), use_jit=False)
+    model, jmodel, params = port.model, ref.model, ref.params
+    assert model.has_components and jmodel.has_components
+    hop = port.hop_size
+    noise = torch.from_numpy(jax_noise(port.noise_shape(mel)).copy())
+    x = torch.from_numpy(mel)
+    with torch.no_grad():
+        got = model.infer_components(x, noise=noise)
+        scaled_f0 = model.infer_components(x, transposition_factor=1.5, noise=noise)[0]
+        y, pp = model.infer(x, synth_length=T_MEL * hop, noise=noise, return_F0=True)
+    want = jmodel.infer_components(params, jnp.asarray(mel))
+    for name, g, w, tol in zip(("F0", "excitation", "envelope", "rms"), got, want, (1e-6, 3e-4, 1e-5, 1e-6)):
+        assert g.shape == w.shape and rel_rms(g.numpy(), np.asarray(w)) <= tol, name
+    assert torch.equal(scaled_f0, 1.5 * got[0])
+    y_ref, pp_ref = jmodel.infer(params, jnp.asarray(mel), synth_length=T_MEL * hop, return_F0=True)
+    assert rel_rms(y, y_ref) <= 1e-3
+    assert [n for n, _ in pp] == [n for n, _ in pp_ref] == ["F0", "PSig", "PS"]
+    for (name, g), (_, w), tol in zip(pp, pp_ref, (1e-6, 3e-4, 1e-5)):
+        assert g.shape == w.shape and rel_rms(g.numpy(), np.asarray(w)) <= tol, name
+    with torch.no_grad():
+        listed = model.infer(x, synth_length=T_MEL * hop, noise=noise, return_components=True)
+    assert isinstance(listed, list) and torch.equal(listed[0], y)
+
+
 def test_shipped_bf16_mode_tracks_jax(monkeypatch):
     """The registry's bf16 compute (WaveNet and subnets) in both packages:
     bf16 rounds at other points in the two frameworks (cuDNN/oneDNN vs XLA

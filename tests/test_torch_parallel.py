@@ -219,8 +219,9 @@ def test_kernel_callers_enter_the_tensors_device(monkeypatch):
     monkeypatch.setattr(stack_mod, "_wavenet_stack_cuda", launch("K1"))
     monkeypatch.setattr(osc_mod, "_oscillate_cuda", launch("K2"))
     x = _OnCard()
-    assert stack_mod.wavenet_stack(x, x, [], []) == "K1"
-    assert osc_mod.oscillate(x, x, 100.0, 2.0, 0.5, 2.0, 12000) == "K2"
+    # the CUDA implementations of the ops mbexwn::wavenet_stack and mbexwn::oscillate
+    assert stack_mod._wavenet_stack_op_cuda(x, x, x, x, x, x, [], [], "gtu", False) == "K1"
+    assert osc_mod._oscillate_op_cuda(x, x, 100.0, 2.0, 0.5, 2.0, 12000.0, None, False) == "K2"
     card = torch.device("cuda", 1)
     assert calls == [("enter", card), ("launch", "K1"), ("exit", card),
                      ("enter", card), ("launch", "K2"), ("exit", card)]
