@@ -192,20 +192,39 @@ prints no result line:
      trace naming K1's kernel; `debug_nans` silent over one synthesis (its
      cost printed) and raising on a NaN planted in the mel; `dump_controls`
      at 512 frames; `synthesis_flops(SPEECH, 512, 1)` with the FLOP/s it
-     implies at [5]'s synthesis time; each synthesis 24 K1 + 1 K2.
+     implies at [5]'s synthesis time; each synthesis 24 K1 + 1 K2;
+ 13. every route of the WaveNet stack, SPEECH full width (C=320): (a) the
+     branches the kernel does not take (gates glu and gsu, n_ch_groups 2,
+     kernel_size 5 on SPEECH, and per-layer conditioning on a standalone
+     stack), random init: fp32 card against the port's CPU <= 1e-3
+     rel-RMS, K1 launches 0 (24 for the unedited gtu reference), bf16 ms;
+     (b) tensor parallelism (MBEXWN_TP_AXIS=model, the shipped weights, a
+     1 x 2 mesh of cuda:0 twice, BatchSynthesizer at batch 2) against the
+     same model unsharded (fp32 <= 1e-5, bf16 <= 2e-2), K1 launches 0, ms
+     and the reduce's share of the device time; (c) the int8 mode
+     (MBEXWN_WN_QUANT=int8, shipped bf16, batch 1 and 8): each int8 layer
+     of the card's synthesis against the port's CPU on the same inputs
+     <= 2e-2 (the whole synthesis card against CPU is read: bin flips
+     spread downstream), against card bf16 > 1e-3, 48 torch._int_mm
+     calls a synthesis, ms beside bf16, and the quality round trip's mel-L1
+     beside [7]'s (recorded); (d) the int8 artifact at batch 1 in a fresh
+     process against the direct int8 synthesis (bit-equal, or < 1e-2 and
+     < 0.1 x its distance to bf16).
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, a
 `training_driver:` JSON line with phase [10]'s, a `parallel:` JSON line
 with phase [11]'s, an `export_remat_observability:` JSON line with phase
-[12]'s, the card's name and power limit, a `kernels` JSON line
+[12]'s, a `routes:` JSON line with phase [13]'s, the card's name and
+power limit, a `kernels` JSON line
 (its launches: the main path of [4], SPEECH bf16, plus one pass of each
 long-form mode of [8](b), the live streams of [8](c), the trained and the
 reloaded model's syntheses of [9](d), the CLI export's synthesis of
 [10](a), and [11]'s: the data-parallel CLI export's synthesis and the bf16
 mesh passes of (d); [12]'s: one call of each loaded artifact and the
-syntheses under profile_trace, debug_nans and dump_controls; each counted
-from 0 just before it), and
+syntheses under profile_trace, debug_nans and dump_controls; [13]'s
+syntheses on every route and the int8 artifact's call; each counted from 0
+just before it), and
 `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
@@ -2099,6 +2118,435 @@ def phase_observability(inverter, check, dev, synth_ms: float):
     return numbers
 
 
+ROUTE_CPU_FRAMES = 128  # [13](a): the card-vs-CPU checks' mel (the timing runs at N_FRAMES)
+BRANCH_CASES = (("glu", dict(activation="glu")), ("gsu", dict(activation="gsu")),
+                ("n_ch_groups 2", dict(n_ch_groups=2)), ("kernel_size 5", dict(kernel_size=5)))
+TP_BATCH = 2  # [13](b)
+INT8_BATCHES = (1, 8)  # [13](c)
+
+
+@contextlib.contextmanager
+def recording_int8_layers(store: list):
+    """A context in which the int8 mode's layers (nn/wavenet.py's
+    `int8_layer`) run as before and each call appends (x, cond, weights,
+    dilation, activation, its output) to `store`."""
+    import mbexwn_vocoder_torch.nn.wavenet as wn_module
+
+    real = wn_module.int8_layer
+
+    def recording(x, cond, weights, dilation, activation):
+        out = real(x, cond, weights, dilation, activation)
+        store.append((x.clone(), None if cond is None else cond.clone(), weights, dilation, activation, out.clone()))
+        return out
+
+    wn_module.int8_layer = recording
+    try:
+        yield store
+    finally:
+        wn_module.int8_layer = real
+
+
+def card_f0(model, mel, synth_length: int):
+    """The F0 contour (B, T_mel * spect_to_pulse) `model.infer` computes for
+    `mel` (RMS-normalised where the model normalises)."""
+    import torch
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+
+    with torch.inference_mode(), exact_fp32():
+        if model.norm_mel_components is not None:
+            _, mel, _ = model.norm_mel_components.normalize_inputs_by_rms(None, mel, synth_length)
+        return model.block.generate_f0(mel)
+
+
+def branch_model(edit: dict, wn_dtype, dev):
+    """SPEECH with `pp_mod_subnet` edited, randomly initialised (seeded), with
+    the compute dtype forced as `registry_variant` forces it."""
+    import torch
+    from mbexwn_vocoder_torch import get_config_file
+    from mbexwn_vocoder_torch.config import read_config
+    from mbexwn_vocoder_torch.models import create_model
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        if wn_dtype is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = wn_dtype
+    hp = read_config(get_config_file("SPEECH"))
+    hp["mbexwn_config"]["pp_mod_subnet"].update(edit)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    model.init(torch.Generator().manual_seed(SEED + 130))
+    return model.eval().to(dev)
+
+
+def per_layer_stack(dtype, dev):
+    """A standalone WaveNetAE at SPEECH's width (C=320, 12 layers, k=3, gtu)
+    with per-layer conditioning (`cond_conv_upsampling=None`: one cond conv of
+    2*320*12 channels on a mel at the stack's rate), randomly initialised."""
+    import torch
+    from mbexwn_vocoder_torch.nn.layers import Conv1DWeightNorm
+    from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
+
+    net = WaveNetAE(7, 80, n_channels=320, n_layers=12, kernel_size=3, n_out_channels=64, max_log2_dilation_rate=7,
+                    cond_kernel_size=3, cond_conv_upsampling=None, compute_dtype=dtype, name="per_layer")
+    gen = torch.Generator().manual_seed(SEED + 131)
+    for m in net.modules():
+        if isinstance(m, Conv1DWeightNorm):
+            m.init(gen)
+    return net.eval().requires_grad_(False).to(dev)
+
+
+@contextlib.contextmanager
+def counting_reduces(store: list, label: str = "tp.reduce_add"):
+    """A context in which tensor parallelism's per-layer reduce runs as
+    before, inside a profiler range named `label`, and each call appends its
+    count of partials to `store`."""
+    import torch
+    from mbexwn_vocoder_torch.parallel import tensor
+
+    real = tensor.reduce_add
+
+    def counted(partials, home):
+        store.append(len(partials))
+        with torch.profiler.record_function(label):
+            return real(partials, home)
+
+    tensor.reduce_add = counted
+    try:
+        yield store
+    finally:
+        tensor.reduce_add = real
+
+
+def phase_routes(inverter, check, dev, synth_ms: float, serving):
+    """Phase [13]: every route of the WaveNet stack on the card, SPEECH full
+    width.  (a) the branches the kernel does not take: SPEECH with
+    pp_mod_subnet's gate glu / gsu, n_ch_groups 2, kernel_size 5, and a
+    standalone 320-channel stack with per-layer conditioning; random init;
+    fp32 card against the port's CPU (<= 1e-3 rel-RMS), K1 launches 0 (24
+    for the unedited gtu model, the reference run), bf16 synthesis ms by
+    CUDA events beside the reference's and [5]'s.  (b) tensor parallelism:
+    SPEECH's shipped weights built with MBEXWN_TP_AXIS=model, a 1 x 2 mesh
+    of cuda:0 twice, BatchSynthesizer at batch 2, 512 frames, against the
+    same model unsharded (fp32 <= 1e-5, bf16 <= 2e-2), K1 launches 0, ms a
+    synthesis and the reduce's share of its device time.  (c) the int8 mode
+    (MBEXWN_WN_QUANT=int8), SPEECH shipped bf16, batch 1 and 8, 512 frames:
+    each int8 layer of the card's synthesis against the CPU's on the same
+    inputs (<= 2e-2; the whole synthesis card against CPU is read, not
+    held), the synthesis against card bf16 (> 1e-3),
+    2 x 12 x 2 torch._int_mm calls a synthesis, ms beside bf16 in the same
+    rounds, and the quality round trip's mean mel-L1 beside [7]'s bf16
+    figure (recorded, not gated).  (d) the int8 artifact at batch 1, loaded
+    in a fresh process (`--artifact-child`), against the direct int8
+    synthesis: bit-equal, or < 1e-2 and < 0.1 x its distance to bf16."""
+    import copy
+    import tempfile
+
+    import torch
+    from mbexwn_vocoder_torch.compat.export import export_synthesis
+    from mbexwn_vocoder_torch.mel_inverter import edge_pad
+    from mbexwn_vocoder_torch.ops import kernel_lib, quant
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh
+
+    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0}}
+
+    def add_launches(counts):
+        for k in numbers["launches"]:
+            numbers["launches"][k] += counts[k]
+
+    # (a) the branches
+    mel_cpu = make_mel(ROUTE_CPU_FRAMES, 80, SEED + 132)
+    mel_full = make_mel(N_FRAMES, 80, SEED)
+    for name, edit in (("gtu (reference)", {}),) + BRANCH_CASES:
+        row = numbers["branches"][name] = {}
+        model_cpu = branch_model(edit, "", "cpu")
+        model = copy.deepcopy(model_cpu).to(dev)
+        blk = model.block
+        noise = torch.from_numpy(np.random.RandomState(SEED + 133).randn(
+            1, blk.wn_input_length(ROUTE_CPU_FRAMES), 1).astype(np.float32))
+        length = ROUTE_CPU_FRAMES * model.spect_hop_size
+        with torch.inference_mode():
+            y_cpu = model_cpu.infer(torch.from_numpy(mel_cpu), synth_length=length, noise=noise).numpy()
+            model.infer(torch.from_numpy(mel_cpu).to(dev), synth_length=length, noise=noise.to(dev))
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            y = model.infer(torch.from_numpy(mel_cpu).to(dev), synth_length=length, noise=noise.to(dev))
+            torch.cuda.synchronize()
+            counts = dict(kernel_lib.launches)
+        add_launches(counts)
+        y = y.cpu().numpy()
+        err = rel_rms(y, y_cpu)
+        k1_expected = 24 if not edit else 0
+        routes = sorted({getattr(blk, n).wavenet.route() for n in blk.block_names})
+        row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, routes=routes)
+        check(np.isfinite(y).all() and err <= 1e-3 and counts == {"wavenet_layer": k1_expected, "oscillator": 1},
+              f"(a) SPEECH {name}, random init, fp32 {ROUTE_CPU_FRAMES} frames: card vs CPU rel-RMS {err:.3e} "
+              f"(<= 1e-3); route {routes}; launches {counts} (K1 {k1_expected})")
+        model16 = branch_model(edit, None, dev)
+        mel_dev = torch.from_numpy(mel_full).to(dev)
+        noise16 = torch.randn((1, blk.wn_input_length(N_FRAMES), 1), generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        full = N_FRAMES * model16.spect_hop_size
+        with torch.inference_mode():
+            y16 = model16.infer(mel_dev, synth_length=full, noise=noise16)
+            ms = cuda_time_ms(lambda: model16.infer(mel_dev, synth_length=full, noise=noise16), iters=5)
+        row.update(bf16_ms_cuda_events=ms, bf16_finite=bool(torch.isfinite(y16).all()))
+        check(row["bf16_finite"], f"(a) SPEECH {name}, bf16 {N_FRAMES} frames: {y16.shape[1]} finite samples, "
+                                  f"synthesis {ms:.2f} ms (CUDA events; [5]'s synth_from_mel {synth_ms:.2f} ms)")
+        del model, model_cpu, model16
+    ref_ms = numbers["branches"]["gtu (reference)"]["bf16_ms_cuda_events"]
+    row = numbers["branches"]["per-layer conditioning (standalone WaveNetAE)"] = {}
+    net_cpu = per_layer_stack(None, "cpu")
+    net = copy.deepcopy(net_cpu).to(dev)
+    rng = np.random.RandomState(SEED + 134)
+    rows_cpu, rows_full = ROUTE_CPU_FRAMES * 25, N_FRAMES * 25  # block 0's rate
+    audio = torch.from_numpy(rng.randn(1, rows_cpu, 7).astype(np.float32) * 0.5)
+    cmel = torch.from_numpy(rng.randn(1, rows_cpu, 80).astype(np.float32) * 0.5)
+    with torch.inference_mode(), exact_fp32():
+        ref = net_cpu(audio, cmel).numpy()
+        kernel_lib.reset_launch_counts()
+        got = net(audio.to(dev), cmel.to(dev))
+        torch.cuda.synchronize()
+        counts = dict(kernel_lib.launches)
+    add_launches(counts)
+    err = rel_rms(got.cpu().numpy(), ref)
+    net16 = per_layer_stack(torch.bfloat16, dev)
+    a_full = torch.randn((1, rows_full, 7), device=dev) * 0.5
+    m_full = torch.randn((1, rows_full, 80), device=dev) * 0.5
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: net16(a_full, m_full), iters=5)
+        finite = bool(torch.isfinite(net16(a_full, m_full)).all())
+    row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, route=net.route(), bf16_ms_cuda_events=ms,
+               rows=rows_full)
+    check(err <= 1e-3 and finite and counts == {"wavenet_layer": 0, "oscillator": 0},
+          f"(a) standalone WaveNetAE C=320 with per-layer conditioning ({net.cond.filters} cond channels), fp32 "
+          f"{rows_cpu} rows: card vs CPU rel-RMS {err:.3e} (<= 1e-3); route {net.route()}; launches {counts}; "
+          f"bf16 {rows_full} rows (block 0 of a {N_FRAMES}-frame synthesis): {ms:.2f} ms (CUDA events)")
+    print(f"  (a) bf16 synthesis ms (CUDA events, {N_FRAMES} frames): " + ", ".join(
+        f"{k} {v['bf16_ms_cuda_events']:.2f}" for k, v in numbers["branches"].items() if "standalone" not in k)
+        + f"; the gtu reference through K1 {ref_ms:.2f}; [5]'s synth_from_mel {synth_ms:.2f} (host clock)",
+        flush=True)
+
+    # (b) tensor parallelism over a model axis of cuda:0 twice
+    numbers["tp"] = {"mesh": "make_mesh(n_data=1, n_model=2, devices=['cuda:0', 'cuda:0'])",
+                     "cross_card": "not measured: the host has one card"}
+    mels = [make_mel(N_FRAMES, 80, SEED + 140 + i)[0] for i in range(TP_BATCH)]
+    os.environ["MBEXWN_TP_AXIS"] = "model"
+    try:
+        for wn_dtype, label, tol in (("", "fp32", 1e-5), (None, "bf16", 2e-2)):
+            model = registry_variant("SPEECH", wn_dtype, dev)
+            ref = BatchSynthesizer(model, device=dev).synth_batch(mels)  # built with the axis, unsharded
+            bs = BatchSynthesizer(model, mesh=make_mesh(n_data=1, n_model=2, devices=["cuda:0", "cuda:0"]))
+            stacks = [getattr(bs.model.block, n).wavenet for n in bs.model.block.block_names]
+            bs.synth_batch(mels)  # warm-up
+            torch.cuda.synchronize()
+            reduces = []
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with counting_reduces(reduces):
+                got = bs.synth_batch(mels)
+            counts = dict(kernel_lib.launches)
+            add_launches(counts)
+            err = max(rel_rms(y, r) for y, r in zip(got, ref))
+            n_layers = sum(wn.n_layers for wn in stacks)
+            check(all(np.isfinite(y).all() for y in got) and err <= tol
+                  and counts == {"wavenet_layer": 0, "oscillator": 1} and reduces == [2] * n_layers
+                  and all(wn.tp_devices == (dev, dev) for wn in stacks),
+                  f"(b) tensor parallel {label}, BatchSynthesizer batch {TP_BATCH}, {N_FRAMES} frames, channels "
+                  f"split over cuda:0 twice: rel-RMS against the same model unsharded {err:.3e} (<= {tol:g}); "
+                  f"launches {counts} (K1 0); {len(reduces)} reduces of {sorted(set(reduces))} partials "
+                  f"({n_layers} layers)")
+            replica = bs.model
+            mel_dev = torch.from_numpy(np.stack(mels)).to(dev)
+            noise = torch.randn((TP_BATCH, replica.block.wn_input_length(N_FRAMES), 1), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+            full = N_FRAMES * replica.spect_hop_size
+            with torch.inference_mode():
+                ms = cuda_time_ms(lambda: replica.infer(mel_dev, synth_length=full, noise=noise), iters=5)
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                        counting_reduces([]):
+                    replica.infer(mel_dev, synth_length=full, noise=noise)
+                    torch.cuda.synchronize()
+            busy_ms, n_spans, _ = device_busy(prof)
+            reduce_ms = sum(getattr(ev, "device_time_total", 0.0) for ev in prof.events()
+                            if ev.name == "tp.reduce_add") / 1e3
+            numbers["tp"][label] = {"rel_rms_vs_unsharded": err, "launches": counts, "reduces": len(reduces),
+                                    "ms_cuda_events": ms, "device_busy_ms": busy_ms, "reduce_device_ms": reduce_ms,
+                                    "reduce_share_of_busy": reduce_ms / busy_ms if busy_ms else None}
+            print(f"  (b) {label}: synthesis batch {TP_BATCH} {ms:.2f} ms (CUDA events); device busy {busy_ms:.2f} ms "
+                  f"in {n_spans} activities, the reduces' kernels {reduce_ms:.3f} ms "
+                  f"({100 * reduce_ms / max(busy_ms, 1e-9):.2f} %); no cross-card number: the host has one card",
+                  flush=True)
+            del model, bs, replica
+    finally:
+        os.environ.pop("MBEXWN_TP_AXIS", None)
+
+    # (c) the int8 mode, SPEECH shipped bf16
+    import mbexwn_vocoder_torch.nn.wavenet as wn_module
+
+    inv = inverter("SPEECH", None)
+    cpu_inv = inverter("SPEECH", None, device="cpu")
+    numbers["int8"] = {}
+    records = []
+    try:
+        for B in INT8_BATCHES:
+            mels = [make_mel(N_FRAMES, 80, SEED + 150 + i) for i in range(B)]
+            mel_b = np.concatenate(mels)
+            noise = np.random.RandomState(SEED + 151).randn(*inv.noise_shape(mel_b)).astype(np.float32)
+            os.environ.pop(quant.QUANT_ENV, None)
+            y16 = inv.synth_from_mel(mel_b, noise=noise)
+            os.environ[quant.QUANT_ENV] = "int8"
+            inv.synth_from_mel(mel_b, noise=noise)  # warm-up: quantizes the weights once
+            torch.cuda.synchronize()
+            n_mm = quant.int_mm_calls
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with recording_int8_layers(records):
+                y8 = inv.synth_from_mel(mel_b, noise=noise)
+            counts = dict(kernel_lib.launches)
+            n_mm = quant.int_mm_calls - n_mm
+            add_launches(counts)
+            # the held check: every int8 layer of that synthesis against the CPU's on the very inputs and
+            # quantized weights the card's layer had (the products are exact on both; a value within rounding
+            # of a round-half tie, or of a tanh/sigmoid ulp, may land in the next bin)
+            layer_errs = []
+            for x, cond, weights, dil, act, out in records:
+                cpu_w = tuple(quant.Int8Weight(w.q.cpu(), w.scale.cpu(), None if w.bias is None else w.bias.cpu())
+                              for w in weights)
+                with torch.inference_mode():
+                    ref = wn_module.int8_layer(x.cpu(), None if cond is None else cond.cpu(), cpu_w, dil, act)
+                layer_errs.append(rel_rms(out.float().cpu().numpy(), ref.float().numpy()))
+            records.clear()
+            err_cpu, err_bf16 = max(layer_errs), rel_rms(y8, y16)
+            if B == 1:
+                # readings of the whole synthesis, card against CPU (not held: each bin flip perturbs one value by
+                # a quantization step, the next layers quantize what they are given, and so a rounding
+                # difference anywhere spreads into a different set of bins downstream): the card's F0 handed
+                # to both, bf16; each device's own F0 net, fp32; and the control, bf16 without the int8 mode,
+                # where the two bf16 F0 nets' contours drift the phase of 76,800 oscillator samples apart
+                mel_pad = torch.from_numpy(edge_pad(mel_b, inv._bucket_len(N_FRAMES)))  # as synth_from_mel pads
+                full = mel_pad.shape[1] * inv.hop_size
+                f0 = card_f0(inv.model, mel_pad.to(dev), full)
+                with torch.inference_mode():
+                    y8_f0 = inv.model.infer(mel_pad.to(dev), synth_length=full, F0=f0,
+                                            noise=torch.from_numpy(noise).to(dev)).cpu().numpy()
+                    y8_cpu = cpu_inv.model.infer(mel_pad, synth_length=full, F0=f0.cpu(),
+                                                 noise=torch.from_numpy(noise)).numpy()
+                fp32 = {d: inverter("SPEECH", "", device=d) for d in ("cuda", "cpu")}
+                err_fp32 = rel_rms(fp32["cuda"].synth_from_mel(mel_b, noise=noise),
+                                   fp32["cpu"].synth_from_mel(mel_b, noise=noise))
+                os.environ.pop(quant.QUANT_ENV, None)
+                control = rel_rms(y16, cpu_inv.synth_from_mel(mel_b, noise=noise))
+                os.environ[quant.QUANT_ENV] = "int8"
+                numbers["int8"]["whole_synthesis_card_vs_cpu"] = {
+                    "int8_bf16_card_f0": rel_rms(y8_f0, y8_cpu), "int8_fp32_own_f0": err_fp32,
+                    "bf16_no_int8_own_f0": control}
+                print(f"  (c) whole synthesis, card against CPU (read, not held): int8 bf16 with the card's F0 "
+                      f"{rel_rms(y8_f0, y8_cpu):.3e}; int8 fp32, each device's own F0 net {err_fp32:.3e}; bf16 "
+                      f"without int8, each device's own F0 net {control:.3e}", flush=True)
+            walls = {"int8": [], "bf16": []}
+            for _ in range(10):
+                for mode in ("int8", "bf16"):
+                    if mode == "int8":
+                        os.environ[quant.QUANT_ENV] = "int8"
+                    else:
+                        os.environ.pop(quant.QUANT_ENV, None)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    inv.synth_from_mel(mel_b, noise=noise)
+                    walls[mode].append(1e3 * (time.perf_counter() - t0))
+            os.environ[quant.QUANT_ENV] = "int8"
+            busy = {}
+            for mode in ("bf16", "int8"):  # where the device time goes, one synthesis each under the profiler
+                os.environ[quant.QUANT_ENV] = "int8" if mode == "int8" else ""
+                busy[mode] = device_activity(lambda: inv.synth_from_mel(mel_b, noise=noise))
+            os.environ[quant.QUANT_ENV] = "int8"
+            top = sorted(busy["int8"][2].items(), key=lambda kv: -kv[1][0])[:6]
+            print(f"  (c) batch {B}: device busy int8 {busy['int8'][0]:.2f} ms in {busy['int8'][1]} activities, bf16 "
+                  f"{busy['bf16'][0]:.2f} ms in {busy['bf16'][1]}; int8's top kernels: "
+                  + "; ".join(f"{ms:.2f} ms {n}x {name[:60]}" for name, (ms, n) in top), flush=True)
+            row = numbers["int8"][f"batch {B}"] = {
+                "device_busy_ms": {m: v[0] for m, v in busy.items()},
+                "device_activities": {m: v[1] for m, v in busy.items()},
+                "int8_top_kernels": [[name, ms, n] for name, (ms, n) in top],
+                "worst_layer_rel_rms_vs_cpu_int8": err_cpu, "layer_rel_rms_vs_cpu_int8": layer_errs,
+                "rel_rms_vs_card_bf16": err_bf16, "int_mm_calls": n_mm,
+                "launches": counts, "ms_host_int8": float(np.median(walls["int8"])),
+                "ms_host_bf16": float(np.median(walls["bf16"])), "ms_host_int8_passes": walls["int8"],
+                "ms_host_bf16_passes": walls["bf16"]}
+            check(y8.shape == y16.shape and np.isfinite(y8).all() and err_cpu <= 2e-2 and err_bf16 > 1e-3
+                  and n_mm == 2 * 12 * 2 and counts == {"wavenet_layer": 0, "oscillator": 1},
+                  f"(c) int8 SPEECH batch {B}, {N_FRAMES} frames: each of its {len(layer_errs)} int8 layers against "
+                  f"the CPU's on the same inputs, worst rel-RMS {err_cpu:.3e} (<= 2e-2); the synthesis vs card bf16 "
+                  f"{err_bf16:.3e} (> 1e-3); torch._int_mm calls {n_mm} "
+                  f"(2 x 12 x 2); launches {counts}; synthesis {row['ms_host_int8']:.2f} ms int8 against "
+                  f"{row['ms_host_bf16']:.2f} ms bf16 (host clock, median of 10 alternating rounds; [5]'s bf16 "
+                  f"{synth_ms:.2f} ms)")
+        from mbexwn_vocoder_torch.compat.audio_io import read_wav
+        from mbexwn_vocoder_torch.quality import V2_EVAL_SETS, round_trip, summarize
+        from mbexwn_vocoder_torch.training.synthetic import make_corpus
+
+        corpus, seed, style = V2_EVAL_SETS["SPEECH"]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = make_corpus(os.path.join(tmp, corpus), n_utterances=8, seed=seed, style=style, quiet=True)
+            sounds = [(os.path.basename(p), *read_wav(p)) for p in paths]
+        means = summarize(round_trip(inv, sounds, depth=3, batch=8))
+        bf16_l1 = serving["quality"]["mean_mel_L1_dB"]
+        numbers["int8"]["quality"] = {**means, "bf16_mean_mel_L1_dB": bf16_l1}
+        print(f"  (c) quality round trip, SPEECH int8, {corpus} (8 files, batch 8): mean mel-L1 "
+              f"{means['mean_mel_L1_dB']:.3f} dB against bf16 {bf16_l1:.3f} ([7]; "
+              f"{means['mean_mel_L1_dB'] - bf16_l1:+.3f} dB; recorded, not gated)", flush=True)
+
+        # (d) the int8 artifact, batch 1, loaded in a fresh process
+        mel1 = make_mel(N_FRAMES, 80, SEED + 160)
+        direct = inv.synth_from_mel(mel1)[None]  # the serving noise: a generator seeded 0, as the program holds
+        t0 = time.perf_counter()
+        blob = export_synthesis(inv.model, T_mel=N_FRAMES, batch_size=1, platforms=("cuda",))
+        export_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop(quant.QUANT_ENV, None)
+    bf16_direct = inv.synth_from_mel(mel1)[None]
+    import io
+
+    meta_len = int.from_bytes(blob[len(b"MBEXWN_TORCH_AOT1\n"):len(b"MBEXWN_TORCH_AOT1\n") + 8], "little")
+    meta = json.loads(blob[len(b"MBEXWN_TORCH_AOT1\n") + 8:len(b"MBEXWN_TORCH_AOT1\n") + 8 + meta_len])
+    graph = torch.export.load(io.BytesIO(blob[-meta["program_bytes"][0]:])).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "int8.pt2aot"), "wb") as f:
+            f.write(blob)
+        np.save(os.path.join(work, "int8_mel.npy"), mel1)
+        with open(os.path.join(work, "cases.json"), "w") as f:
+            json.dump([{"name": "int8", "file": "int8.pt2aot", "mel": "int8_mel.npy"}], f)
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--artifact-child", work],
+                               capture_output=True, text=True, timeout=600)
+        ok = child.returncode == 0 and os.path.exists(os.path.join(work, "child.json"))
+        if ok:
+            with open(os.path.join(work, "child.json")) as f:
+                got = json.load(f)
+            out = np.load(os.path.join(work, "int8.npy"))
+    if not ok:
+        check(False, f"(d) the int8 artifact process failed (exit {child.returncode}):\n{child.stderr[-4000:]}")
+        return numbers
+    g = got["int8"]
+    add_launches(g["launches"])
+    err, err_bf16 = rel_rms(out, direct), rel_rms(out, bf16_direct)
+    bit_equal = bool(np.array_equal(out, direct))
+    numbers["int8_artifact"] = {"export_s": export_s, "bytes": len(blob), "load_s": g["load_s"],
+                                "launches": g["launches"], "int_mm_nodes": targets.count("aten._int_mm.default"),
+                                "rel_rms_vs_direct_int8": err, "rel_rms_vs_bf16": err_bf16, "bit_equal": bit_equal,
+                                "ms_cuda_events": g["ms_cuda_events"], "meta_wn_quant": g["meta"].get("wn_quant")}
+    check(not got["imported_model_modules"] and g["launches"] == {"wavenet_layer": 0, "oscillator": 1}
+          and targets.count("aten._int_mm.default") == 48 and g["meta"].get("wn_quant") == "int8"
+          and (bit_equal or (err < 1e-2 and err < 0.1 * err_bf16)),
+          f"(d) int8 artifact, batch 1 (export {export_s:.1f} s, {len(blob)} bytes, "
+          f"{targets.count('aten._int_mm.default')} torch._int_mm nodes), loaded in a process without the model "
+          f"code ({g['load_s']:.2f} s): against the direct int8 synthesis rel-RMS {err:.3e}, bit-equal {bit_equal} "
+          f"(else < 1e-2 and < 0.1 x {err_bf16:.3e}, its distance to bf16); launches {g['launches']}; call "
+          f"{g['ms_cuda_events']:.2f} ms (CUDA events)")
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2390,18 +2838,26 @@ def main() -> int:
     slice9["seconds"] = time.perf_counter() - t0
     slice9["card"] = card
     print(f"  phase [12] {slice9['seconds']:.1f} s", flush=True)
+    # ---- 13. every route of the WaveNet stack: the branches, tensor parallelism, the int8 mode and artifact
+    print("[13] routes: the branches K1 does not take, tensor parallelism, int8 (SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    routes = phase_routes(inverter, check, dev, synth_ms, serving)
+    routes["seconds"] = time.perf_counter() - t0
+    routes["card"] = card
+    print(f"  phase [13] {routes['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
     # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
     # model's syntheses ([9](d)), the CLI export's synthesis ([10](a)), and [11]'s: the data-parallel CLI
     # export's synthesis and the bf16 mesh passes of BatchSynthesizer and synth_batched; [12]'s: one call of
     # each loaded artifact (in the artifact process) and the syntheses under profile_trace, debug_nans and
-    # dump_controls
+    # dump_controls; [13]'s: each branch model's and the gtu reference's fp32 synthesis, the standalone
+    # per-layer stack, the tensor-parallel and int8 syntheses, and one call of the int8 artifact
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
                 + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k]
                 + slice9["export"].get("launches", {}).get(k, 0) + slice9["observability"]["launches"][k]
-                for k in main_launches}
+                + routes["launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -2431,6 +2887,7 @@ def main() -> int:
     print("training_driver: " + json.dumps(cli_run), flush=True)
     print("parallel: " + json.dumps(parallel), flush=True)
     print("export_remat_observability: " + json.dumps(slice9, default=str), flush=True)
+    print("routes: " + json.dumps(routes, default=str), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

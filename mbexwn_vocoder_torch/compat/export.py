@@ -10,8 +10,9 @@ registrations (ops/wavenet_stack.py, ops/oscillator.py) and nothing of
 What is exported: `infer(mel, synth_length=T_mel*hop)` at a fixed
 (batch, T_mel), traced by `torch.export.export(strict=False)` under
 `no_grad`, from a copy of the model whose parameters are frozen and whose
-WaveNet stacks hold their weights packed in the kernel layout
-(`WaveNetAE.freeze_stack_`), so a call does not lay them out again.  Each
+WaveNet stacks hold their weights in the form their route reads (packed in
+the kernel layout, or quantized in the int8 mode;
+`WaveNetAE.freeze_stack_`), so a call does not make them again.  Each
 stack is one `mbexwn::wavenet_stack` node and the oscillator one
 `mbexwn::oscillate` node; their CUDA implementations build the kernels'
 launch arguments from wherever the loaded weights lie.
@@ -24,14 +25,18 @@ launch arguments from wherever the loaded weights lie.
 - Precision: the fp32 policy (`ops.precision.exact_fp32`) is a set of
   global flags that no graph records, so the loaded callable sets it
   itself.  The compute dtypes in force at export time (`MBEXWN_WN_DTYPE`,
-  `MBEXWN_SUBNET_DTYPE` or the config) are baked in and recorded in meta.
+  `MBEXWN_SUBNET_DTYPE` or the config) are baked in and recorded in meta,
+  and so is the int8 mode (`MBEXWN_WN_QUANT=int8` at export time): its
+  stacks are frozen with their quantized weights (int8, scales, fp32
+  biases), and the program quantizes the activations and runs the int8
+  products (ops/quant.py) on every call.
 - Platforms: one program per platform named (`cuda`, `cpu`), the model's
   device by default; loading on a platform the artifact lacks raises.
 
 File format: `_MAGIC`, the length of the meta block (8 bytes, little
 endian), the meta block (JSON: batch_size, T_mel, mel_channels, hop_size,
-sample_rate, platforms, program_bytes, wn_dtype, subnet_dtype, noise,
-torch), then each platform's `torch.export.save` bytes in the order of
+sample_rate, platforms, program_bytes, wn_dtype, subnet_dtype, wn_quant,
+noise, torch), then each platform's `torch.export.save` bytes in the order of
 `platforms`.
 """
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 
 from ..ops import oscillator, wavenet_stack  # noqa: F401  (registers the mbexwn:: ops)
 from ..ops.precision import exact_fp32
+from ..ops.quant import wn_quant_mode
 from ..platform import resolve_device
 
 _MAGIC = b"MBEXWN_TORCH_AOT1\n"
@@ -70,14 +76,16 @@ class _Synthesis(torch.nn.Module):
 
 def _serving_copy(model, device: torch.device):
     """A frozen copy of `model` on `device`: eval mode, no parameter
-    requiring grad, every WaveNet stack packed in its compute dtype."""
+    requiring grad, every WaveNet stack on the kernel's or the int8 route
+    frozen in its compute dtype (`freeze_stack_`).  A stack on the layer
+    loop keeps its convs, and the program computes that route from them."""
     from ..nn.wavenet import WaveNetAE
 
     program = copy.deepcopy(model).to(device).eval()
     program.fold_()
     program.requires_grad_(False)
     for m in program.modules():
-        if isinstance(m, WaveNetAE):
+        if isinstance(m, WaveNetAE) and m.route() != "layers":
             m.freeze_stack_(m.compute_dtype or torch.float32)
     return program
 
@@ -112,6 +120,7 @@ def export_synthesis(model, T_mel: int, batch_size: int = 1, platforms: Optional
         "program_bytes": [len(p) for p in programs],
         "wn_dtype": str(blk.wn_compute_dtype or torch.float32).replace("torch.", ""),
         "subnet_dtype": str(blk.subnet_compute_dtype or torch.float32).replace("torch.", ""),
+        "wn_quant": wn_quant_mode() or None,
         "noise": "normal (B, L, 1), generator seeded 0" if blk.pp_mod_subnet_noise_channel_sigma else None,
         "torch": torch.__version__,
     }

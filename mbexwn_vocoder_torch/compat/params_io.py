@@ -8,7 +8,9 @@ the JAX paths with "/" read as ".", a folded conv `kernel` (width, in, out)
 becomes the OIW `weight` of the folded form, the unfolded `v` (width, in,
 out) becomes the trainable form's OIW `v`, `g` stays `g` and the
 `_equalized_lr` flag a 0-d bool buffer; `b` becomes `bias`; PReLU `alpha`
-and the `wavetables` keep their names and layout.  `params_to_jax` is its
+and the `wavetables` keep their names and layout.  The WaveNet's own names
+map the same way: channel groups (`conv1D_{i}g{g}`, `res_skip_{i}g{g}`),
+pre-conditioning convs (`precond_{i}`) and the per-layer `cond` conv.  `params_to_jax` is its
 exact inverse, and `save_params` writes the registry's flat npz, which
 both packages' `load_params` read.
 """

@@ -248,7 +248,8 @@ class MBExWN(nn.Module):
                 in_channels, self.mel_channels, n_channels=int(n_channels * chan_fac),
                 up_sample=None if ups <= 1 else True, up_down_factor=ups, cond_kernel_size=cond_ks,
                 cond_conv_upsampling=int(curr_pulse_rate // (spect_rate * cond_lin)), cond_lin_upsampling=cond_lin,
-                compute_dtype=self.wn_compute_dtype, name=block_name, **pp_mod))
+                compute_dtype=self.wn_compute_dtype, tp_axis=os.environ.get("MBEXWN_TP_AXIS") or None,
+                name=block_name, **pp_mod))
             self.block_names.append(block_name)
             in_channels = pp_mod["n_out_channels"]
             curr_pulse_rate *= ups

@@ -11,8 +11,11 @@ dispatched while the previous one is read back.
 Over a mesh (`parallel.mesh.make_mesh`), a group holds up to 8 utterances
 per shard; it is padded to a multiple of the shard count (as the JAX
 package pads its batch; here with copies of its last utterance) and split into
-contiguous shards, one per mesh device, each synthesised by that device's
-replica of the model.  Every shard of a group is enqueued on its device
+contiguous shards, one per row of the mesh's "data" axis, each synthesised
+by that row's replica of the model.  With a "model" axis, a replica built
+with `MBEXWN_TP_AXIS=model` splits its WaveNet channels over its row's
+devices (parallel/tensor.py); without the variable its weights are
+replicated and it runs on the row's first device.  Every shard of a group is enqueued on its device
 before any is read back, and the results are gathered in request order.
 The noise channel of each row is the one the same request draws without a
 mesh (row i of one draw per run of 8, from a generator seeded 0 on the

@@ -111,7 +111,11 @@ class StreamingSynthesizer:
         then has an algorithmic latency of chunk_frames + halo_right frames.
         mesh: `synth_batched` splits its uniform chunk group over the mesh's
         devices; everything else runs on its first device (`device` is then
-        not read)."""
+        not read).  The mesh is a data mesh: a "model" axis raises, as
+        streaming keeps its data-only mesh in the JAX package too."""
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError(f"StreamingSynthesizer: a mesh with a model axis ({mesh.shape}) is not taken; "
+                             f"streaming shards over the data axis only")
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)

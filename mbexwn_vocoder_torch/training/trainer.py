@@ -56,6 +56,9 @@ factor reproduces the JAX package's learning-rate schedule (a linear warm-up
 joined to a cosine, exponential or constant decay that restarts its count
 at the boundary; update k uses the schedule at k, counted from 0), after
 global-norm clipping as the JAX package computes it.
+
+The int8 mode (`MBEXWN_WN_QUANT=int8`, ops/quant.py) is inference only:
+rounding has no gradient, so the trainer refuses to start while it is set.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.precision import exact_fp32
+from ..ops.quant import QUANT_ENV, wn_quant_mode
 from ..ops.stft_ops import istft, stft
 from ..platform import resolve_device
 from .losses import (SpectLossComponents, f0_pred_loss_mask, f0_prediction_loss_parts, f0_rec_loss_mask,
@@ -169,6 +173,9 @@ def fast_forward_opt_state(trainer, step: int) -> None:
 class Trainer:
     def __init__(self, model, hparams: Dict, device: Union[str, torch.device] = "cuda", seed: int = 0,
                  group: Optional[dist.ProcessGroup] = None):
+        if wn_quant_mode() == "int8":
+            raise RuntimeError(f"Trainer: {QUANT_ENV}=int8 is an inference-only mode (rounding has no gradient); "
+                               f"unset it to train")
         self.device = resolve_device(device)
         self.group = group
         self.world = 1 if group is None else dist.get_world_size(group)

@@ -31,7 +31,12 @@ step on the card equals the CPU's.  Two cards (skipped with fewer): both
 kernels launch on cuda:1 after cuda:0, under the tensors' device.  The
 kernels as `torch.library` ops launch or raise on CUDA tensors; a tiny
 model's exported program on the card launches both and equals the model's
-synthesis; the fp64 remat step on the card equals the step without.
+synthesis; the fp64 remat step on the card equals the step without.  Every
+route of the WaveNet stack: the branches the kernel does not take (gates
+glu/gfu/gsu, channel groups, kernel size 5) synthesise on the card as on
+the CPU without a K1 launch; tensor parallelism over a model axis of the
+one card equals the unsharded model; the int8 products at the registry
+widths are exact and the int8 mode equals the CPU's.
 """
 import numpy as np
 import pytest
@@ -534,3 +539,106 @@ def test_remat_step_on_the_card_equals_the_step_without(card, monkeypatch):
     assert abs(out[True][0] / out[False][0] - 1) <= 1e-12
     bad, _ = hold_leaves(out[True][1], out[False][1], 1e-12)
     assert not bad, bad
+
+
+def _routes_model(card, monkeypatch, tp=False, **pp_mod):
+    """SPEECH at 64 channels and 4 layers (pp_mod_subnet edited), random
+    init seeded, fp32: (the model on the CPU, the same on the card)."""
+    import copy
+
+    from mbexwn_vocoder_torch.models import create_model
+    from mbexwn_vocoder_torch.training.parity import tiny_hparams
+
+    monkeypatch.setenv("MBEXWN_WN_DTYPE", "")
+    monkeypatch.setenv("MBEXWN_SUBNET_DTYPE", "")
+    if tp:
+        monkeypatch.setenv("MBEXWN_TP_AXIS", "model")
+    hp = tiny_hparams()
+    hp["mbexwn_config"]["pp_mod_subnet"].update(n_channels=64, n_layers=4, **pp_mod)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    model.init(torch.Generator().manual_seed(0))
+    model = model.eval()
+    return model, copy.deepcopy(model).to(card)
+
+
+def _synth_both(model_cpu, model, card, T_mel=32, B=2):
+    mel = torch.from_numpy(np.random.RandomState(1).randn(B, T_mel, 80).astype(np.float32) * 0.5 - 4)
+    noise = torch.from_numpy(np.random.RandomState(2).randn(B, model.block.wn_input_length(T_mel), 1)
+                             .astype(np.float32))
+    with torch.inference_mode():
+        ref = model_cpu.infer(mel, synth_length=T_mel * 300, noise=noise)
+        kernel_lib.reset_launch_counts()
+        got = model.infer(mel.to(card), synth_length=T_mel * 300, noise=noise.to(card))
+        torch.cuda.synchronize()
+    return got.cpu(), ref, dict(kernel_lib.launches)
+
+
+@pytest.mark.parametrize("pp_mod", [dict(activation="glu"), dict(activation="gfu"), dict(activation="gsu"),
+                                    dict(n_ch_groups=2), dict(kernel_size=5)], ids=str)
+def test_branches_synthesise_on_the_card(card, monkeypatch, pp_mod):
+    """A stack the kernel does not take (before the port of the branches a
+    non-gtu gate raised here) runs the layer loop on the card: equal to the
+    CPU within 1e-5 rel-RMS in fp32, with no K1 launch."""
+    model_cpu, model = _routes_model(card, monkeypatch, **pp_mod)
+    got, ref, counts = _synth_both(model_cpu, model, card)
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert counts == {"wavenet_layer": 0, "oscillator": 1} and rel <= 1e-5, (counts, rel)
+
+
+def test_tensor_parallel_on_the_card(card, monkeypatch):
+    """MBEXWN_TP_AXIS=model over a 1 x 2 mesh of the one card: equal to the
+    same model unsharded within 1e-5 in fp32, no K1 launch, one reduce a
+    layer through torch.cuda.comm."""
+    from mbexwn_vocoder_torch.parallel import tensor
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
+
+    model_cpu, model = _routes_model(card, monkeypatch, tp=True)
+    got_plain, _, _ = _synth_both(model_cpu, model, card)
+    replica = replicate(model, make_mesh(n_model=2, devices=["cuda:0", "cuda:0"]))[torch.device("cuda", 0)]
+    calls = []
+    real = tensor.comm.reduce_add
+    monkeypatch.setattr(tensor.comm, "reduce_add", lambda *a, **k: calls.append(1) or real(*a, **k))
+    got, _, counts = _synth_both(model_cpu, replica, card)
+    rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
+    assert counts == {"wavenet_layer": 0, "oscillator": 1} and len(calls) == 2 * 4 and rel <= 1e-5, (counts, rel)
+    assert all(getattr(replica.block, n).wavenet.tp_devices == (torch.device("cuda", 0),) * 2
+               for n in replica.block.block_names)
+
+
+@pytest.mark.parametrize("C", [320, 340])
+def test_int8_products_on_the_card(card, C):
+    """torch._int_mm at the registry widths, padded where C=340 needs it,
+    equals the integer product on the CPU exactly; a card int8 conv equals
+    the CPU's within 1e-6 (only the fp32 dequantization may round apart)."""
+    from mbexwn_vocoder_torch.ops.quant import dilated_conv1d_k3_int8, int8_matmul
+
+    g = torch.Generator().manual_seed(C)
+    for K, N, M in ((3 * C, 2 * C, 5), (C, C, 300)):
+        xq = torch.randint(-127, 128, (2, M, K), generator=g, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+        assert torch.equal(int8_matmul(xq.to(card), wq.to(card)).cpu(), (xq.long() @ wq.long().t()).int())
+    x = torch.randn(2, 400, C, generator=g)
+    w = torch.randn(2 * C, C, 3, generator=g) * 0.05
+    got = dilated_conv1d_k3_int8(x.to(card), w.to(card), None, 4).cpu()
+    ref = dilated_conv1d_k3_int8(x, w, None, 4)
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_int8_mode_on_the_card(card, monkeypatch):
+    """MBEXWN_WN_QUANT=int8: the card's synthesis equals the CPU's int8
+    within 2e-2 (the int32 products are exact; a value within rounding of
+    a round-half tie, or of its sample's abs-max, may fall into the next
+    bin: 2.3e-3 measured in fp32 on an H100), runs 2 products a layer and no K1
+    launch, and differs from the fp32 synthesis."""
+    from mbexwn_vocoder_torch.ops import quant
+
+    model_cpu, model = _routes_model(card, monkeypatch)
+    got_fp, _, counts_fp = _synth_both(model_cpu, model, card)
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    before = quant.int_mm_calls
+    got, ref, counts = _synth_both(model_cpu, model, card)
+    assert counts_fp == {"wavenet_layer": 8, "oscillator": 1} and counts == {"wavenet_layer": 0, "oscillator": 1}
+    assert quant.int_mm_calls - before == 2 * (2 * 2 * 4)  # the CPU's and the card's synthesis
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    rel_fp = float(torch.sqrt(torch.mean((got - got_fp) ** 2) / torch.mean(got_fp ** 2)))
+    assert rel <= 2e-2 and rel_fp > 1e-3, (rel, rel_fp)

@@ -24,6 +24,7 @@ directory, so both packages load the same weights.
   `cli.export_from_checkpoint` on that run's checkpoint writes the run's
   own export.
 """
+import io
 import json
 import os
 import shutil
@@ -179,6 +180,49 @@ def test_load_refuses_what_is_not_its_artifact(model_dir, artifact):
     call, _ = load_exported(artifact, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         call(np.zeros((2, T_MEL, 80), np.float32))
+
+
+def _graph_targets(blob):
+    """The call targets of an artifact's (first) program."""
+    meta = load_exported(blob, device="cpu")[1]
+    program = torch.export.load(io.BytesIO(blob[-meta["program_bytes"][0]:]))
+    return [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+
+
+def test_export_int8_serving_artifact(model_dir, port_model, artifact, monkeypatch):
+    """The counterpart of tests/test_export.py::test_export_int8_serving_artifact:
+    MBEXWN_WN_QUANT=int8 at export time bakes the int8 route into the
+    program (int8 products, no kernel node).  The artifact equals the
+    direct int8 synthesis bit for bit (so it also meets JAX's contract,
+    < 1e-2 and < 0.1 x its distance to the fp program), tracks JAX's int8
+    infer within 0.1 x JAX's own int8-against-fp distance, and the model
+    left behind is unchanged.  The program holds the quantized weights
+    (int8 buffers), not the convs' fp32 weights."""
+    _, jmodel, params = model_dir
+    mel = _mel(2)
+    y_fp = load_exported(artifact, device="cpu")[0](mel).numpy()
+    j_fp = np.asarray(jmodel.infer(params, jax.numpy.asarray(mel), synth_length=T_MEL * HOP))
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    blob = export_synthesis(port_model, T_mel=T_MEL, batch_size=1)
+    call, meta = load_exported(blob, device="cpu")
+    with torch.no_grad():
+        y_q = port_model.infer(torch.from_numpy(mel), synth_length=T_MEL * HOP).numpy()
+    y_aot = call(mel).numpy()
+    j_q = np.asarray(jmodel.infer(params, jax.numpy.asarray(mel), synth_length=T_MEL * HOP))
+    monkeypatch.delenv("MBEXWN_WN_QUANT")
+    assert meta["wn_quant"] == "int8"
+    assert np.array_equal(y_aot, y_q)
+    assert rel_rms(y_aot, y_fp) > 1e-3
+    assert rel_rms(y_aot, j_q) < 0.1 * rel_rms(j_q, j_fp), (rel_rms(y_aot, j_q), rel_rms(j_q, j_fp))
+    targets, fp_targets = _graph_targets(blob), _graph_targets(artifact)
+    assert targets.count("aten._int_mm.default") == 2 * 2 * 2  # 2 products a layer, 2 layers, 2 blocks
+    assert "mbexwn.wavenet_stack.default" not in targets and targets.count("mbexwn.oscillate.default") == 1
+    assert fp_targets.count("mbexwn.wavenet_stack.default") == 2
+    program = torch.export.load(io.BytesIO(blob[-meta["program_bytes"][0]:]))
+    int8_buffers = [k for k, v in program.state_dict.items() if v.dtype == torch.int8]
+    assert len(int8_buffers) == 2 * 2 * 2 and not any(".conv1D_" in k for k in program.state_dict)
+    with torch.no_grad():
+        assert np.array_equal(port_model.infer(torch.from_numpy(mel), synth_length=T_MEL * HOP).numpy(), y_fp)
 
 
 # ---- the kernel ops

@@ -189,7 +189,8 @@ def test_no_silent_cpu_fallback():
 def test_synthesis_over_a_mesh_takes_the_mesh_devices():
     """A mesh replaces `device`: the synthesizers run on its first device
     and hold one replica per distinct device; a mesh asks for every card
-    unless it is given devices, and a model axis is not ported."""
+    unless it is given devices; a model axis makes a 2-D grid, which batch
+    synthesis takes and streaming refuses."""
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh
 
     hp = _speech_hparams()
@@ -198,8 +199,11 @@ def test_synthesis_over_a_mesh_takes_the_mesh_devices():
     mesh = make_mesh(devices=["cpu", "cpu"])
     for synth in (StreamingSynthesizer(model, mesh=mesh), BatchSynthesizer(model, mesh=mesh)):
         assert synth.device == torch.device("cpu") and list(synth.replicas) == [torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        make_mesh(n_model=2, devices=["cpu", "cpu"])
+    grid = make_mesh(n_model=2, devices=["cpu", "cpu"])
+    assert grid.shape == {"data": 1, "model": 2} and grid.grid == ((torch.device("cpu"),) * 2,)
+    assert BatchSynthesizer(model, mesh=grid).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="data axis only"):
+        StreamingSynthesizer(model, mesh=grid)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
@@ -232,7 +236,6 @@ def _speech_hparams():
     (lambda mc: mc.update(pulse_channels_use_pqmf=True), "item 13"),
     (lambda mc: mc["wavetable_config"].update(use_sinusoid_as_fun=True), "item 13"),
     (lambda mc: mc["wavetable_config"].update(add_subharm_chans=2), "item 13"),
-    (lambda mc: mc["pp_mod_subnet"].update(n_ch_groups=2), "item 13"),
     (lambda mc: mc.update(normalize_rms_num_smooth_iters=2), "item 13"),
 ])
 def test_unported_branches_raise(edit, item):
@@ -264,10 +267,22 @@ def test_pp_subnet_training_only_builds_the_f0_subnet_alone():
 
 
 def test_unported_wavenet_branches_raise():
-    base = dict(n_channels=8, n_out_channels=4, cond_conv_upsampling=1)
-    for kw, item in ((dict(cond_conv_upsampling=None), "item 13"), (dict(kernel_size=5), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            WaveNetAE(3, 5, **{**base, **kw})
+    """Per-layer conditioning and kernel size 5 were refused before they
+    were ported; they now build and synthesise (on the layer loop), and
+    so does a model with channel groups (tests/test_torch_wavenet_branches.py
+    holds them against JAX).  An even kernel size is refused, as in JAX."""
+    base = dict(n_channels=8, n_out_channels=4, cond_conv_upsampling=2, cond_lin_upsampling=2)
+    for kw, T_mel in ((dict(cond_conv_upsampling=None), 16), (dict(kernel_size=5), 4)):
+        net = WaveNetAE(3, 5, **{**base, **kw})
+        with torch.no_grad():
+            y = net(torch.randn(1, 16, 3), torch.randn(1, T_mel, 5))
+        assert net.route() == "layers" and y.shape == (1, 16, 4) and bool(y.isfinite().all())
+    with pytest.raises(ValueError, match="odd"):
+        WaveNetAE(3, 5, **{**base, "kernel_size": 4})
+    hp = copy.deepcopy(_speech_hparams())
+    hp["mbexwn_config"]["pp_mod_subnet"].update(n_ch_groups=2)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    assert all(getattr(model.block, n).wavenet.n_ch_groups == 2 for n in model.block.block_names)
 
 
 def test_unknown_config_key_is_refused():

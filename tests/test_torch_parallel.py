@@ -79,8 +79,12 @@ def _cpu_mesh(n):
 
 
 def test_mesh_model_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13d.*tensor parallelism"):
-        make_mesh(n_model=2, devices=["cpu", "cpu"])
+    """The model axis is ported (tests/test_torch_tensor_parallel.py): a
+    mesh is an n_data x n_model grid, row by row, as the JAX package's."""
+    mesh = make_mesh(n_model=2, devices=["cpu"] * 4)
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.devices == (torch.device("cpu"),) * 2
+    assert mesh.row(torch.device("cpu")) == (torch.device("cpu"),) * 2
+    assert make_mesh(n_data=1, n_model=3, devices=["cpu"] * 4).shape == {"data": 1, "model": 3}
 
 
 def test_mesh_defaults_to_every_card_and_never_to_the_cpu():
