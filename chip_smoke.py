@@ -210,21 +210,44 @@ prints no result line:
      beside [7]'s (recorded); (d) the int8 artifact at batch 1 in a fresh
      process against the direct int8 synthesis (bit-equal, or < 1e-2 and
      < 0.1 x its distance to bf16).
+ 14. the model's opt-in branches, SPEECH full width (C=320, 2 x 12 layers),
+     random init: (a) the sinusoid and analytic-pulse oscillator modes,
+     subharmonic channels, the pulse-channel PQMF fold, no PQMF synthesis,
+     the multiband gains (ps_use_stft false), ps_off, the envelope without
+     cepstral windows, without a range limit, with the cepstral-loss
+     constraint, with energy preservation, internal_fft_over 1, one NormMel
+     with every option, leaky-ReLU subnets with remove_inactive_pad_layers,
+     and equalized LR without weight norm: fp32 card against the port's
+     CPU <= 1e-4 rel-RMS, K1 24 and K2 1 launches a synthesis (the analytic
+     pulse: K2 0), bf16 ms beside the unedited config's in the same round;
+     (b) K2 against its plain version on the subharmonic model's call and
+     the pulse-gain calls (audio <= 1e-5, phase bit-equal), the analytic
+     pulse's phase bit-equal to K2's, K1 against its plain version on the
+     subharmonic, PQMF-fold and equalized-LR models' stack inputs (fp32 <=
+     1e-4, bf16 <= 2e-2), the pulse-gain scans card against CPU; (c)
+     `synth_batched` on 20 s over a 1 x 2 grid of cuda:0 twice with
+     MBEXWN_TP_AXIS=model against mesh=None (fp32 <= 1e-5, bf16 <= 2e-2);
+     (d) the int8 mode under tensor parallelism on that grid, each sharded
+     int8 layer against the unsharded one on the same inputs (<= 2e-3), ms
+     beside unsharded int8 and tensor-parallel bf16; (e) the tiny fp64
+     training step with the envelope's aux losses, card against CPU (loss
+     1e-12, leaves 1e-9).
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, a
 `training_driver:` JSON line with phase [10]'s, a `parallel:` JSON line
 with phase [11]'s, an `export_remat_observability:` JSON line with phase
-[12]'s, a `routes:` JSON line with phase [13]'s, the card's name and
-power limit, a `kernels` JSON line
+[12]'s, a `routes:` JSON line with phase [13]'s, a `branches:` JSON line
+with phase [14]'s, the card's name and power limit, a `kernels` JSON line
 (its launches: the main path of [4], SPEECH bf16, plus one pass of each
 long-form mode of [8](b), the live streams of [8](c), the trained and the
 reloaded model's syntheses of [9](d), the CLI export's synthesis of
 [10](a), and [11]'s: the data-parallel CLI export's synthesis and the bf16
 mesh passes of (d); [12]'s: one call of each loaded artifact and the
 syntheses under profile_trace, debug_nans and dump_controls; [13]'s
-syntheses on every route and the int8 artifact's call; each counted from 0
-just before it), and
+syntheses on every route and the int8 artifact's call; [14]'s branch
+syntheses, pulse-gain calls, streaming passes and int8 synthesis over a
+model axis; each counted from 0 just before it), and
 `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
@@ -2158,9 +2181,10 @@ def card_f0(model, mel, synth_length: int):
         return model.block.generate_f0(mel)
 
 
-def branch_model(edit: dict, wn_dtype, dev):
-    """SPEECH with `pp_mod_subnet` edited, randomly initialised (seeded), with
-    the compute dtype forced as `registry_variant` forces it."""
+def branch_model(edit: dict, wn_dtype, dev, config_edit=None):
+    """SPEECH with `pp_mod_subnet` edited (and `config_edit` applied to its
+    whole mbexwn_config, the NormMel keys included), randomly initialised
+    (seeded), with the compute dtype forced as `registry_variant` forces it."""
     import torch
     from mbexwn_vocoder_torch import get_config_file
     from mbexwn_vocoder_torch.config import read_config
@@ -2173,6 +2197,8 @@ def branch_model(edit: dict, wn_dtype, dev):
             os.environ[var] = wn_dtype
     hp = read_config(get_config_file("SPEECH"))
     hp["mbexwn_config"]["pp_mod_subnet"].update(edit)
+    if config_edit is not None:
+        config_edit(hp["mbexwn_config"])
     model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
     model.init(torch.Generator().manual_seed(SEED + 130))
     return model.eval().to(dev)
@@ -2547,6 +2573,366 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
     return numbers
 
 
+PULSE_PQMF = {"subbands": 6, "taps": 94, "cutoff_ratio": 0.0945, "beta": 9.0}
+NORMMEL_ALL = dict(normalize_use_pinv=True, max_norm_fact=30.0, normalize_compressor_exp=0.5,
+                   normalize_rms_num_smooth_iters=2, normalize_smooth_win_scale=1.5,
+                   normalize_smooth_with_squared_win=False)
+MODEL_BRANCHES = (  # [14](a): (name, pp_mod_subnet edit, mbexwn_config edit)
+    ("use_sinusoid", {}, lambda mc: mc["wavetable_config"].update(use_sinusoid=True)),
+    ("use_sinusoid_as_fun", {}, lambda mc: mc["wavetable_config"].update(use_sinusoid_as_fun=True)),
+    ("add_subharm_chans 2", {}, lambda mc: mc["wavetable_config"].update(add_subharm_chans=2)),
+    ("pulse PQMF fold", {}, lambda mc: mc.update(pulse_channels_use_pqmf=True,
+                                                 pulse_channels_multi_band_config=dict(PULSE_PQMF))),
+    ("no PQMF synthesis", {}, lambda mc: mc.update(pp_mod_subnet_use_pqmf=False)),
+    ("ps_use_stft false", {}, lambda mc: mc.update(ps_use_stft=False)),
+    ("ps_off", {}, lambda mc: mc.update(ps_off=True)),
+    ("no cepstral windows", {}, lambda mc: mc.update(ps_env_order_scale=None)),
+    ("no range limit", {}, lambda mc: mc.update(filter_max_db_range=None)),
+    ("cepstral constraint", {}, lambda mc: mc.update(psns_use_cepstral_loss_constraint=True)),
+    ("preserve energy", {}, lambda mc: mc.update(spect_filters_preserve_energy=True)),
+    ("internal_fft_over 1", {}, lambda mc: mc.update(internal_fft_over=1)),
+    ("NormMel, every option", {}, lambda mc: mc.update(**NORMMEL_ALL)),
+    ("leaky ReLU, remove_inactive_pad_layers", {}, lambda mc: mc.update(use_prelu=False,
+                                                                       remove_inactive_pad_layers=True)),
+    ("equalized LR without weight norm", dict(use_weight_norm=False, use_equalized_lr=True), None),
+)
+K1_HELD_BRANCHES = ("add_subharm_chans 2", "pulse PQMF fold", "equalized LR without weight norm")  # [14](b)
+LONG_FORM_FRAMES, LONG_FORM_CHUNK, LONG_FORM_HALO = 1600, 512, 48  # [14](c): 20 s in [8](b)'s chunks
+
+
+@contextlib.contextmanager
+def recording_k2(store: list):
+    """A context in which the model's oscillator calls (models/mbexwn.py's
+    `oscillate`) run as before and each keeps a copy of its inputs in
+    `store`, so that K2 can be held against its plain version on them
+    after the path ran."""
+    import mbexwn_vocoder_torch.models.mbexwn as model_module
+
+    real = model_module.oscillate
+
+    def recording(f0, tables, *consts, phase_offset=None, return_phase=False):
+        store.append((f0.clone(), tables, consts, None if phase_offset is None else phase_offset.clone()))
+        return real(f0, tables, *consts, phase_offset=phase_offset, return_phase=return_phase)
+
+    model_module.oscillate = recording
+    try:
+        yield store
+    finally:
+        model_module.oscillate = real
+
+
+@contextlib.contextmanager
+def recording_sharded_int8(store: list):
+    """A context in which tensor parallelism's int8 layers
+    (`parallel.tensor.sharded_int8_layer`) run as before and each call
+    appends (x, its cond rows, its shards, dilation, activation, output)."""
+    from mbexwn_vocoder_torch.parallel import tensor
+
+    real = tensor.sharded_int8_layer
+
+    def recording(x, cond, shards, devices, activation, dilation):
+        out = real(x, cond, shards, devices, activation, dilation)
+        store.append((x.clone(), None if cond is None else [c.clone() for c in cond], shards, dilation, activation,
+                      out.clone()))
+        return out
+
+    tensor.sharded_int8_layer = recording
+    try:
+        yield store
+    finally:
+        tensor.sharded_int8_layer = real
+
+
+def phase_branches(check, dev, synth_ms: float):
+    """Phase [14]: the model's opt-in branches, SPEECH full width (C = 320,
+    2 x 12 layers), random init seeded like [13](a)'s.  (a) each branch of
+    `MODEL_BRANCHES`: fp32 card against the port's CPU at ROUTE_CPU_FRAMES
+    (<= 1e-4 rel-RMS, the same injected noise), K1 and K2 launches per
+    synthesis (24 and 1; the analytic pulse of use_sinusoid_as_fun 24 and
+    0), bf16 synthesis ms by CUDA events at N_FRAMES beside the unedited
+    config's in the same round.  (b) the kernels on their new inputs: K2
+    against `oscillate_plain` on the subharmonic model's and the pulse-gain
+    calls (audio <= 1e-5, phase bit-equal on the card and the CPU); the
+    analytic pulse's phase (`oscillator_phase`) bit-equal to K2's; K1
+    against `wavenet_stack_plain` on the stack inputs of the subharmonic,
+    PQMF-fold and equalized-LR models (fp32 <= 1e-4, bf16 <= 2e-2); the
+    pulse-gain scans card against CPU (the hold and the average, whose
+    cumsum runs in fp64, bit-equal).  (c) streaming over [13](b)'s 1 x 2 grid
+    of the one card, MBEXWN_TP_AXIS=model, the shipped weights:
+    `synth_batched` on 20 s of long form against mesh=None (fp32 <= 1e-5,
+    bf16 <= 2e-2), the reduces and the launches.  (d) the int8 mode under
+    tensor parallelism on the same grid, shipped bf16, batch 1, 512
+    frames: each sharded int8 layer against the unsharded int8 layer on the
+    same inputs (<= 2e-3), the whole synthesis against unsharded int8
+    (read), torch._int_mm calls, the reduces, ms beside unsharded int8 and
+    tensor-parallel bf16.  (e) the tiny fp64 training step with both aux
+    losses of the envelope (`training.parity.card_against_cpu` with the
+    cepstral constraint, energy preservation and a gain-loss weight): loss
+    within 1e-12, every leaf within 1e-9.  No number crosses cards: the
+    host has one."""
+    import copy
+
+    import torch
+    from mbexwn_vocoder_torch.nn.wavenet import int8_layer
+    from mbexwn_vocoder_torch.ops import kernel_lib, quant
+    from mbexwn_vocoder_torch.ops import oscillator as osc
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack_plain
+    from mbexwn_vocoder_torch.parallel import StreamingSynthesizer, tensor
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
+    from mbexwn_vocoder_torch.training.parity import card_against_cpu
+
+    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0}}
+
+    def add_launches(counts):
+        for k in numbers["launches"]:
+            numbers["launches"][k] += counts[k]
+
+    # (a) each branch, card against CPU in fp32; (b)'s recordings ride on its syntheses
+    mel_cpu = make_mel(ROUTE_CPU_FRAMES, 80, SEED + 170)
+    mel_dev = torch.from_numpy(make_mel(N_FRAMES, 80, SEED)).to(dev)
+    reference16 = branch_model({}, None, dev)
+    k1_stores, k2_calls, kept = {name: {} for name in K1_HELD_BRANCHES}, [], {}
+    for name, edit, config_edit in MODEL_BRANCHES:
+        row = numbers["branches"][name] = {}
+        model_cpu = branch_model(edit, "", "cpu", config_edit)
+        model = copy.deepcopy(model_cpu).to(dev)
+        blk = model.block
+        noise = torch.from_numpy(np.random.RandomState(SEED + 171).randn(
+            1, blk.wn_input_length(ROUTE_CPU_FRAMES), 1).astype(np.float32))
+        length = ROUTE_CPU_FRAMES * model.spect_hop_size
+        mel = torch.from_numpy(mel_cpu)
+        with torch.inference_mode():
+            y_cpu = model_cpu.infer(mel, synth_length=length, noise=noise).numpy()
+            model.infer(mel.to(dev), synth_length=length, noise=noise.to(dev))  # warm-up
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with recording_k1(k1_stores.get(name, {})), \
+                    recording_k2(k2_calls if name == "add_subharm_chans 2" else []):
+                y = model.infer(mel.to(dev), synth_length=length, noise=noise.to(dev))
+                torch.cuda.synchronize()
+            counts = dict(kernel_lib.launches)
+        add_launches(counts)
+        y = y.cpu().numpy()
+        err = rel_rms(y, y_cpu)
+        expected = {"wavenet_layer": 24, "oscillator": 0 if name == "use_sinusoid_as_fun" else 1}
+        row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts,
+                   routes=sorted({getattr(blk, n).wavenet.route() for n in blk.block_names}))
+        check(y.shape == y_cpu.shape and np.isfinite(y).all() and err <= 1e-4 and counts == expected,
+              f"(a) SPEECH {name}, random init, fp32 {ROUTE_CPU_FRAMES} frames: card vs CPU rel-RMS {err:.3e} "
+              f"(<= 1e-4); launches {counts} (expected {expected})")
+        if name in K1_HELD_BRANCHES:  # their bf16 stack inputs too, for (b)
+            model16 = branch_model(edit, None, dev, config_edit)
+            with torch.inference_mode(), recording_k1(k1_stores[name]):
+                model16.infer(mel.to(dev), synth_length=length, noise=noise.to(dev))
+        if name == "use_sinusoid_as_fun":
+            kept["sinusoid"] = model
+        model16 = branch_model(edit, None, dev, config_edit)
+        noise16 = torch.randn((1, model16.block.wn_input_length(N_FRAMES), 1), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+        ref_noise16 = torch.randn((1, reference16.block.wn_input_length(N_FRAMES), 1), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+        full = N_FRAMES * model16.spect_hop_size
+        with torch.inference_mode():
+            y16 = model16.infer(mel_dev, synth_length=full, noise=noise16)
+            ms = cuda_time_ms(lambda: model16.infer(mel_dev, synth_length=full, noise=noise16), iters=5)
+            ref_ms = cuda_time_ms(lambda: reference16.infer(mel_dev, synth_length=full, noise=ref_noise16), iters=5)
+        row.update(bf16_ms_cuda_events=ms, reference_bf16_ms_cuda_events=ref_ms,
+                   bf16_finite=bool(torch.isfinite(y16).all()))
+        check(row["bf16_finite"], f"(a) SPEECH {name}, bf16 {N_FRAMES} frames: {y16.shape[1]} finite samples, "
+                                  f"synthesis {ms:.2f} ms against the unedited config's {ref_ms:.2f} ms in the "
+                                  f"same round (CUDA events)")
+        del model_cpu, model16
+    print(f"  (a) bf16 synthesis ms (CUDA events, {N_FRAMES} frames; the unedited config's in the same round): "
+          + ", ".join(f"{k} {v['bf16_ms_cuda_events']:.2f} ({v['reference_bf16_ms_cuda_events']:.2f})"
+                      for k, v in numbers["branches"].items()) + f"; [5]'s synth_from_mel {synth_ms:.2f} (host clock)",
+          flush=True)
+
+    # (b) the kernels on their new inputs
+    numbers["k1_vs_plain"], numbers["k1_bf16_max_abs"] = {}, 0.0
+    for name, store in k1_stores.items():
+        rows, k1_max_abs = hold_k1(store, wavenet_stack_plain, check, f"(b) {name} model's")
+        numbers["k1_vs_plain"][name] = rows
+        numbers["k1_bf16_max_abs"] = max(numbers["k1_bf16_max_abs"], k1_max_abs)
+    blk = reference16.block
+    wt = blk.wavetable
+    consts = (wt.nominalF0, wt.F0GridFactor, wt.min_transposition, wt.max_transposition, wt.sample_rate)
+    f0 = card_f0(reference16, mel_dev, N_FRAMES * reference16.spect_hop_size)
+    rng = np.random.RandomState(SEED + 172)
+    gains = [torch.from_numpy((1 + 0.3 * rng.randn(*f0.shape)).astype(np.float32)).to(dev), None]
+    offset = torch.from_numpy(rng.rand(1).astype(np.float32)).to(dev)
+    pulse_calls = []
+    with torch.inference_mode():
+        for avg in (False, True):
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with recording_k2(pulse_calls):
+                audio, held = blk.oscillate_with_pulse_gains(f0, gains, pulse_sync_gain_avg=avg, return_gain=True,
+                                                             phase_offset=offset)
+                torch.cuda.synchronize()
+            counts = dict(kernel_lib.launches)
+            add_launches(counts)
+            check(counts == {"wavenet_layer": 0, "oscillator": 1} and held[1] is None
+                  and bool(torch.isfinite(held[0]).all()),
+                  f"(b) oscillate_with_pulse_gains ({'average' if avg else 'hold'}, return_gain, a None entry), "
+                  f"{f0.shape[1]} samples: launches {counts} (one K2 for the pulse and its phase)")
+    k2_rows = []
+    for label, calls in (("subharmonic model", k2_calls), ("pulse gains", pulse_calls)):
+        for f0_k, tables, kconsts, off in calls:
+            with torch.inference_mode():
+                got, phase = osc.oscillate(f0_k, tables, *kconsts, phase_offset=off, return_phase=True)
+                ref, ref_phase = osc.oscillate_plain(f0_k, tables, *kconsts, phase_offset=off, return_phase=True)
+                cpu_phase = osc.oscillate_plain(f0_k.cpu(), tables.cpu(), *kconsts,
+                                                phase_offset=None if off is None else off.cpu(), return_phase=True)[1]
+            k2_rows.append({"call": label, "samples": f0_k.numel(), "max_abs": float((got - ref).abs().max()),
+                            "phase_differing_card": int((phase != ref_phase).sum()),
+                            "phase_differing_cpu": int((phase.cpu() != cpu_phase).sum())})
+    numbers["k2_vs_plain"] = k2_rows
+    numbers["k2_max_abs"] = max(r["max_abs"] for r in k2_rows)
+    check(len(k2_rows) == 3 and all(r["max_abs"] <= 1e-5 and r["phase_differing_card"] == 0
+                                    and r["phase_differing_cpu"] == 0 for r in k2_rows),
+          f"(b) K2 vs plain on the subharmonic model's call and the two pulse-gain calls: audio max abs "
+          f"{numbers['k2_max_abs']:.3e} (<= 1e-5); phase samples differing (card, CPU) "
+          f"{[(r['phase_differing_card'], r['phase_differing_cpu']) for r in k2_rows]} (all 0)")
+    sblk = kept.pop("sinusoid").block
+    swt = sblk.wavetable
+    with torch.inference_mode():
+        f0s = card_f0(reference16, mel_dev, N_FRAMES * reference16.spect_hop_size)
+        diffs = []
+        for off in (None, offset):
+            analytic = osc.oscillator_phase(f0s, swt.sample_rate, off)
+            _, k2_phase = osc.oscillate(f0s, sblk.wavetables, swt.nominalF0, swt.F0GridFactor, swt.min_transposition,
+                                        swt.max_transposition, swt.sample_rate, phase_offset=off, return_phase=True)
+            diffs.append(int((analytic != k2_phase).sum()))
+    numbers["sinusoid_phase_differing_from_k2"] = diffs
+    check(diffs == [0, 0], f"(b) use_sinusoid_as_fun's phase (oscillator_phase, no kernel) against K2's phase on "
+                           f"{f0s.shape[1]} samples, without and with a phase offset: differing samples {diffs} (0)")
+    with torch.inference_mode():
+        phase = osc.oscillator_phase(f0, wt.sample_rate, offset)
+        g = gains[0]
+        hold_card = osc.pulse_sync_gain_hold(phase, g).cpu()
+        avg_card = osc.pulse_sync_gain_avg(phase, g).cpu()
+        hold_cpu = osc.pulse_sync_gain_hold(phase.cpu(), g.cpu())
+        avg_cpu = osc.pulse_sync_gain_avg(phase.cpu(), g.cpu())
+    scans = numbers["pulse_gain_scans"] = {
+        "samples": int(phase.shape[1]), "hold_differing": int((hold_card != hold_cpu).sum()),
+        "avg_differing": int((avg_card != avg_cpu).sum()),
+        "avg_card_vs_cpu_rel_rms": rel_rms(avg_card.numpy(), avg_cpu.numpy())}
+    check(scans["hold_differing"] == 0 and scans["avg_differing"] == 0,
+          f"(b) pulse-gain scans card vs CPU on {scans['samples']} samples: samples differing, hold "
+          f"{scans['hold_differing']}, average {scans['avg_differing']} (0, 0: the average's cumsum runs in fp64, "
+          f"where these sums are exact in any order)")
+    del reference16
+
+    # (c) streaming over a model axis of cuda:0 twice
+    numbers["streaming_tp"] = {"mesh": "make_mesh(n_data=1, n_model=2, devices=['cuda:0', 'cuda:0'])",
+                               "cross_card": "not measured: the host has one card"}
+    mell = make_mel(LONG_FORM_FRAMES, 80, SEED + 173)
+    os.environ["MBEXWN_TP_AXIS"] = "model"
+    try:
+        for wn_dtype, label, tol in (("", "fp32", 1e-5), (None, "bf16", 2e-2)):
+            model = registry_variant("SPEECH", wn_dtype, dev)
+            ref = StreamingSynthesizer(model, chunk_frames=LONG_FORM_CHUNK, halo_frames=LONG_FORM_HALO,
+                                       device=dev).synth_batched(mell)
+            ss = StreamingSynthesizer(model, chunk_frames=LONG_FORM_CHUNK, halo_frames=LONG_FORM_HALO,
+                                      mesh=make_mesh(n_data=1, n_model=2, devices=["cuda:0", "cuda:0"]))
+            stacks = [getattr(ss.model.block, n).wavenet for n in ss.model.block.block_names]
+            torch.cuda.synchronize()
+            before = dict(tensor.counts)
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            got = ss.synth_batched(mell)
+            counts = dict(kernel_lib.launches)
+            add_launches(counts)
+            collectives = {k: tensor.counts[k] - before[k] for k in before}
+            err = rel_rms(got, ref)
+            n_groups = len({(hi - lo, t0 - lo, t1 - t0) for t0, t1, lo, hi in ss._bounds(LONG_FORM_FRAMES)})
+            n_layers = sum(wn.n_layers for wn in stacks)
+            numbers["streaming_tp"][label] = {"rel_rms_vs_mesh_none": err, "launches": counts,
+                                              "collectives": collectives, "chunk_groups": n_groups,
+                                              "launches_per_device": {str(dev): counts}}
+            check(got.shape == ref.shape and np.isfinite(got).all() and err <= tol
+                  and counts == {"wavenet_layer": 0, "oscillator": n_groups}
+                  and collectives == {"reduce_add": n_groups * n_layers, "max_reduce": 0}
+                  and all(wn.tp_devices == (dev, dev) for wn in stacks),
+                  f"(c) streaming synth_batched {label}, {LONG_FORM_FRAMES} frames (chunk {LONG_FORM_CHUNK}, halo "
+                  f"{LONG_FORM_HALO}, "
+                  f"{n_groups} chunk groups), channels split over cuda:0 twice: rel-RMS against mesh=None "
+                  f"{err:.3e} (<= {tol:g}); launches {counts} on {dev} (K1 0, K2 one a group); collectives "
+                  f"{collectives}; no number crosses cards")
+            del model, ss
+
+        # (d) the int8 mode under tensor parallelism, shipped bf16, batch 1
+        mel1 = torch.from_numpy(make_mel(N_FRAMES, 80, SEED + 174)).to(dev)
+        model = registry_variant("SPEECH", None, dev)
+        plain = copy.deepcopy(model)  # built with the axis, unplaced: the unsharded layer loop
+        replica = replicate(model, make_mesh(n_data=1, n_model=2, devices=["cuda:0", "cuda:0"]))[dev]
+        stacks = [getattr(replica.block, n).wavenet for n in replica.block.block_names]
+        noise = torch.randn((1, replica.block.wn_input_length(N_FRAMES), 1), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        full = N_FRAMES * replica.spect_hop_size
+        infer = {"tp int8": lambda: replica.infer(mel1, synth_length=full, noise=noise),
+                 "unsharded int8": lambda: plain.infer(mel1, synth_length=full, noise=noise)}
+        os.environ[quant.QUANT_ENV] = "int8"
+        records = []
+        with torch.inference_mode():
+            y_plain = infer["unsharded int8"]().cpu().numpy()
+            infer["tp int8"]()  # warm-up: quantizes and shards the weights once
+            torch.cuda.synchronize()
+            whole = {}
+            for wn in stacks:
+                for w, shards in zip(wn.int8_weights(torch.bfloat16), wn._tp_int8_weights(torch.bfloat16)):
+                    whole[id(shards)] = w
+            n_mm, before = quant.int_mm_calls, dict(tensor.counts)
+            kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            with recording_sharded_int8(records):
+                y_tp = infer["tp int8"]().cpu().numpy()
+            counts = dict(kernel_lib.launches)
+            n_mm = quant.int_mm_calls - n_mm
+            collectives = {k: tensor.counts[k] - before[k] for k in before}
+            add_launches(counts)
+            layer_errs = []
+            for x, conds, shards, dil, act, out in records:
+                cond = None
+                if conds is not None:
+                    half = [c.chunk(2, dim=-1) for c in conds]
+                    cond = torch.cat([h[0] for h in half] + [h[1] for h in half], dim=-1)
+                ref = int8_layer(x, cond, whole[id(shards)], dil, act)
+                layer_errs.append(rel_rms(out.float().cpu().numpy(), ref.float().cpu().numpy()))
+            ms = {k: cuda_time_ms(fn, iters=5) for k, fn in infer.items()}
+            os.environ.pop(quant.QUANT_ENV, None)
+            ms["tp bf16"] = cuda_time_ms(infer["tp int8"], iters=5)
+        n_layers = sum(wn.n_layers for wn in stacks)
+        numbers["int8_tp"] = {"layer_rel_rms_vs_unsharded_int8": layer_errs, "worst_layer": max(layer_errs),
+                              "whole_synthesis_rel_rms_vs_unsharded_int8": rel_rms(y_tp, y_plain),
+                              "int_mm_calls": n_mm, "collectives": collectives, "launches": counts,
+                              "ms_cuda_events": ms}
+        check(len(layer_errs) == n_layers and max(layer_errs) <= 2e-3 and np.isfinite(y_tp).all()
+              and n_mm == 2 * 2 * n_layers and collectives == {"reduce_add": n_layers, "max_reduce": n_layers}
+              and counts == {"wavenet_layer": 0, "oscillator": 1},
+              f"(d) int8 under tensor parallelism, SPEECH shipped bf16 batch 1, {N_FRAMES} frames, cuda:0 twice: "
+              f"each of its {len(layer_errs)} sharded int8 layers against the unsharded int8 layer on the same "
+              f"inputs, worst rel-RMS {max(layer_errs):.3e} (<= 2e-3); the whole synthesis against unsharded int8 "
+              f"{rel_rms(y_tp, y_plain):.3e} (read); torch._int_mm calls {n_mm} (2 x 2 x {n_layers}); collectives "
+              f"{collectives}; launches {counts}; ms (CUDA events) " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+        del model, plain, replica
+    finally:
+        os.environ.pop("MBEXWN_TP_AXIS", None)
+        os.environ.pop(quant.QUANT_ENV, None)
+
+    # (e) the envelope's aux losses in a tiny fp64 training step, card against CPU
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        os.environ[var] = ""
+    aux_failures, aux = card_against_cpu(dev, SEED, edits={"mbexwn_config.psns_use_cepstral_loss_constraint": True,
+                                                           "mbexwn_config.spect_filters_preserve_energy": True,
+                                                           "mbexwn_config.psns_gain_loss_weight": 0.3})
+    numbers["aux_loss_training"] = aux
+    check(not aux_failures and {"PS_cepstral_loss", "PS_gain_loss"} <= set(aux["metrics"]),
+          f"(e) tiny fp64 step with the cepstral constraint and energy preservation (aux losses "
+          f"{sorted(k for k in aux['metrics'] if k.startswith('PS_'))}), card vs CPU: loss rel "
+          f"{aux['loss_fp64_rel']:.2e} (<= 1e-12), worst leaf {aux['worst_leaf_fp64']} {aux['worst_rel_rms_fp64']:.2e} "
+          f"(<= 1e-9); failing {aux_failures}")
+    return numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2845,6 +3231,16 @@ def main() -> int:
     routes["seconds"] = time.perf_counter() - t0
     routes["card"] = card
     print(f"  phase [13] {routes['seconds']:.1f} s", flush=True)
+    # ---- 14. the model's opt-in branches, streaming and int8 over a model axis, the aux losses
+    print("[14] branches: excitation, envelope, NormMel, subnets; streaming and int8 over a model axis "
+          "(SPEECH full width)", flush=True)
+    t0 = time.perf_counter()
+    branches = phase_branches(check, dev, synth_ms)
+    branches["seconds"] = time.perf_counter() - t0
+    branches["card"] = card
+    k1_max_abs = max(k1_max_abs, branches.get("k1_bf16_max_abs", 0.0))
+    k2_err = max(k2_err, branches.get("k2_max_abs", 0.0))
+    print(f"  phase [14] {branches['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
     # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
@@ -2852,12 +3248,14 @@ def main() -> int:
     # export's synthesis and the bf16 mesh passes of BatchSynthesizer and synth_batched; [12]'s: one call of
     # each loaded artifact (in the artifact process) and the syntheses under profile_trace, debug_nans and
     # dump_controls; [13]'s: each branch model's and the gtu reference's fp32 synthesis, the standalone
-    # per-layer stack, the tensor-parallel and int8 syntheses, and one call of the int8 artifact
+    # per-layer stack, the tensor-parallel and int8 syntheses, and one call of the int8 artifact; [14]'s:
+    # each model branch's fp32 synthesis, the two pulse-gain calls, the streaming passes over a model axis
+    # and the int8 synthesis under tensor parallelism
     launches = {k: main_launches[k] + streaming["long_form"]["launches"][k] + streaming["live"]["launches"][k]
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
                 + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k]
                 + slice9["export"].get("launches", {}).get(k, 0) + slice9["observability"]["launches"][k]
-                + routes["launches"][k] for k in main_launches}
+                + routes["launches"][k] + branches["launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -2888,6 +3286,7 @@ def main() -> int:
     print("parallel: " + json.dumps(parallel), flush=True)
     print("export_remat_observability: " + json.dumps(slice9, default=str), flush=True)
     print("routes: " + json.dumps(routes, default=str), flush=True)
+    print("branches: " + json.dumps(branches, default=str), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

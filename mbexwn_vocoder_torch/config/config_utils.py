@@ -340,6 +340,33 @@ _SCHEMAS = {
 }
 
 
+def get_list_parameter(val, n_elements, n_repeater=None, n_repeater_list=None):
+    """Broadcast a scalar or short list to exactly ``n_elements`` entries.
+
+    A single value repeats n_elements times; with ``n_repeater`` each entry
+    repeats that many times (tail-padded with the last value); with
+    ``n_repeater_list`` entry i repeats n_repeater_list[i] times.
+    """
+    if (n_repeater is not None) and n_repeater_list:
+        raise RuntimeError(
+            "config::list_parameter: n_repeater and n_repeater_list are mutually exclusive, "
+            f"got {n_repeater} and {n_repeater_list}")
+    items = list(val) if isinstance(val, (list, tuple)) else [val]
+    if len(items) == 1:
+        return items * n_elements
+    if n_repeater is not None and len(items) * n_repeater < n_elements + n_repeater:
+        expanded = [value for value in items for _ in range(n_repeater)]
+        expanded.extend(items[-1:] * max(0, n_elements - len(expanded)))
+        return expanded[:n_elements]
+    if n_repeater_list is not None and int(np.sum(n_repeater_list)) == n_elements:
+        return [value for value, count in zip(items, n_repeater_list) for _ in range(count)]
+    if len(items) == n_elements:
+        return items
+    raise RuntimeError(
+        f"config::list_parameter: cannot broadcast {val} to {n_elements} entries "
+        f"(n_repeater={n_repeater}, n_repeater_list={n_repeater_list})")
+
+
 def _validate_block(block, schema_name: str):
     schema = _SCHEMAS[schema_name]
     known = set(schema["required"]) | set(schema["optional"]) | set(schema["obsolete"])

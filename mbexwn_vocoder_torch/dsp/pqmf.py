@@ -7,6 +7,8 @@ cosine modulation for the analysis/synthesis banks.
 Behavioural parity target: reference TFPQMF filter design
 (reference: MBExWN_NVoc/vocoder/model/tf_preprocess.py:30-161).
 Design is init-time NumPy; the on-device filtering lives in ops/pqmf_ops.py.
+`design_prototype_filter_differentiable` is the prototype in torch, with
+gradients to a tensor cutoff (the reference's trainable PQMF cutoff).
 """
 from __future__ import annotations
 
@@ -55,3 +57,24 @@ def pqmf_filters(subbands: int, taps: int, cutoff_ratio: float, beta: float, max
     synthesis = np.transpose(h_synthesis[np.newaxis, :, :], (2, 1, 0)).astype(np.float32)
     return analysis, synthesis
 
+
+
+def design_prototype_filter_differentiable(cutoff_ratio, taps: int = 62, beta: float = 9.0):
+    """`design_prototype_filter` in torch with a tensor `cutoff_ratio` (0-d),
+    which gradients reach; the Kaiser window is fixed (it does not depend on
+    the cutoff).  Returns the (taps+1,) prototype in the cutoff's dtype."""
+    import torch
+
+    assert taps % 2 == 0, f"taps must be even for a type-I linear-phase FIR, got {taps}"
+    cutoff_ratio = torch.as_tensor(cutoff_ratio)
+    dtype = cutoff_ratio.dtype if cutoff_ratio.is_floating_point() else torch.float32
+    n = torch.arange(taps + 1, dtype=dtype, device=cutoff_ratio.device) - 0.5 * taps
+    omega_c = np.pi * cutoff_ratio
+    half = taps // 2
+    left = torch.sin(omega_c * n[:half]) / (np.pi * n[:half])
+    right = torch.sin(omega_c * n[half + 1:]) / (np.pi * n[half + 1:])
+    h_i = torch.cat([left, cutoff_ratio.reshape(1).to(dtype), right])
+    r = n / (0.5 * taps)
+    w = torch.special.i0(beta * torch.sqrt(torch.clamp(1.0 - r * r, 0.0, 1.0)))
+    w = w / torch.special.i0(torch.tensor(beta, dtype=dtype))
+    return h_i * w

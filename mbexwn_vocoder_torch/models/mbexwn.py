@@ -10,9 +10,26 @@ that compares the two draws the noise once and hands it to both.
 
 `force_causal` (the mode of live streaming, parallel/streaming.py) moves
 every pad to the left: CAUSAL subnets and CAUSAL WaveNet stacks, with the
-same parameters as the non-causal model.  Config branches the registry
-models do not use raise NotImplementedError naming the ROADMAP item that
-will port them.
+same parameters as the non-causal model.
+
+Every config branch of the JAX package's model is taken, registry models'
+or not, with the JAX package's parameter tree:
+- the oscillator: wavetables (sinusoidal ones with `use_sinusoid`) through
+  `ops.oscillator.oscillate`, the kernel on a CUDA tensor; the analytic
+  `use_sinusoid_as_fun` pulse from the phase alone (`oscillator_phase`,
+  bit-equal to the kernel's, without the kernel, which computes the table
+  lookup only); `add_subharm_chans` sine channels from the phase the
+  kernel returns with the audio, interleaved per sample as JAX folds them;
+  `oscillate_with_pulse_gains` with the pulse-synchronous gain holds;
+- the fold to the WaveNet rate: a reshape, or a PQMF analysis
+  (`pulse_channels_use_pqmf`), which decimates by its own subband count
+  (`wn_fold_factor`);
+- after the post net, PQMF synthesis or a depth-to-time reshape
+  (`pp_mod_subnet_use_pqmf: false`);
+- the envelope: the cepstral STFT filter (with or without F0-adaptive
+  cepstral windows, range limit, the cepstral-loss constraint, energy
+  preservation, a zero-padded FFT), per-subband gains instead
+  (`ps_use_stft: false`), or none (`ps_off`).
 
 `differentiable` (set by the trainer through `PaNWaveNet.set_differentiable`)
 selects the training route: the oscillator runs `oscillate_plain`, the port
@@ -40,11 +57,12 @@ from ..dsp.db import log_to_db
 from ..dsp.pqmf import pqmf_filters
 from ..dsp.wavetable import WavetableSpec, build_wavetable_grid
 from ..dsp.windows import hann_periodic
-from ..nn.layers import Activation, Conv1DWeightNorm
+from ..nn.layers import Activation, Conv1DWeightNorm, LinInterpLayer
 from ..nn.subnet import generate_subnet_from_specs
 from ..nn.wavenet import WaveNetAEBlock, resolve_dtype
-from ..ops.oscillator import oscillate, oscillate_plain
-from ..ops.pqmf_ops import pqmf_synthesis
+from ..ops.oscillator import (oscillate, oscillate_plain, oscillator_phase, pulse_sync_gain_avg as gain_avg,
+                              pulse_sync_gain_hold as gain_hold, sinusoid_pulse, subharmonics)
+from ..ops.pqmf_ops import pqmf_analysis, pqmf_synthesis
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
 
@@ -52,8 +70,7 @@ from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
 _TRAINING_ONLY_KEYS = {
     "pp_teacher_forcing_schedule", "pp_F0_pred_loss_limits_ms", "pp_F0_rec_loss_limits_ms",
     "pp_F0_loss_weight", "pp_F0_loss_method", "pp_F0_UV_loss_weight", "pp_subnet_exclude_from_pretrain",
-    "pp_subnet_suppress_uv_gradient", "psns_gain_loss_weight", "psns_cepstral_loss_weight",
-    "stft_coh_loss_weight", "dump_controls",
+    "pp_subnet_suppress_uv_gradient", "psns_cepstral_loss_weight", "stft_coh_loss_weight", "dump_controls",
 }
 
 
@@ -63,10 +80,6 @@ def _dtype_pref(env_name, config_value):
     if env is not None:
         return resolve_dtype(env or None)
     return resolve_dtype(config_value or None)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP.md queue 1, item {item})")
 
 
 class MBExWN(nn.Module):
@@ -94,6 +107,7 @@ class MBExWN(nn.Module):
         ps_use_stft: bool = True,
         ps_off: bool = False,
         filter_max_db_range=None,
+        psns_gain_loss_weight=None,
         psns_use_cepstral_loss_constraint: bool = False,
         spect_filters_preserve_energy: bool = False,
         remove_inactive_pad_layers: bool = False,
@@ -119,23 +133,7 @@ class MBExWN(nn.Module):
         unknown = set(training_only) - _TRAINING_ONLY_KEYS
         if unknown:
             raise TypeError(f"MBExWN: unexpected config keys {sorted(unknown)}")
-        if ps_off or not ps_use_stft:
-            _not_ported("the multiband-gain branch (ps_use_stft: false / ps_off)", "13")
-        if pulse_channels_use_pqmf:
-            _not_ported("the pulse-channel PQMF fold", "13")
         wavetable_config = dict(wavetable_config or {})
-        if (wavetable_config.get("use_sinusoid_as_fun") or wavetable_config.get("use_sinusoid")
-                or wavetable_config.get("add_subharm_chans")):
-            _not_ported("the sinusoid and subharmonic oscillator modes", "13")
-        if not pp_mod_subnet_use_pqmf:
-            _not_ported("the excitation without PQMF synthesis (pp_mod_subnet_use_pqmf: false)", "13")
-        if not ps_env_order_scale or not filter_max_db_range:
-            _not_ported("the envelope without F0-adaptive cepstral windows or range limit "
-                        "(ps_env_order_scale / filter_max_db_range unset)", "13")
-        if psns_use_cepstral_loss_constraint or spect_filters_preserve_energy:
-            _not_ported("psns_use_cepstral_loss_constraint / spect_filters_preserve_energy", "13")
-        if internal_fft_over:
-            _not_ported("internal_fft_over > 0", "13")
 
         self.name = name
         self.sample_rate = preprocess_config["sample_rate"]
@@ -145,6 +143,8 @@ class MBExWN(nn.Module):
         self.mb_factor = self.multi_band_config["subbands"]
         self.pulse_rate = self.sample_rate / pulse_rate_factor
         self.pulse_channels = pulse_channels
+        self.pulse_channels_use_pqmf = pulse_channels_use_pqmf
+        self.pulse_channels_multi_band_config = copy.deepcopy(pulse_channels_multi_band_config)
         self.spect_to_subband_upsampling_factor = self.spect_hop_size // self.mb_factor
         self.spect_to_pulse_upsampling_factor = (
             self.spect_to_subband_upsampling_factor * pulse_channels) // int(np.prod(pp_mod_subnet_upsampling_factors))
@@ -183,7 +183,12 @@ class MBExWN(nn.Module):
         self.pulse_noise_floor_mag = None if pulse_noise_floor_db is None else 10 ** (-abs(pulse_noise_floor_db) / 20)
 
         # spectral-envelope subnet + cepstral machinery
-        self.filter_max_log_range = filter_max_db_range / log_to_db
+        self.ps_use_stft = ps_use_stft
+        self.ps_off = ps_off
+        self.filter_max_log_range = None if filter_max_db_range is None else filter_max_db_range / log_to_db
+        self.psns_gain_loss_weight = psns_gain_loss_weight
+        self.psns_use_cepstral_loss_constraint = psns_use_cepstral_loss_constraint
+        self.spect_filters_preserve_energy = spect_filters_preserve_energy
 
         if internal_win_size_s:
             self.stft_win_size = int(internal_win_size_s * self.sample_rate)
@@ -192,7 +197,7 @@ class MBExWN(nn.Module):
         fft_size = 16
         while fft_size < self.stft_win_size:
             fft_size *= 2
-        self.fft_size = fft_size
+        self.fft_size = fft_size * 2 ** internal_fft_over
         stft_window = hann_periodic(self.stft_win_size)
         self.register_buffer("stft_window", torch.from_numpy(stft_window), persistent=False)
         self.register_buffer("istft_window", torch.from_numpy(
@@ -204,27 +209,35 @@ class MBExWN(nn.Module):
             (smooth_win / np.sum(smooth_win)).astype(np.float32)), persistent=False)
 
         self.ps_max_ceps_coefs = ps_max_ceps_coefs
-        self.ps_subnet, _ = generate_subnet_from_specs(
-            ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
-            final_n_channels=ps_max_ceps_coefs, final_activation=None, force_causal=force_causal,
-            pad_to_valid=ps_subnet_use_valid_padding, weight_init_scale=0.01,
-            remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
-        # 30 log-spaced half-hamming cepstral windows, one per F0 step
-        windows, log10f0 = [], []
-        for f0 in np.logspace(np.log10(pp_min_frequency), np.log10(pp_max_frequency), 30):
-            win_len = int(ps_env_order_scale * 0.5 * self.sample_rate / f0)
-            if (win_len // 2) * 2 == win_len:
-                win_len += 1
-            log10f0.append(np.log10(f0))
-            half = np.hamming(win_len)[win_len // 2:]
-            if win_len // 2 + 1 > ps_max_ceps_coefs:
-                windows.append(half[:ps_max_ceps_coefs])
-            else:
-                windows.append(np.concatenate((half, np.zeros(ps_max_ceps_coefs - 1 - (win_len // 2)))))
-        self.register_buffer("ps_cepstral_windows_log10f0",
-                             torch.from_numpy(np.asarray(log10f0, dtype=np.float32)), persistent=False)
-        self.register_buffer("ps_cepstral_windows",
-                             torch.from_numpy(np.asarray(windows, dtype=np.float32)), persistent=False)
+        self.ps_subnet = self.ps_gain_interpolator = None
+        if not ps_off:
+            # the cepstrum of the envelope, or one log gain per subband
+            self.ps_subnet, _ = generate_subnet_from_specs(
+                ps_subnet, base_name="PS", in_channels=self.mel_channels, final_nks=1,
+                final_n_channels=ps_max_ceps_coefs if ps_use_stft else self.mb_factor, final_activation=None,
+                force_causal=force_causal, pad_to_valid=ps_subnet_use_valid_padding, weight_init_scale=0.01,
+                remove_inactive_pad_layers=remove_inactive_pad_layers, use_prelu=use_prelu, alpha=alpha)
+            if not ps_use_stft:
+                self.ps_gain_interpolator = LinInterpLayer(self.spect_hop_size, num_pad_end=1,
+                                                           name="ps_gain_interp")
+        windows = log10f0 = None
+        if not ps_off and ps_use_stft and ps_env_order_scale:
+            # 30 log-spaced half-hamming cepstral windows, one per F0 step
+            windows, log10f0 = [], []
+            for f0 in np.logspace(np.log10(pp_min_frequency), np.log10(pp_max_frequency), 30):
+                win_len = int(ps_env_order_scale * 0.5 * self.sample_rate / f0)
+                if (win_len // 2) * 2 == win_len:
+                    win_len += 1
+                log10f0.append(np.log10(f0))
+                half = np.hamming(win_len)[win_len // 2:]
+                if win_len // 2 + 1 > ps_max_ceps_coefs:
+                    windows.append(half[:ps_max_ceps_coefs])
+                else:
+                    windows.append(np.concatenate((half, np.zeros(ps_max_ceps_coefs - 1 - (win_len // 2)))))
+            log10f0 = torch.from_numpy(np.asarray(log10f0, dtype=np.float32))
+            windows = torch.from_numpy(np.asarray(windows, dtype=np.float32))
+        self.register_buffer("ps_cepstral_windows_log10f0", log10f0, persistent=False)
+        self.register_buffer("ps_cepstral_windows", windows, persistent=False)
 
         # WaveNet blocks
         pp_mod = copy.deepcopy(pp_mod_subnet)
@@ -255,20 +268,37 @@ class MBExWN(nn.Module):
             curr_pulse_rate *= ups
         self.wn_post_net = Conv1DWeightNorm(in_channels, self.mb_factor, 1, name="wn_post_net")
 
-        mb = self.multi_band_config
-        _, syn = pqmf_filters(mb["subbands"], mb["taps"], mb["cutoff_ratio"], mb["beta"], mb.get("max_band"))
-        # WIO (taps+1, used, 1) -> OIW (1, used, taps+1)
-        self.register_buffer("pqmf_synthesis_filter", torch.from_numpy(np.ascontiguousarray(syn.transpose(2, 1, 0))),
-                             persistent=False)
+        # the PQMF banks, WIO -> OIW: synthesis (1, used, taps+1), the pulse fold's analysis (subbands, 1, taps+1)
+        syn = ana = None
+        if pp_mod_subnet_use_pqmf:
+            mb = self.multi_band_config
+            _, syn = pqmf_filters(mb["subbands"], mb["taps"], mb["cutoff_ratio"], mb["beta"], mb.get("max_band"))
+            syn = torch.from_numpy(np.ascontiguousarray(syn.transpose(2, 1, 0)))
+        if pulse_channels_use_pqmf:
+            c = self.pulse_channels_multi_band_config
+            ana, _ = pqmf_filters(c["subbands"], c["taps"], c["cutoff_ratio"], c["beta"], c.get("max_band"))
+            ana = torch.from_numpy(np.ascontiguousarray(ana.transpose(2, 1, 0)))
+        self.register_buffer("pqmf_synthesis_filter", syn, persistent=False)
+        self.register_buffer("pulse_pqmf_analysis_filter", ana, persistent=False)
+
+    @property
+    def wn_fold_factor(self) -> int:
+        """Time decimation from the pulse rate to the WaveNet input rate: the
+        reshape fold's pulse_channels, or the PQMF fold's subband count."""
+        if self.pulse_channels_use_pqmf:
+            return self.pulse_channels_multi_band_config["subbands"]
+        return self.pulse_channels
 
     @property
     def wn_in_channels(self) -> int:
-        """Folded pulse channels plus the optional noise channel."""
-        return self.pulse_channels + (1 if self.pp_mod_subnet_noise_channel_sigma else 0)
+        """Folded pulse channels, the subharmonic channels and the optional
+        noise channel."""
+        return (self.wn_fold_factor + self.pulse_channels * self.wavetable.add_subharm_chans
+                + (1 if self.pp_mod_subnet_noise_channel_sigma else 0))
 
     def wn_input_length(self, T_mel: int) -> int:
         """Time steps entering the first WaveNet block (the noise's length)."""
-        return T_mel * self.spect_to_pulse_upsampling_factor // self.pulse_channels
+        return T_mel * self.spect_to_pulse_upsampling_factor // self.wn_fold_factor
 
     # ------------------------------------------------ parameters: init, forms
 
@@ -336,26 +366,82 @@ class MBExWN(nn.Module):
             return f0[:, :T_out]
         return torch.full((mel.shape[0], T_out), float(self.pp_max_frequency), dtype=mel.dtype, device=mel.device)
 
+    def _excite(self, pulse_frequency: torch.Tensor, phase_offset: Optional[torch.Tensor], return_phase: bool):
+        """(audio (B, T), phase (B, T) or None) of the oscillator: the analytic
+        pulse from the phase alone (`use_sinusoid_as_fun`), else the
+        wavetables through `oscillate` (the kernel on a CUDA tensor, the
+        plain version on the training route), which returns the phase from
+        the same launch when it is asked for."""
+        wt = self.wavetable
+        if wt.use_sinusoid_as_fun:
+            phase = oscillator_phase(pulse_frequency, wt.sample_rate, phase_offset)
+            return sinusoid_pulse(phase), phase
+        fn = oscillate_plain if self.differentiable else oscillate
+        out = fn(pulse_frequency, self.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition,
+                 wt.max_transposition, wt.sample_rate, phase_offset=phase_offset, return_phase=return_phase)
+        return out if return_phase else (out, None)
+
     def oscillate(self, pulse_frequency: torch.Tensor, phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Wavetable oscillator: F0 (B, T12k) -> excitation (B, T12k).
+        """Oscillator: F0 (B, T12k) -> excitation (B, T12k), or (B, T12k,
+        1 + n) with `add_subharm_chans = n` (the pulse, then sin(2 pi phase
+        / k) for k = 2 ... n + 1).
 
         phase_offset (B,): absolute phase (mod 1) just before the first
         sample, the carry of chunked synthesis.  The training route runs the
         plain version, which is differentiable."""
-        wt = self.wavetable
-        fn = oscillate_plain if self.differentiable else oscillate
-        return fn(pulse_frequency, self.wavetables, wt.nominalF0, wt.F0GridFactor, wt.min_transposition,
-                  wt.max_transposition, wt.sample_rate, phase_offset=phase_offset)
+        n_sub = self.wavetable.add_subharm_chans
+        audio, phase = self._excite(pulse_frequency, phase_offset, return_phase=bool(n_sub))
+        if not n_sub:
+            return audio
+        return torch.stack([audio] + subharmonics(phase, n_sub), dim=-1)
+
+    def oscillate_with_pulse_gains(self, pulse_frequency: torch.Tensor, pulse_gain_list,
+                                   pulse_sync_gain_avg: bool = False, return_gain: bool = False,
+                                   phase_offset: Optional[torch.Tensor] = None):
+        """The oscillator's pulse (B, T12k) under pulse-synchronous gains, as
+        the JAX package's `oscillate_with_pulse_gains`: each gain contour of
+        `pulse_gain_list` ((B, T12k) or None) is held from each pulse start
+        (or averaged over each pulse with `pulse_sync_gain_avg`) and applied
+        to the pulse.  Returns a list of (B, T12k) signals (None entries pass
+        through); with `return_gain`, ([pulse] per gain, [held gain or None]).
+        The pulse and its phase come from one oscillator pass."""
+        audio, phase = self._excite(pulse_frequency, phase_offset, return_phase=True)
+        hold = gain_avg if pulse_sync_gain_avg else gain_hold
+        audio_list, gain_list = [], []
+        for pg in pulse_gain_list:
+            if pg is None:
+                (gain_list if return_gain else audio_list).append(None)
+                continue
+            full_gain = hold(phase, pg)
+            if return_gain:
+                audio_list.append(audio)
+                gain_list.append(full_gain)
+            else:
+                audio_list.append(audio * full_gain)
+        return (audio_list, gain_list) if return_gain else audio_list
 
     def fold_pulse_channels(self, pulse_signal: torch.Tensor, noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Fold the pulse-rate excitation to the WaveNet input rate
-        (B, T/pulse_channels, pulse_channels) and append the sigma-scaled
-        Gaussian noise channel.  `noise` (B, T/pulse_channels, 1) wins over
-        `generator`; with neither, a generator seeded 0 is used, so every
-        call draws the same noise, as the JAX package's PRNGKey(0) does."""
+        """Fold the pulse-rate excitation ((B, T) or, with subharmonic
+        channels, (B, T, 1 + n)) to the WaveNet input rate and append the
+        sigma-scaled Gaussian noise channel.  The fold is a reshape to
+        (B, T/pulse_channels, pulse_channels * (1 + n)), channels
+        interleaved per sample as in the JAX package, or a PQMF analysis of
+        the pulse to (B, T/subbands, subbands) followed by the subharmonic
+        channels' reshape (`pulse_channels_use_pqmf`).  `noise` (B, T/fold,
+        1) wins over `generator`; with neither, a generator seeded 0 is used,
+        so every call draws the same noise, as the JAX package's PRNGKey(0)
+        does."""
         B = pulse_signal.shape[0]
-        x = pulse_signal.reshape(B, -1, self.pulse_channels)
+        n_sub = self.wavetable.add_subharm_chans
+        if self.pulse_pqmf_analysis_filter is None:
+            x = pulse_signal.reshape(B, -1, self.pulse_channels * (1 + n_sub))
+        else:
+            c = self.pulse_channels_multi_band_config
+            pulse = pulse_signal if pulse_signal.dim() == 3 else pulse_signal[:, :, None]
+            x = pqmf_analysis(pulse[:, :, :1], self.pulse_pqmf_analysis_filter, c["subbands"], c["taps"])
+            if n_sub:
+                x = torch.cat([x, pulse[:, :, 1:].reshape(B, -1, self.pulse_channels * n_sub)], dim=-1)
         if self.pp_mod_subnet_noise_channel_sigma:
             shape = x.shape[:-1] + (1,)
             if noise is None:
@@ -369,8 +455,12 @@ class MBExWN(nn.Module):
 
     def generate_excitation(self, mel: torch.Tensor, pulse_frequency: torch.Tensor,
                             noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-                            phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Excitation waveform (B, T_mel*hop) at the output sample rate."""
+                            phase_offset: Optional[torch.Tensor] = None,
+                            mb_gain: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Excitation waveform (B, T_mel*hop) at the output sample rate.
+        `mb_gain` (B, >= T_sub, subbands), the multiband-gain branch's gains,
+        multiplies the post net's subbands (sliced to their length, as in
+        the JAX package)."""
         x = self.fold_pulse_channels(self.oscillate(pulse_frequency, phase_offset), noise, generator)
         remat = self.remat_wavenet_blocks and self.differentiable and torch.is_grad_enabled()
         for name in self.block_names:
@@ -383,6 +473,10 @@ class MBExWN(nn.Module):
             else:
                 x = block(x, mel)
         x = self.wn_post_net(x)
+        if mb_gain is not None:
+            x = x * mb_gain[:, : x.shape[1]]
+        if self.pqmf_synthesis_filter is None:
+            return x.reshape(x.shape[0], x.shape[1] * x.shape[2])  # depth to time
         mb = self.multi_band_config
         return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"], mb.get("max_band"))[:, :, 0]
 
@@ -401,17 +495,54 @@ class MBExWN(nn.Module):
 
     def generate_specenv(self, mel: torch.Tensor, pulse_frequency: torch.Tensor, training: bool = False):
         """Cepstral spectral-envelope filter, complex (B, T_mel, fft//2+1); with
-        `training`, (filter, aux losses).  The aux losses belong to
-        psns_use_cepstral_loss_constraint and spect_filters_preserve_energy,
-        which are not ported (item 13), so aux is empty here."""
+        `training`, (filter, aux losses), as the JAX package's
+        `generate_specenv`.  The cepstrum is windowed by the F0-adaptive
+        cepstral window (`ps_env_order_scale`), or, with
+        `psns_use_cepstral_loss_constraint`, left unwindowed and held to the
+        window by the aux loss "PS_cepstral_loss" in training.  Its gain
+        coefficient is dropped (the source gain carries it) unless
+        `spect_filters_preserve_energy`, which keeps it and divides the
+        filter by its RMS over frequency (aux "PS_gain_loss" with
+        `psns_gain_loss_weight`).  The log amplitude is tanh-bounded to
+        `filter_max_db_range` when it is set."""
         x = self._run_subnet(self.ps_subnet, mel)
-        x = x * self.get_cepstral_windows(pulse_frequency, smooth_stride=self.spect_to_pulse_upsampling_factor)
-        # drop the gain coefficient (the source gain carries it)
-        x = F.pad(x[:, :, 1:], (1, 0))
+        aux = {}
+        if self.ps_cepstral_windows is not None:
+            windows = None
+            if training or not self.psns_use_cepstral_loss_constraint:
+                windows = self.get_cepstral_windows(pulse_frequency,
+                                                    smooth_stride=self.spect_to_pulse_upsampling_factor)
+            if not self.psns_use_cepstral_loss_constraint:
+                x = x * windows
+            elif training:
+                aux["PS_cepstral_loss"] = torch.mean(torch.abs(x * (1 - windows)))
+        if not self.spect_filters_preserve_energy:
+            x = F.pad(x[:, :, 1:], (1, 0))
         log_amp_phase = rdft(x, self.fft_size)
-        log_amp_phase = torch.complex(self.filter_max_log_range * torch.tanh(log_amp_phase.real), log_amp_phase.imag)
+        if self.filter_max_log_range:
+            log_amp_phase = torch.complex(self.filter_max_log_range * torch.tanh(log_amp_phase.real),
+                                          log_amp_phase.imag)
         source_filter = torch.exp(log_amp_phase)
-        return (source_filter, {}) if training else source_filter
+        if self.spect_filters_preserve_energy:
+            filter_gain = torch.sqrt(torch.mean(torch.abs(source_filter) ** 2, dim=-1, keepdim=True))
+            source_filter = source_filter / filter_gain
+            if self.psns_gain_loss_weight and training:
+                aux["PS_gain_loss"] = torch.mean((filter_gain - 1 / (filter_gain + 0.001)) ** 2)
+        return (source_filter, aux) if training else source_filter
+
+    def generate_multiband_gain(self, mel: torch.Tensor, training: bool = False):
+        """The multiband-gain branch (`ps_use_stft: false`): one gain per
+        subband and frame, exp of the envelope subnet's output (B, T_mel,
+        subbands), made zero-mean over the subbands first with
+        `spect_filters_preserve_energy` (aux "PS_gain_loss" in training)."""
+        x = self._run_subnet(self.ps_subnet, mel)
+        aux = {}
+        if self.spect_filters_preserve_energy:
+            mean_gain = torch.mean(x, dim=-1, keepdim=True)
+            x = x - mean_gain
+            if self.psns_gain_loss_weight and training:
+                aux["PS_gain_loss"] = torch.mean(torch.abs(mean_gain))
+        return (torch.exp(x), aux) if training else torch.exp(x)
 
     # ----------------------------------------------------------------- call
 
@@ -425,9 +556,19 @@ class MBExWN(nn.Module):
         (signal, PP): PP is [["F0", the F0 net's contour at the output rate
         (strided by F0_down_sampling_factor)], ["PSig", the excitation],
         ["PS", |envelope filter| (B, T_mel, fft//2+1)]], as the JAX package's
-        `__call__` returns them."""
+        `__call__` returns them.  Without the STFT envelope (`ps_use_stft:
+        false` or `ps_off`) the signal is the excitation itself, scaled per
+        subband by the multiband gains unless `ps_off`, and PP holds the F0
+        only, as in the JAX package."""
         pulse_frequency = self.generate_f0(mel) if F0 is None or return_PP else None
         f0 = F0 if F0 is not None else pulse_frequency
+        if self.ps_off or not self.ps_use_stft:
+            mb_gain = None if self.ps_off else self.ps_gain_interpolator(self.generate_multiband_gain(mel))
+            signal = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset,
+                                              mb_gain=mb_gain)
+            if not return_PP:
+                return signal
+            return signal, [["F0", pulse_frequency[:, :signal.shape[1]:self.F0_down_sampling_factor]]]
         excitation = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset)
         win, hop = self.stft_win_size, self.spect_hop_size
         padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))

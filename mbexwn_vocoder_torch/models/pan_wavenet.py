@@ -2,8 +2,12 @@
 
 Counterpart of the JAX package's models/pan_wavenet.py.  NormMelComponents
 follows the JAX package's estimator (per-frame RMS from the mel-band
-energies), which deliberately departs from the TF reference's
-num_smooth_iters==0 branch.
+energies, or through the pseudo-inverse of the mel filterbank with
+`normalize_use_pinv`), which deliberately departs from the TF reference's
+num_smooth_iters==0 branch; then the optional floor (`max_norm_fact`),
+compressor (`normalize_compressor_exp`) and iterative overlap-add smoothing
+of the gain contour (`normalize_rms_num_smooth_iters`), whose smoothed
+gain is then the output gain in place of the frames' linear interpolation.
 """
 from __future__ import annotations
 
@@ -14,9 +18,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..dsp.mel import mel_frequencies
+from ..dsp.mel import mel_filter, mel_frequencies
+from ..dsp.windows import get_stft_window
 from ..ops.interp import linear_interp_upsample
 from ..ops.precision import exact_fp32
+from ..ops.stft_ops import overlap_and_add
 from .mbexwn import MBExWN
 
 _EPS = 1e-7  # tf.keras.backend.epsilon()
@@ -29,31 +35,69 @@ class NormMelComponents(nn.Module):
     def __init__(self, preprocess_config: Dict, n_group: int = 1, max_norm_fact=None,
                  normalize_compressor_exp=None, lin_amp_scale: float = 1.0, lin_amp_off: float = 1.0e-5,
                  mel_amp_scale: float = 1.0, use_max_limit: bool = False, normalize_use_pinv: bool = False,
-                 normalize_rms_num_smooth_iters: int = 0, **_):
+                 normalize_rms_num_smooth_iters: int = 0, normalize_smooth_win_scale: float = 1,
+                 normalize_smooth_with_squared_win: bool = True, **_):
         super().__init__()
         self.spect_win_size = preprocess_config.get("win_size", preprocess_config["fft_size"])
         self.spect_hop_size = preprocess_config["hop_size"]
         if 4 * self.spect_hop_size != self.spect_win_size:
             raise RuntimeError("NormMelComponents: only win_size == 4*hop_size is supported")
-        if normalize_rms_num_smooth_iters:
-            raise NotImplementedError("the iterative RMS smoothing of NormMelComponents is not ported "
-                                      "(ROADMAP.md queue 1, item 13)")
-        if normalize_use_pinv or max_norm_fact or normalize_compressor_exp is not None or use_max_limit:
-            raise NotImplementedError("NormMelComponents' pinv estimator, max_norm_fact, normalize_compressor_exp "
-                                      "and use_max_limit are not ported (ROADMAP.md queue 1, item 13)")
         self.n_group = n_group
         self.rms_norm_fact = preprocess_config["fft_size"] * self.spect_win_size * 0.5
         mel_channels = preprocess_config["mel_channels"]
-        mel_f = mel_frequencies(n_mels=mel_channels + 2, fmin=preprocess_config["fmin"], fmax=preprocess_config["fmax"])
-        self.register_buffer("inv_enorm", torch.from_numpy(
-            ((mel_f[2: mel_channels + 2] - mel_f[:mel_channels]) / 2.0).astype(np.float32)), persistent=False)
+        self.use_pinv = normalize_use_pinv
+        if normalize_use_pinv:
+            self.win_norm = float(np.sqrt(np.sum(get_stft_window("hann", self.spect_win_size) ** 2)))
+            mel_basis = mel_filter(sr=preprocess_config["sample_rate"], n_fft=preprocess_config["fft_size"],
+                                   n_mels=mel_channels, fmin=preprocess_config["fmin"], fmax=preprocess_config["fmax"])
+            self.register_buffer("mel_band_filter_inverted", torch.from_numpy(
+                np.linalg.pinv(mel_basis).T.astype(np.float32)), persistent=False)
+        else:
+            mel_f = mel_frequencies(n_mels=mel_channels + 2, fmin=preprocess_config["fmin"],
+                                    fmax=preprocess_config["fmax"])
+            self.register_buffer("inv_enorm", torch.from_numpy(
+                ((mel_f[2: mel_channels + 2] - mel_f[:mel_channels]) / 2.0).astype(np.float32)), persistent=False)
+        self.num_smooth_iters = max(0, normalize_rms_num_smooth_iters or 0)
+        self.max_norm_fact = max_norm_fact
+        self.compressor_exp = normalize_compressor_exp
+        self.use_max_limit = use_max_limit
         self.lin_amp_scale = lin_amp_scale
         self.lin_amp_off = lin_amp_off
         self.mel_amp_scale = mel_amp_scale
+        # the smoothing's analysis window (to resample the gain at the frames) and overlap-add window
+        win = get_stft_window("hann", self.spect_win_size)
+        self.register_buffer("gwin", torch.from_numpy((win / np.sum(win)).astype(np.float32)), persistent=False)
+        self.smooth_win_size = int(self.spect_win_size * normalize_smooth_win_scale)
+        swin = get_stft_window("hann", self.smooth_win_size)
+        self.register_buffer("smooth_syn_win", torch.from_numpy(swin ** 2 if normalize_smooth_with_squared_win
+                                                                else swin), persistent=False)
 
     def estimate_rms(self, mel: torch.Tensor) -> torch.Tensor:
         """Per-frame RMS estimate (B, T) from linear-amplitude mel (B, T, C)."""
+        if self.use_pinv:
+            spec = torch.einsum("btc,cf->btf", mel, self.mel_band_filter_inverted) / self.win_norm
+            return torch.sqrt(torch.sum(spec ** 2, dim=-1) / self.rms_norm_fact)
         return torch.sqrt(torch.sum((mel * self.inv_enorm) ** 2, dim=-1) / self.rms_norm_fact)
+
+    def _smooth(self, rms: torch.Tensor, n_frames: int) -> torch.Tensor:
+        """The iterative overlap-add smoothing: each iteration spreads the
+        (edge-padded) frame gains with the smoothing window, normalises by
+        the window's own overlap-add and resamples the result at the frames
+        through the analysis window.  Returns (frame gains (B, T), the last
+        iteration's sample-rate gain (B, L))."""
+        hop, win, sws = self.spect_hop_size, self.spect_win_size, self.smooth_win_size
+        swin = self.smooth_syn_win.to(rms.dtype)
+        off = sws // 2 + 2 * hop - win // 2
+        ones = rms.new_ones((1, rms.shape[1] + 4))
+        norm_gain = overlap_and_add(ones[:, :, None] * swin, hop)[:, off:]
+        gain = None
+        for _ in range(self.num_smooth_iters):
+            padded = torch.cat((rms[:, :1], rms[:, :1], rms, rms[:, -1:], rms[:, -1:]), dim=1)
+            gain = overlap_and_add(padded[:, :, None] * swin, hop)[:, off:]
+            gain = gain / torch.clamp(norm_gain, min=_EPS)
+            rms = torch.nn.functional.conv1d(gain[:, None, :], self.gwin.to(rms.dtype)[None, None, :],
+                                             stride=hop)[:, 0, :n_frames]
+        return rms, gain
 
     def normalize_inputs_by_rms(self, audio: Optional[torch.Tensor], mell, synth_length: Optional[int] = None):
         """The JAX package's signature: (audio (B, T) or (B, T, n_group) or
@@ -66,10 +110,26 @@ class NormMelComponents(nn.Module):
         elif synth_length is None:
             raise RuntimeError("normalize_inputs_by_rms: either audio or synth_length is needed")
         mel = torch.exp(mell)
-        rms_e = self.estimate_rms(mel)[:, :, None]
+        rms = self.estimate_rms(mel)
+        if self.max_norm_fact:
+            rms = torch.clamp(rms, min=float(np.float32(1.0 / self.max_norm_fact)))
+        if self.compressor_exp is not None:
+            rms = torch.pow(rms, self.compressor_exp)
+        gain = None
+        if self.num_smooth_iters:
+            rms, gain = self._smooth(rms, mell.shape[1])
+        rms_e = rms[:, :, None]
         mel = mel / torch.clamp(rms_e, min=_EPS) * self.lin_amp_scale
-        mell_out = self.mel_amp_scale * torch.log(mel + self.lin_amp_off)
-        upsampled = linear_interp_upsample(rms_e, self.spect_hop_size)
+        if self.use_max_limit:
+            mell_out = self.mel_amp_scale * torch.log(torch.clamp(mel, min=self.lin_amp_off))
+        else:
+            mell_out = self.mel_amp_scale * torch.log(mel + self.lin_amp_off)
+        if gain is not None:
+            off = self.spect_win_size // 2
+            upsampled = torch.clamp(gain[:, off: off + synth_length], min=_EPS).reshape(mell.shape[0], -1,
+                                                                                         self.n_group)
+        else:
+            upsampled = linear_interp_upsample(rms_e, self.spect_hop_size)
         target_t = synth_length // self.n_group
         if upsampled.shape[1] < target_t:
             upsampled = torch.cat((upsampled, upsampled[:, -1:].expand(-1, target_t - upsampled.shape[1], -1)), dim=1)

@@ -10,6 +10,12 @@ gradients reach `v` and `g` as they do in the JAX trainer.  `fold_()` goes
 back.  `init(generator)` draws the JAX package's initialisation (glorot
 uniform or a scaled normal, the checkerboard-free averaging of sub-pixel
 upsampling convs, `g = ||v||`) into either form.
+Equalized LR without weight norm (`use_equalized_lr` and not
+`use_weight_norm`) is the JAX package's post-gain form: the conv holds an
+unfolded kernel (`weight`) and a per-channel gain `g` as parameters in both
+forms and computes g * conv(x, weight) + bias; `kernel()` gives the
+effective kernel g * weight, which is what the fused and quantized WaveNet
+routes pack.
 Every layer computes in its input's dtype and casts its parameters to it,
 as the JAX package casts its params to the compute dtype.
 """
@@ -35,10 +41,6 @@ class Conv1DWeightNorm(nn.Module):
                  use_equalized_lr: bool = False, use_bias: bool = True, kernel_init_scale: Optional[float] = None,
                  no_cb_for_up_fac: int = 0, name: str = "conv"):
         super().__init__()
-        if use_equalized_lr and not use_weight_norm:
-            # the unfolded post-gain form; no registry model uses it
-            raise NotImplementedError(
-                "equalized LR without weight norm is not ported (ROADMAP.md queue 1, item 13)")
         self.name = name
         self.in_channels = in_channels
         self.filters = filters
@@ -50,9 +52,12 @@ class Conv1DWeightNorm(nn.Module):
         self.use_equalized_lr = use_equalized_lr
         self.kernel_init_scale = kernel_init_scale
         self.no_cb_for_up_fac = no_cb_for_up_fac
+        self.post_gain = use_equalized_lr and not use_weight_norm
         # glorot-uniform placeholder; real weights come from load_state_dict or init()
         limit = math.sqrt(6.0 / (kernel_size * (in_channels + filters)))
         self.weight = nn.Parameter(torch.empty(filters, in_channels, kernel_size).uniform_(-limit, limit))
+        if self.post_gain:
+            self.g = nn.Parameter(torch.ones(filters))
         self.bias = nn.Parameter(torch.zeros(filters)) if use_bias else None
 
     @property
@@ -61,7 +66,10 @@ class Conv1DWeightNorm(nn.Module):
         return "v" in self._parameters
 
     def kernel(self) -> torch.Tensor:
-        """The OIW kernel the conv applies (folded on the fly when trainable)."""
+        """The OIW kernel the conv applies (folded on the fly when trainable;
+        the post-gain form's g * weight)."""
+        if self.post_gain:
+            return self.g[:, None, None] * self.weight
         if not self.trainable:
             return self.weight
         fold = equalized_lr_kernel if self.use_equalized_lr else weight_norm_kernel
@@ -75,6 +83,10 @@ class Conv1DWeightNorm(nn.Module):
             self._parameters.pop(name, None)
         self._buffers.pop("_equalized_lr", None)
         kernel = kernel.detach()
+        if self.post_gain:
+            self.weight = nn.Parameter(kernel.clone())
+            self.g = nn.Parameter(torch.ones_like(kernel[:, 0, 0]) if g is None else g.detach().clone())
+            return
         if not (trainable and self.use_weight_norm):
             self.weight = nn.Parameter(kernel.clone())
             return
@@ -105,7 +117,8 @@ class Conv1DWeightNorm(nn.Module):
         """The JAX package's initialisation in the current form: a
         glorot-uniform kernel (or `kernel_init_scale` x normal), averaged over
         the sub-pixel phases when `no_cb_for_up_fac` is set, then g = ||v|| per
-        channel (equalized LR: v = kernel / rms, g = rms); zero bias."""
+        channel (equalized LR, with or without weight norm: v = kernel / rms,
+        g = rms); zero bias."""
         shape = (self.filters, self.in_channels, self.kernel_size)
         dev = self.bias.device if self.bias is not None else self.kernel().device
         if self.kernel_init_scale is not None:
@@ -136,6 +149,9 @@ class Conv1DWeightNorm(nn.Module):
         return (in_len - k_eff) // self.strides + 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.post_gain:
+            y = self.g.to(x.dtype) * conv1d(x, self.weight, None, self.strides, self.dilation_rate, self.padding)
+            return y if self.bias is None else y + self.bias.to(x.dtype)
         return conv1d(x, self.kernel(), self.bias, self.strides, self.dilation_rate, self.padding)
 
 
@@ -267,3 +283,15 @@ class Activation(nn.Module):
         if self.activation_function == "leaky_relu":
             return torch.nn.functional.leaky_relu(x, negative_slope=self.alpha_value)
         return _STATELESS_ACTIVATIONS[self.activation_function](x)
+
+
+class PReLU(Activation):
+    """PReLU with a per-channel alpha shared over time."""
+
+    def __init__(self, alpha=0.2, channels: Optional[int] = None, name="prelu"):
+        super().__init__("prelu", alpha=alpha, channels=channels, name=name)
+
+
+class LeakyReLU(Activation):
+    def __init__(self, alpha=0.2, name="lrelu"):
+        super().__init__("leaky_relu", alpha=alpha, name=name)

@@ -9,9 +9,13 @@ followed by a final 1x1 conv to `final_n_channels`, an optional
 missing-upsampling linear interp to reach `target_ups`, and an optional
 final activation.  Padding layers are SYMMETRIC, or EDGE with pad_to_valid.
 With force_causal every pad goes to the left: padding layers pad (lo + hi,
-0) and the convs that pad themselves use CAUSAL padding.
-The JAX package's opt-in fused tail is not ported (ROADMAP.md queue 1,
-item 13).
+0) and the convs that pad themselves use CAUSAL padding.  The
+activations are PReLUs, or leaky ReLUs without `use_prelu`; with
+`remove_inactive_pad_layers` a kernel-1 conv gets no (empty) pad layer.
+Layers are named by their spec index, so dropping a pad layer renames
+nothing.  The JAX package's fused F0 tail (`MBEXWN_FUSED_TAIL`) stays on
+the JAX side: it is a speed knob whose results are identical to the
+layered subnet.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import List, Optional, Tuple
 from torch import nn
 
 from .core import Sequential
-from .layers import Activation, Conv1DUpDownSample, Conv1DWeightNorm, LinInterpLayer, Pad1d
+from .layers import Activation, Conv1DUpDownSample, Conv1DWeightNorm, LeakyReLU, LinInterpLayer, Pad1d, PReLU
 
 
 def get_missing_upsampling_factor(target_ups, total_ups, base_name):
@@ -58,9 +62,6 @@ def generate_subnet_from_specs(
     """Returns (Sequential module, total upsampling factor).  Every conv
     initialises to `weight_init_scale` x normal, the sub-pixel upsampling
     convs with checkerboard-free averaging (`init`)."""
-    if not use_prelu or remove_inactive_pad_layers:
-        raise NotImplementedError("leaky-ReLU subnets and remove_inactive_pad_layers are not ported "
-                                  "(ROADMAP.md queue 1, item 13)")
     total_ups = 1
     layers: List[nn.Module] = []
     ch = in_channels
@@ -68,6 +69,10 @@ def generate_subnet_from_specs(
 
     def pad_active(ks):
         return ((ks - 1) // 2 + ((ks - 1) % 2)) > 0
+
+    def pad(ks, ii):
+        if not remove_inactive_pad_layers or pad_active(ks):
+            layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
 
     if specs:
         ii = 0
@@ -88,7 +93,7 @@ def generate_subnet_from_specs(
                     up = spec[2]
 
             if linear_up:
-                layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
+                pad(ks, ii)
                 layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", kernel_init_scale=weight_init_scale,
                                                name=base_name + f"_Layer_{ii}"))
                 layers.append(LinInterpLayer(up, num_pad_end=1, drop_last=True,
@@ -101,11 +106,12 @@ def generate_subnet_from_specs(
                                                  factor=up, up_sample=True, use_checkerboard_free_init=True,
                                                  kernel_init_scale=weight_init_scale, name=base_name + f"_Layer_{ii}"))
             else:
-                layers.append(_pad_layer(ks, base_name, ii, force_causal, pad_to_valid))
+                pad(ks, ii)
                 layers.append(Conv1DWeightNorm(ch, nf, ks, padding="VALID", kernel_init_scale=weight_init_scale,
                                                name=base_name + f"_Layer_{ii}"))
             ch = nf
-            layers.append(Activation("prelu", alpha=alpha, channels=ch, name=base_name + f"_ActLayer_{ii}"))
+            act_name = base_name + f"_ActLayer_{ii}"
+            layers.append(PReLU(alpha, channels=ch, name=act_name) if use_prelu else LeakyReLU(alpha, name=act_name))
             total_ups *= up
 
         if final_nks is not None:

@@ -43,7 +43,18 @@ device holding its rows of every dilated conv and cond slab and the
 matching input columns of every res/skip conv; per layer the partial
 res/skip products are summed into the full residual and skip
 (parallel/tensor.py).  A stack with `tp_axis` never takes the kernel, as in
-JAX; unplaced, its layer loop runs on one device.
+JAX; unplaced, its layer loop runs on one device.  In the int8 mode a
+placed stack splits its quantized layers the same way (each weight
+quantized whole, then sharded; the res/skip input's per-sample abs-max
+reduced across the shards).
+
+Equalized LR without weight norm (`use_equalized_lr` and not
+`use_weight_norm`, nn/layers.py) keeps a post-gain `g` beside each
+unfolded kernel.  The layer loop applies it after each conv; the kernel's
+packed weights, the int8 weights and the tensor-parallel shards take the
+effective kernel g * weight (`Conv1DWeightNorm.kernel`), so every route
+computes the layer loop's result.  (The JAX package's Pallas and int8
+routes read the unfolded kernel and drop `g`.)
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ _PACKED = ("w_dil", "b_dil", "w_rs", "b_rs")
 _INT8 = ("q", "scale", "bias")  # the fields of ops.quant.Int8Weight
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 TP_AXES = ("model",)  # the mesh axis a stack's hidden channels may be split over
-WEIGHT_CACHES = ("_stack_cache", "_int8_cache", "_tp_cache")
+WEIGHT_CACHES = ("_stack_cache", "_int8_cache", "_tp_cache", "_tp_int8_cache")
 
 
 def resolve_dtype(name) -> Optional[torch.dtype]:
@@ -342,14 +353,11 @@ class WaveNetAE(nn.Module):
         skip sum."""
         G, Cg, L = self.n_ch_groups, self.n_grp_channels, self.n_layers
         sharded = self.tp_devices is not None
-        if sharded and quantized:
-            raise NotImplementedError(f"{self.name}: the int8 mode does not run under tensor parallelism; unset "
-                                      f"MBEXWN_WN_QUANT or MBEXWN_TP_AXIS")
         slabs = None if cond is None else cond.split(2 * Cg, dim=-1)  # G shared, or L * G per layer
         if sharded:
             from ..parallel import tensor
 
-            weights = self._tp_weights(x.dtype)
+            weights = self._tp_int8_weights(x.dtype) if quantized else self._tp_weights(x.dtype)
             slabs = None if slabs is None else [tensor.scatter_rows(s, self.tp_devices) for s in slabs]
         elif quantized:
             weights = self.int8_weights(x.dtype)
@@ -358,7 +366,10 @@ class WaveNetAE(nn.Module):
             for g in range(G):
                 li = i * G + g
                 c = None if slabs is None else slabs[g if self.shared_cond else li]
-                if sharded:
+                if sharded and quantized:
+                    rs = tensor.sharded_int8_layer(xs[g], c, weights[li], self.tp_devices, self.activation,
+                                                   self.dilations[i])
+                elif sharded:
                     rs = tensor.sharded_layer(xs[g], c, weights[li], self.tp_devices, self.activation,
                                               self.dilations[i], self.padding)
                 elif quantized:
@@ -392,6 +403,17 @@ class WaveNetAE(nn.Module):
         if self.differentiable and torch.is_grad_enabled():
             return build()
         return self._cached("_tp_cache", (dtype, self.tp_devices), build)
+
+    def _tp_int8_weights(self, dtype: torch.dtype):
+        """Per layer and group, each model device's shard of the int8 weights
+        (`int8_weights`, quantized whole, then split by
+        parallel/tensor.py `shard_int8_layer`), kept as `_cached` says."""
+        from ..parallel import tensor
+
+        def build():
+            return [tensor.shard_int8_layer(w, self.tp_devices) for w in self.int8_weights(dtype)]
+
+        return self._cached("_tp_int8_cache", (dtype, self.tp_devices), build)
 
 
 class WaveNetAEBlock(nn.Module):

@@ -148,7 +148,7 @@ def model_summary(model, T_mel: int = 64, print_fn=print) -> None:
     if blk.pp_subnet is not None:
         print_fn(f"{'PulseParameterGenerator':28s} -> (B, {T_mel * stp}) ## {_count(flat, 'pp_subnet/')}")
     print_fn(f"{'PulseWavetable':28s} -> {tuple(flat['wavetables'].shape)} (F0 grid {len(blk.wavetable.F0_list)})")
-    t = T_mel * stp // blk.pulse_channels
+    t = T_mel * stp // blk.wn_fold_factor
     for name in blk.block_names:
         bl = getattr(blk, name)
         t_out = bl.out_length(t)
@@ -156,7 +156,9 @@ def model_summary(model, T_mel: int = 64, print_fn=print) -> None:
         t = t_out
     print_fn(f"  {'wn_post_net':26s} -> (B, {t}, {blk.mb_factor}) ## {_count(flat, 'wn_post_net/')}")
     print_fn(f"{'PQMF synthesis':28s} -> (B, {T_mel * hop})")
-    print_fn(f"{'PulseSpectrumGenerator':28s} -> (B, {T_mel}, {blk.ps_max_ceps_coefs}) ## {_count(flat, 'ps_subnet/')}")
+    if blk.ps_subnet is not None:
+        print_fn(f"{'PulseSpectrumGenerator':28s} -> (B, {T_mel}, {blk.ps_max_ceps_coefs}) "
+                 f"## {_count(flat, 'ps_subnet/')}")
     print_fn(f"{'STFT filter + iSTFT':28s} -> (B, {T_mel * hop})")
     print_fn(f"{'total params':28s} ## {_count(flat)}")
     print_fn("---------------------------------------")
@@ -213,9 +215,10 @@ def synthesis_flops(model, T_mel: int = 1, batch: int = 1) -> Dict:
     breakdown = {}
     if blk.pp_subnet is not None:
         breakdown["pp_subnet"] = seq_flops(blk.pp_subnet, T_mel, blk.mel_channels)
-    breakdown["ps_subnet"] = seq_flops(blk.ps_subnet, T_mel, blk.mel_channels)
+    if blk.ps_subnet is not None:
+        breakdown["ps_subnet"] = seq_flops(blk.ps_subnet, T_mel, blk.mel_channels)
     wn = 0
-    t = t12k // blk.pulse_channels
+    t = t12k // blk.wn_fold_factor
     for name in blk.block_names:
         bl = getattr(blk, name)
         w = bl.wavenet

@@ -15,11 +15,21 @@ the phase empty unless asked for): its CUDA implementation launches the
 kernel, its CPU implementation is the plain version, and a fake
 implementation gives the shapes, so a traced or exported graph holds one
 node per oscillator stage.
+
+The analytic modes of the wavetable config compute from the phase alone,
+in plain PyTorch on either device, as the JAX package computes them in XLA
+outside its Pallas oscillator: `oscillator_phase` (the phase `oscillate`
+returns, bit for bit), `sinusoid_pulse` (`use_sinusoid_as_fun`) and
+`subharmonics` (`add_subharm_chans`).  The pulse-synchronous gains hold a
+gain contour over each pulse (`pulse_sync_gain_hold`) or average it over
+the pulse (`pulse_sync_gain_avg`), with index holds (`hold_last`: a
+cumulative max of marked positions, then a gather) where the JAX package
+runs associative scans.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -89,12 +99,31 @@ def oscillator_plain(phase, frequency, wavetables, nominal_f0, grid_factor, min_
                           min_transposition, max_transposition)
 
 
-def oscillate_plain(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate,
-                    phase_offset=None, return_phase=False):
-    """`oscillate` in plain PyTorch."""
+def oscillator_phase(f0: torch.Tensor, sample_rate: float, phase_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T) F0 -> (B, T) mod-1 phase, the one `oscillate` returns with
+    `return_phase` (bit-equal on the CPU, on the card and in the kernel)."""
     phase = stable_cumsum_and_wrap(phase_velocity(f0, sample_rate))
     if phase_offset is not None:
         phase = torch.remainder(phase + phase_offset[:, None], 1.0)
+    return phase
+
+
+def sinusoid_pulse(phase: torch.Tensor) -> torch.Tensor:
+    """`use_sinusoid_as_fun`: sin(2 pi phase) * 0.5 * (1 - cos(2 pi phase))."""
+    phase_2pi = phase * (2 * math.pi)
+    return torch.sin(phase_2pi) * 0.5 * (1.0 - torch.cos(phase_2pi))
+
+
+def subharmonics(phase: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """`add_subharm_chans = n`: sin(2 pi phase / k) for k = 2 ... n + 1."""
+    phase_2pi = phase * (2 * math.pi)
+    return [torch.sin(phase_2pi / k) for k in range(2, n + 2)]
+
+
+def oscillate_plain(f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition, sample_rate,
+                    phase_offset=None, return_phase=False):
+    """`oscillate` in plain PyTorch."""
+    phase = oscillator_phase(f0, sample_rate, phase_offset)
     audio = oscillator_plain(phase, f0, wavetables, nominal_f0, grid_factor, min_transposition, max_transposition)
     return (audio, phase) if return_phase else audio
 
@@ -175,3 +204,51 @@ def _oscillate_cuda(f0, wavetables, nominal_f0, grid_factor, min_transposition, 
         kernel_lib.check(err, "oscillator")
         kernel_lib.launches["oscillator"] += 1
     return out, phase
+
+
+# ----------------------------------------------------- pulse-synchronous gains
+
+
+def hold_last(values: torch.Tensor, mask: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """out[t] = values[s] for the largest s <= t with mask[s] True (values[0]
+    before the first mark), along `axis`: the positions of the marks, held
+    forward by a cumulative max, index a gather."""
+    values, mask = values.movedim(axis, -1), mask.movedim(axis, -1)
+    pos = torch.arange(values.shape[-1], device=values.device).expand(values.shape)
+    held = torch.where(mask, pos, torch.zeros_like(pos)).cummax(dim=-1).values
+    return torch.gather(values, -1, held).movedim(-1, axis)
+
+
+def pulse_start_mask(wrapped_phase: torch.Tensor) -> torch.Tensor:
+    """(B, T) bool mask, True at t = 0 and wherever the mod-1 phase wraps."""
+    first = torch.ones_like(wrapped_phase[:, :1], dtype=torch.bool)
+    return torch.cat([first, wrapped_phase[:, 1:] < wrapped_phase[:, :-1]], dim=1)
+
+
+def pulse_sync_gain_hold(wrapped_phase: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    """`gain` sampled at each pulse start and held over the pulse."""
+    return hold_last(gain, pulse_start_mask(wrapped_phase))
+
+
+def pulse_sync_gain_avg(wrapped_phase: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    """`gain` replaced by its mean over each pulse (the segment between two
+    phase wraps; the trailing partial pulse is averaged over its own
+    extent): (cumsum at the segment end - cumsum before its start) / its
+    length, the four boundary values held forward and backward.  The
+    cumsum runs in fp64, as the phase's does, and the mean is rounded once
+    to the gain's dtype: an fp32 cumsum (the JAX package's) loses ~1e-5 of
+    the mean over 24,000 samples, by an amount that depends on the
+    device's summation order."""
+    B, T = wrapped_phase.shape
+    last = torch.ones((B, 1), dtype=torch.bool, device=wrapped_phase.device)
+    end = torch.cat([wrapped_phase[:, :-1] > wrapped_phase[:, 1:], last], dim=1)  # the phase wraps after t
+    start = torch.cat([last, end[:, :-1]], dim=1)
+    g64 = gain.to(torch.float64)
+    cs = torch.cumsum(g64, dim=-1)
+    excl = cs - g64
+    idx = torch.arange(T, dtype=torch.float64, device=gain.device).expand(B, T)
+    a = hold_last(excl, start)  # the cumsum just before the segment start
+    s = hold_last(idx, start)
+    b = hold_last(cs.flip(-1), end.flip(-1)).flip(-1)  # the cumsum at the segment end
+    e = hold_last(idx.flip(-1), end.flip(-1)).flip(-1)
+    return ((b - a) / (e - s + 1.0)).to(gain.dtype)

@@ -1,15 +1,24 @@
-"""PQMF synthesis on tensors (the filters come from the numpy dsp/pqmf.py).
+"""PQMF analysis and synthesis on tensors (the filters come from the numpy
+dsp/pqmf.py, transposed to OIW).
 
-Zero-stuff each used band by `subbands` (scaled by `subbands`), pad
-taps//2 both sides, and run one VALID conv with the synthesis bank summing
-the bands.  The analysis side serves only the pulse-channel PQMF fold,
-which the registry models do not use (ROADMAP.md queue 1, item 13).
+Analysis (the pulse-channel PQMF fold, `pulse_channels_use_pqmf`): pad
+taps//2 both sides and run one VALID conv with the analysis bank at stride
+`subbands`.  Synthesis: zero-stuff each used band by `subbands` (scaled by
+`subbands`), pad taps//2 both sides, and run one VALID conv with the
+synthesis bank summing the bands.
 """
 from __future__ import annotations
 
 import torch
 
 from .conv import conv1d
+
+
+def pqmf_analysis(x: torch.Tensor, analysis_filter: torch.Tensor, subbands: int, taps: int) -> torch.Tensor:
+    """(B, T, 1) -> (B, T/subbands, subbands); analysis_filter is OIW
+    (subbands, 1, taps+1)."""
+    x = torch.nn.functional.pad(x, (0, 0, taps // 2, taps // 2))
+    return conv1d(x, analysis_filter, stride=subbands, padding="VALID")
 
 
 def pqmf_synthesis(x: torch.Tensor, synthesis_filter: torch.Tensor, subbands: int, taps: int,

@@ -20,6 +20,11 @@ rows and a reduction and output width that are multiples of 8, so
 arithmetic; it pads on the CPU alike, so the CPU tests run the same code.
 Each product adds one to `int_mm_calls`.
 
+Under tensor parallelism (parallel/tensor.py) each weight is quantized
+whole and then sliced, so every shard keeps the full tensor's
+per-output-channel scales, and a sharded activation is quantized with the
+abs-max of the whole tensor (`amax`).
+
 Weights are PyTorch's OIW (Cout, Cin, W) or (Cout, Cin).  Inference only:
 rounding has no gradient, so the trainer refuses to run with the mode set.
 """
@@ -57,11 +62,19 @@ def quantize_weight_per_cout(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return _round_clip(w32, scale.view(-1, *([1] * (w32.ndim - 1)))), scale
 
 
-def quantize_act_per_sample(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def act_absmax(x: torch.Tensor) -> torch.Tensor:
+    """The per-sample fp32 abs-max of (B, ...) activations, (B, 1, ...)."""
+    return x.float().abs().amax(dim=tuple(range(1, x.ndim)), keepdim=True)
+
+
+def quantize_act_per_sample(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-sample dynamic int8 quantization of (B, ...) activations
-    -> (int8 tensor, fp32 scale (B, 1, ...) broadcastable against x)."""
+    -> (int8 tensor, fp32 scale (B, 1, ...) broadcastable against x).
+    `amax`, when given, is the abs-max to scale by (`act_absmax` of the
+    whole tensor when x is one shard of it)."""
     x32 = x.float()
-    amax = x32.abs().amax(dim=tuple(range(1, x32.ndim)), keepdim=True)
+    if amax is None:
+        amax = act_absmax(x32)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     return _round_clip(x32, scale), scale
 
@@ -134,9 +147,10 @@ class Int8Weight:
         return cls(q, scale, None if bias is None else bias.detach().float())
 
 
-def conv1x1_int8_prepared(x: torch.Tensor, w: Int8Weight) -> torch.Tensor:
-    """`conv1x1_int8` with a weight quantized beforehand (`Int8Weight.of`)."""
-    xq, sx = quantize_act_per_sample(x)
+def conv1x1_int8_prepared(x: torch.Tensor, w: Int8Weight, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`conv1x1_int8` with a weight quantized beforehand (`Int8Weight.of`);
+    `amax` as `quantize_act_per_sample` takes it."""
+    xq, sx = quantize_act_per_sample(x, amax)
     return _dequantize(int8_matmul(xq, w.q), sx, w.scale, w.bias)
 
 

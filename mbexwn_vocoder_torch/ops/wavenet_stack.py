@@ -320,8 +320,8 @@ def _wavenet_stack_op(x: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, 
 def _wavenet_stack_op_cuda(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal):
     """The op on CUDA tensors: the kernel, under the tensors' device."""
     if activation != "gtu":
-        raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation} "
-                                  f"(ROADMAP.md queue 1, item 13)")
+        raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation}; a stack "
+                                  f"with another gate runs the layer loop (nn/wavenet.py WaveNetAE.route)")
     with kernel_lib.on_device(x.device):
         return _wavenet_stack_cuda(x, cond, (w_dil, b_dil, w_rs, b_rs), dilations, skip_only, causal)
 

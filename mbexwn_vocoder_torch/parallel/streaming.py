@@ -50,15 +50,21 @@ one-shot output only with the noise channel off (sigma 0).
 
 Over a mesh (`parallel.mesh.make_mesh`), `synth_batched` runs its uniform
 middle chunk group sequence-parallel: that group's rows (chunks x B) are
-split into contiguous shards, one per mesh device, each synthesised by
-that device's replica of the model, all enqueued before any is read back.
+split into contiguous shards, one per data row of the mesh, each
+synthesised by that row's replica of the model, all enqueued before any is
+read back.  A mesh with a "model" axis is taken as `BatchSynthesizer` takes
+it: each row's replica is placed on the row's model devices
+(`parallel.mesh.replicate`), so the WaveNet stacks of a model built with
+`MBEXWN_TP_AXIS=model` split their channels over them and the others stay
+whole.
 A group whose row count is not a multiple of the mesh's data axis (the
 edge chunks) stays on the first device, as in the JAX package.  The F0,
 the carries and the offsets are computed once on the first device, before
 the split, and each shard takes its rows of them, and of the noise drawn
 for the whole group there, so the mesh changes where a chunk is
 synthesised and nothing of what it is given.  `synth`, `synth_scan` and
-`stream` run on the mesh's first device.
+`stream` run on the first row's replica (sharded too, over a model
+axis).
 """
 from __future__ import annotations
 
@@ -110,12 +116,9 @@ class StreamingSynthesizer:
         interpolation and the STFT overlap need (2 frames): live synthesis
         then has an algorithmic latency of chunk_frames + halo_right frames.
         mesh: `synth_batched` splits its uniform chunk group over the mesh's
-        devices; everything else runs on its first device (`device` is then
-        not read).  The mesh is a data mesh: a "model" axis raises, as
-        streaming keeps its data-only mesh in the JAX package too."""
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise ValueError(f"StreamingSynthesizer: a mesh with a model axis ({mesh.shape}) is not taken; "
-                             f"streaming shards over the data axis only")
+        data rows; everything else runs on its first row (`device` is then
+        not read).  Each row's replica is placed on the row's model devices,
+        as the JAX package constrains only the chunk batch, over "data"."""
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)

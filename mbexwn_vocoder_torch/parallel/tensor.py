@@ -24,6 +24,19 @@ convs run on the first model device.  A device may repeat
 (`["cuda:0", "cuda:0"]`), which exercises the shard and reduce code on a
 host with one card.
 
+The int8 mode runs under the same split (`shard_int8_layer`,
+`sharded_int8_layer`).  Each weight is quantized whole first
+(ops/quant.py), then sliced as above: the dilated conv's rows keep their
+own per-output-channel scales, and the res/skip conv's input columns share
+the full weight's.  The dilated conv's input is replicated, so each shard
+quantizes it with the same per-sample scale.  The res/skip conv's input,
+the gated rows, is sharded, so its per-sample abs-max is taken across the
+shards first (`max_reduce`); each shard's int32 partial product is then
+dequantized with the same scales, and the fp32 partials are summed as
+above and cast to the compute dtype, as the unsharded int8 layer casts
+its product.  `counts` holds the number of sum reduces and max reduces
+run.
+
 `shard_model` places a model's stacks that were built with
 `tp_axis="model"` (`MBEXWN_TP_AXIS=model`) on a model axis; the other
 stacks stay on the first device, their weights replicated, as JAX's are
@@ -37,9 +50,11 @@ import torch
 from torch.cuda import comm
 
 from ..ops.conv import conv1d
+from ..ops.quant import Int8Weight, act_absmax, conv1x1_int8_prepared, dilated_conv1d_k3_int8_prepared
 from ..ops.wavenet_stack import gate
 
 Shard = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+counts = {"reduce_add": 0, "max_reduce": 0}  # collectives run, for the card's report
 
 
 def shard_model(model: torch.nn.Module, devices: Sequence[torch.device]) -> torch.nn.Module:
@@ -54,7 +69,7 @@ def shard_model(model: torch.nn.Module, devices: Sequence[torch.device]) -> torc
                 raise ValueError(f"{m.name}: {m.n_grp_channels} channels a group do not split over "
                                  f"{len(devices)} model devices")
             m.tp_devices = devices if len(devices) > 1 else None
-            m._tp_cache = None
+            m._tp_cache = m._tp_int8_cache = None
     return model
 
 
@@ -99,6 +114,7 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Te
 
 def reduce_add(partials: Sequence[torch.Tensor], home: torch.device) -> torch.Tensor:
     """The sum of the partials on `home`, in their dtype."""
+    counts["reduce_add"] += 1
     if _comm(partials) and home.type == "cuda":
         return comm.reduce_add(list(partials), destination=home.index)
     out = partials[0].to(home)
@@ -119,3 +135,43 @@ def sharded_layer(x: torch.Tensor, cond: Optional[List[torch.Tensor]], shards: S
             y = y + cond[s]
         partials.append(conv1d(gate(activation, *y.chunk(2, dim=-1)), w_rs, b_rs))
     return reduce_add(partials, devices[0])
+
+
+def max_reduce(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The elementwise max of `parts` (one per model device), on each of
+    `devices`."""
+    counts["max_reduce"] += 1
+    out = parts[0].to(devices[0])
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(devices[0]))
+    return broadcast(out, devices)
+
+
+def shard_int8_layer(weights: Tuple[Int8Weight, Int8Weight], devices: Sequence[torch.device]):
+    """Each model device's shard of a layer's int8 weights (`Int8Weight`,
+    quantized whole): the dilated conv's gate rows with their scales and
+    bias, and the res/skip conv's input columns with the full weight's
+    scales, its bias on shard 0 only."""
+    w_dil, w_rs = weights
+    M = len(devices)
+    Cs = w_dil.q.shape[0] // 2 // M
+    return [(Int8Weight(_rows(w_dil.q, s, M).to(dev), _rows(w_dil.scale, s, M).to(dev),
+                        None if w_dil.bias is None else _rows(w_dil.bias, s, M).to(dev)),
+             Int8Weight(w_rs.q[:, s * Cs:(s + 1) * Cs].contiguous().to(dev), w_rs.scale.to(dev),
+                        w_rs.bias.to(dev) if s == 0 and w_rs.bias is not None else None))
+            for s, dev in enumerate(devices)]
+
+
+def sharded_int8_layer(x: torch.Tensor, cond: Optional[List[torch.Tensor]], shards, devices: Sequence[torch.device],
+                       activation: str, dilation: int) -> torch.Tensor:
+    """`sharded_layer` in the int8 mode (`nn.wavenet.int8_layer` split over
+    the model devices): x (B, T, C) and the result on devices[0]."""
+    gated = []
+    for s, (xd, (w_dil, _)) in enumerate(zip(broadcast(x, devices), shards)):
+        y = dilated_conv1d_k3_int8_prepared(xd, w_dil, dilation).to(x.dtype)
+        if cond is not None:
+            y = y + cond[s]
+        gated.append(gate(activation, *y.chunk(2, dim=-1)))
+    amax = max_reduce([act_absmax(g) for g in gated], devices)
+    partials = [conv1x1_int8_prepared(g, w_rs, a) for g, a, (_, w_rs) in zip(gated, amax, shards)]
+    return reduce_add(partials, devices[0]).to(x.dtype)

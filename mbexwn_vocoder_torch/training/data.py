@@ -131,6 +131,11 @@ class SegmentDataset:
         f0 = upsample_f0(f0_frames, self.hop, seg.shape[0])
         return {"audio": seg, "mel": mell[0].astype(np.float32), "F0": f0}
 
+    def sample_segment(self) -> Dict[str, np.ndarray]:
+        """One segment from the dataset's RNG with its features (audio, mel,
+        F0), the JAX package's `sample_segment` (the same draws)."""
+        return self._features(self._segment(*self._choose()))
+
     def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
         """The next global batch of `batch_size` segments: this rank's rows
         of it (all of them without a shard)."""

@@ -111,17 +111,18 @@ def hold_leaves(got: Dict, ref: Dict, bound: Union[float, Callable[[str], float]
     return [(name, err, b) for err, name, b in rows if not err <= b], rows
 
 
-def card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
+def card_against_cpu(device, seed: int = 0, edits: Optional[Dict] = None) -> Tuple[List[str], Dict]:
     """The tiny case's loss and gradients on `device` against the CPU's,
     from one init (the port's, seeded) and one set of draws: in fp64 the
     loss within 1e-12 relative and every leaf within 1e-9 rel-RMS; in fp32
     the loss within 1e-5.  The fp32 gradients of both devices are reported
-    against the CPU's fp64 ones (module docstring).  Returns (failures,
-    numbers)."""
+    against the CPU's fp64 ones (module docstring).  `edits` are
+    `tiny_hparams`' overrides.  Returns (failures, numbers; "metrics" the
+    device's fp64 loss terms)."""
     from ..models import create_model
     from .trainer import Trainer
 
-    hp = tiny_hparams()
+    hp = tiny_hparams(**(edits or {}))
     model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
     model.init(torch.Generator().manual_seed(seed))
     state = {k: v.clone() for k, v in model.block.state_dict().items()}
@@ -134,8 +135,9 @@ def card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
             tr = Trainer(m.to(dtype), hp, device=dev)
             gen = torch.Generator().manual_seed(seed + 1)
             draws = {k: torch.randn(shape, generator=gen) for k, shape in tr.draw_shapes(batch).items()}
-            loss, _, grads = tr.value_and_grad(batch, 0, draws)
+            loss, metrics, grads = tr.value_and_grad(batch, 0, draws)
             out[(label, dtype)] = (float(loss), {k: v.detach().cpu() for k, v in grads.items()})
+    metrics = {k: float(v) for k, v in metrics.items()}
     (l64, exact), (d64, g64) = out[("cpu", torch.float64)], out[("device", torch.float64)]
     (l32, c32), (d32, g32) = out[("cpu", torch.float32)], out[("device", torch.float32)]
     bad64, rows64 = hold_leaves(g64, exact, 1e-9)
@@ -145,7 +147,8 @@ def card_against_cpu(device, seed: int = 0) -> Tuple[List[str], Dict]:
                "worst_leaf_fp64": rows64[0][1], "worst_rel_rms_fp64": rows64[0][0],
                "loss_fp32": d32, "loss_fp32_cpu": l32, "loss_fp32_rel": abs(d32 / l32 - 1),
                "fp32_vs_exact_worst_leaf": rows32[0][1], "fp32_vs_exact_worst_rel_rms": rows32[0][0],
-               "fp32_vs_exact_worst_leaf_cpu": rows32_cpu[0][1], "fp32_vs_exact_worst_rel_rms_cpu": rows32_cpu[0][0]}
+               "fp32_vs_exact_worst_leaf_cpu": rows32_cpu[0][1], "fp32_vs_exact_worst_rel_rms_cpu": rows32_cpu[0][0],
+               "metrics": metrics}
     failures = [f"fp64 leaf {n} {e:.2e} > {b:.0e}" for n, e, b in bad64]
     if not numbers["loss_fp64_rel"] <= 1e-12:
         failures.append(f"fp64 loss {d64!r} vs CPU {l64!r}")

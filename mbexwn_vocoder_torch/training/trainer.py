@@ -39,7 +39,8 @@ global shape from the generator, which is seeded alike on every rank, and
 sliced), and the parameters are broadcast from rank 0 when the trainer is
 made.  The loss every rank reports, and differentiates, is the loss of the
 global batch: each term of the loss is a batch mean of per-sample terms
-or a ratio of batch sums (the F0 loss, whose weights count the voiced
+(the spectral terms, and the envelope's aux losses `PS_cepstral_loss` and
+`PS_gain_loss`, means over equal-sized samples) or a ratio of batch sums (the F0 loss, whose weights count the voiced
 frames, and the STFT coherence), so each rank computes its shard's means
 and sums, one all-reduce of those numbers gives the batch's, and the loss
 is assembled from them with each rank's own share kept differentiable
@@ -214,6 +215,8 @@ class Trainer:
         self.pp_min_frequency = mc.get("pp_min_frequency", 40.0)
         self.suppress_uv_gradient = mc.get("pp_subnet_suppress_uv_gradient", False)
         self.stft_coh_loss_weight = mc.get("stft_coh_loss_weight")
+        self.psns_gain_loss_weight = mc.get("psns_gain_loss_weight")
+        self.psns_cepstral_loss_weight = mc.get("psns_cepstral_loss_weight", 0.5)
         self.pulse_noise_floor_mag = blk.pulse_noise_floor_mag
         self.dither_level = self.training_config.get("dither_level", 0) or 0
         self.TD_loss_weight = self.training_config.get("TD_loss_weight", 0) or 0
@@ -317,8 +320,9 @@ class Trainer:
     def training_forward(self, audio, mel, F0, step: int, draws=None, F0_ds=None):
         """Training-mode forward: (signal, target audio, aux losses), as the
         JAX package's `training_forward`; `F0_ds` is the pulse-rate F0 target,
-        which replaces striding the sample-rate `F0`.  The aux losses (F0,
-        STFT coherence) are given as (numerator, denominator) batch sums."""
+        which replaces striding the sample-rate `F0`.  The aux losses of F0 and
+        STFT coherence are given as (numerator, denominator) batch sums, the
+        envelope's (`MBExWN.generate_specenv`) as means."""
         model, blk, aux = self.model, self.model.block, {}
         if model.norm_mel_components is not None:
             grp_audio, mel_in, _ = model.norm_mel_components.normalize_inputs_by_rms(audio[:, :, None], mel)
@@ -403,6 +407,10 @@ class Trainer:
                      if v is not None}
             if self.TD_loss_weight:
                 means["TD_loss"] = td_loss(signal, target, self.TD_loss_win_len)
+        for name, on in (("PS_gain_loss", self.psns_gain_loss_weight),
+                         ("PS_cepstral_loss", self.psns_cepstral_loss_weight)):
+            if name in aux and on:
+                means[name] = aux[name]  # per-element means: batch means under data parallelism
         sums = {}
         for name, on in (("F0_loss", self.pp_F0_loss_weight is not None), ("stft_coh_loss", self.stft_coh_loss_weight)):
             if name in aux and on:
@@ -422,6 +430,11 @@ class Trainer:
             metrics["F0_loss"] = finish_f0_prediction_loss(sums["F0_loss/num"], sums["F0_loss/den"],
                                                            self.pp_F0_loss_method, self.pp_F0_UV_loss_weight)
             total = total + metrics["F0_loss"] * self.pp_F0_loss_weight(step)
+        for name, weight in (("PS_gain_loss", self.psns_gain_loss_weight),
+                             ("PS_cepstral_loss", self.psns_cepstral_loss_weight)):
+            if name in means:
+                metrics[name] = means[name]
+                total = total + means[name] * weight
         if "stft_coh_loss/num" in sums:
             metrics["stft_coh_loss"] = sums["stft_coh_loss/num"] / sums["stft_coh_loss/den"]
             total = total + metrics["stft_coh_loss"] * self.stft_coh_loss_weight

@@ -1,8 +1,9 @@
 """The registry's configuration against the JAX package at narrow width
 with random weights, through PaNWaveNet.infer in fp32 (1e-4 rel-RMS:
 float32 summation order at a width where the excitation's phase cannot
-drift far), and the config branches no registry model uses, which raise
-NotImplementedError naming the ROADMAP item that will port them."""
+drift far), and the same for config branches no registry model uses (they
+raised NotImplementedError until they were ported; each case now holds
+the branch against JAX at the same bound)."""
 import numpy as np
 import pytest
 import torch
@@ -35,11 +36,12 @@ def _small_hparams(edit):
     return hp
 
 
-def test_registry_config_matches_jax():
-    """JAX's init, folded and mapped onto the port, plus random biases."""
-    hp = _small_hparams(lambda mc: None)
+def matches_jax(hp, seed=3):
+    """rel-RMS of the port's fp32 `infer` from JAX's on a batch-2 mel, with
+    JAX's init, folded and mapped onto the port (strict), plus random
+    biases, and JAX's noise injected."""
     jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"])
-    params = jax_fold(jmodel.init(jax.random.PRNGKey(3), batch_size=2, T_mel=16))
+    params = jax_fold(jmodel.init(jax.random.PRNGKey(seed), batch_size=2, T_mel=16))
     rng = np.random.RandomState(11)
     params = jax.tree_util.tree_map(  # non-zero biases, so every bias path is exercised
         lambda a: a + 0.05 * rng.randn(*a.shape).astype(np.float32) if a.ndim == 1 else a, params)
@@ -53,7 +55,11 @@ def test_registry_config_matches_jax():
     with torch.no_grad():
         got = model.infer(torch.from_numpy(mel), synth_length=16 * hop, noise=torch.from_numpy(noise.copy()))
     assert tuple(got.shape) == ref.shape == (2, 16 * hop)
-    assert rel_rms(got, ref) <= 1e-4
+    return rel_rms(got, ref)
+
+
+def test_registry_config_matches_jax():
+    assert matches_jax(_small_hparams(lambda mc: None)) <= 1e-4
 
 
 @pytest.mark.parametrize("edit", [
@@ -63,17 +69,18 @@ def test_registry_config_matches_jax():
     lambda mc: mc.update(filter_max_db_range=None),
     lambda mc: mc.update(internal_fft_over=1),
     lambda mc: mc.update(normalize_use_pinv=True),
-    lambda mc: mc.update(max_norm_fact=1000.0),
+    lambda mc: mc.update(max_norm_fact=120.0),  # a floor above the quietest frames
     lambda mc: mc.update(normalize_compressor_exp=0.5),
     lambda mc: mc.update(pp_mod_subnet_use_pqmf=False),
     lambda mc: mc.update(use_prelu=False),
-    lambda mc: mc.update(remove_inactive_pad_layers=True),
+    lambda mc: mc.update(remove_inactive_pad_layers=True, ps_subnet=[[3, 16], [1, 16]]),
 ], ids=["preserve_energy", "cepstral_constraint", "no_cepstral_window", "no_filter_range", "fft_over",
         "normmel_pinv", "max_norm_fact", "compressor_exp", "no_pqmf", "leaky_relu", "remove_inactive_pad"])
 def test_unported_config_branches_raise(edit):
-    hp = _small_hparams(edit)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        create_model(hp, hp["training_config"], hp["preprocess_config"])
+    """Each branch that raised before it was ported: `infer` against JAX's
+    (a kernel-1 layer in the envelope net gives remove_inactive_pad_layers
+    a pad layer to drop)."""
+    assert matches_jax(_small_hparams(edit)) <= 1e-4
 
 
 def test_f0_override_and_phase_offset_match_jax():

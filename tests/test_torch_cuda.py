@@ -541,9 +541,10 @@ def test_remat_step_on_the_card_equals_the_step_without(card, monkeypatch):
     assert not bad, bad
 
 
-def _routes_model(card, monkeypatch, tp=False, **pp_mod):
-    """SPEECH at 64 channels and 4 layers (pp_mod_subnet edited), random
-    init seeded, fp32: (the model on the CPU, the same on the card)."""
+def _routes_model(card, monkeypatch, tp=False, config=None, **pp_mod):
+    """SPEECH at 64 channels and 4 layers (pp_mod_subnet edited, and
+    mbexwn_config by `config`), random init seeded, fp32: (the model on the
+    CPU, the same on the card)."""
     import copy
 
     from mbexwn_vocoder_torch.models import create_model
@@ -555,6 +556,7 @@ def _routes_model(card, monkeypatch, tp=False, **pp_mod):
         monkeypatch.setenv("MBEXWN_TP_AXIS", "model")
     hp = tiny_hparams()
     hp["mbexwn_config"]["pp_mod_subnet"].update(n_channels=64, n_layers=4, **pp_mod)
+    hp["mbexwn_config"].update(config or {})
     model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
     model.init(torch.Generator().manual_seed(0))
     model = model.eval()
@@ -642,3 +644,44 @@ def test_int8_mode_on_the_card(card, monkeypatch):
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
     rel_fp = float(torch.sqrt(torch.mean((got - got_fp) ** 2) / torch.mean(got_fp ** 2)))
     assert rel <= 2e-2 and rel_fp > 1e-3, (rel, rel_fp)
+
+
+_WAVETABLE = dict(nominalF0=50.0, maxF0=650.0, F0GridFactor=1.25, wt_oversampling=2, Oq=0.5, am=0.8, rta=0.05)
+
+
+@pytest.mark.parametrize("config,pp_mod,k2", [
+    (dict(wavetable_config=dict(_WAVETABLE, use_sinusoid_as_fun=True)), {}, 0),
+    (dict(wavetable_config=dict(_WAVETABLE, add_subharm_chans=2)), {}, 1),
+    (dict(pulse_channels_use_pqmf=True, pulse_channels_multi_band_config=dict(subbands=6, taps=94,
+                                                                               cutoff_ratio=0.0945, beta=9.0)), {}, 1),
+    (dict(ps_use_stft=False, spect_filters_preserve_energy=True), {}, 1),
+    ({}, dict(use_weight_norm=False, use_equalized_lr=True), 1),
+], ids=["sinusoid_as_fun", "subharmonics", "pulse_pqmf", "multiband_gain", "equalized_lr_post_gain"])
+def test_model_branches_on_the_kernels(card, monkeypatch, config, pp_mod, k2):
+    """The model's opt-in branches on the card: equal to the CPU within 1e-4
+    rel-RMS in fp32, with K1 on both stacks (4 + 4 launches) and K2 once,
+    or not at all for the analytic pulse, which computes from the phase."""
+    model_cpu, model = _routes_model(card, monkeypatch, config=config, **pp_mod)
+    got, ref, counts = _synth_both(model_cpu, model, card)
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert counts == {"wavenet_layer": 8, "oscillator": k2} and rel <= 1e-4, (counts, rel)
+
+
+def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
+    """MBEXWN_WN_QUANT=int8 with MBEXWN_TP_AXIS=model over cuda:0 twice: four
+    int8 products a layer (two a shard), one max-reduce and one sum-reduce
+    a layer, no K1 launch, within 2e-2 of the unsharded int8 synthesis."""
+    from mbexwn_vocoder_torch.ops import quant
+    from mbexwn_vocoder_torch.parallel import tensor
+    from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
+
+    model_cpu, model = _routes_model(card, monkeypatch, tp=True)
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    got_plain, _, _ = _synth_both(model_cpu, model, card)
+    replica = replicate(model, make_mesh(n_model=2, devices=["cuda:0", "cuda:0"]))[torch.device("cuda", 0)]
+    n_mm, before = quant.int_mm_calls, dict(tensor.counts)
+    got, _, counts = _synth_both(model_cpu, replica, card)
+    assert quant.int_mm_calls - n_mm == 2 * 4 * 2 + 2 * 4 * 4  # the CPU's unsharded, the card's sharded
+    assert {k: tensor.counts[k] - before[k] for k in before} == {"reduce_add": 8, "max_reduce": 8}
+    rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
+    assert counts == {"wavenet_layer": 0, "oscillator": 1} and rel <= 2e-2, (counts, rel)

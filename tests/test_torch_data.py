@@ -88,6 +88,19 @@ def test_python_path_batches_are_bit_equal_to_jax(corpus, preprocess_config, cap
     assert (got[0]["F0"] > 0).any()
 
 
+def test_sample_segment_is_bit_equal_to_jax(corpus, preprocess_config):
+    """The public one-segment draw over the dataset's steps: the same
+    (file, start) draws and features as the JAX package's, segment after
+    segment."""
+    port = SegmentDataset(corpus, preprocess_config, seed=5, use_native=False)
+    jax = JaxSegmentDataset(corpus, preprocess_config, seed=5, use_native=False)
+    for _ in range(3):
+        got, ref = port.sample_segment(), jax.sample_segment()
+        assert got.keys() == ref.keys()
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), k
+
+
 def test_python_path_resamples_like_jax(mixed_rate_corpus, preprocess_config, capsys):
     port = SegmentDataset(mixed_rate_corpus, preprocess_config, seed=11)
     jax = JaxSegmentDataset(mixed_rate_corpus, preprocess_config, seed=11)

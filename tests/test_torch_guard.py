@@ -190,7 +190,9 @@ def test_synthesis_over_a_mesh_takes_the_mesh_devices():
     """A mesh replaces `device`: the synthesizers run on its first device
     and hold one replica per distinct device; a mesh asks for every card
     unless it is given devices; a model axis makes a 2-D grid, which batch
-    synthesis takes and streaming refuses."""
+    synthesis and streaming both take (streaming refused it until the
+    repair that ported 13d's rest; tests/test_torch_tensor_parallel.py
+    holds its output)."""
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh
 
     hp = _speech_hparams()
@@ -202,8 +204,8 @@ def test_synthesis_over_a_mesh_takes_the_mesh_devices():
     grid = make_mesh(n_model=2, devices=["cpu", "cpu"])
     assert grid.shape == {"data": 1, "model": 2} and grid.grid == ((torch.device("cpu"),) * 2,)
     assert BatchSynthesizer(model, mesh=grid).device == torch.device("cpu")
-    with pytest.raises(ValueError, match="data axis only"):
-        StreamingSynthesizer(model, mesh=grid)
+    ss = StreamingSynthesizer(model, mesh=grid)
+    assert ss.device == torch.device("cpu") and list(ss.replicas) == [torch.device("cpu")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
@@ -231,18 +233,41 @@ def _speech_hparams():
     return read_config(get_config_file("SPEECH"))
 
 
+_PULSE_PQMF = {"subbands": 6, "taps": 94, "cutoff_ratio": 0.0945, "beta": 9.0}
+
+
 @pytest.mark.parametrize("edit,item", [
     (lambda mc: mc.update(ps_use_stft=False), "item 13"),
-    (lambda mc: mc.update(pulse_channels_use_pqmf=True), "item 13"),
+    (lambda mc: mc.update(pulse_channels_use_pqmf=True, pulse_channels_multi_band_config=dict(_PULSE_PQMF)), "item 13"),
     (lambda mc: mc["wavetable_config"].update(use_sinusoid_as_fun=True), "item 13"),
     (lambda mc: mc["wavetable_config"].update(add_subharm_chans=2), "item 13"),
     (lambda mc: mc.update(normalize_rms_num_smooth_iters=2), "item 13"),
 ])
 def test_unported_branches_raise(edit, item):
+    """The branches that raised until ROADMAP item 13(e) ported them now
+    build with the JAX package's parameter tree (keys and shapes of JAX's
+    init, which the port's init fills) and synthesise finite audio of the
+    requested length on the CPU (tests/test_torch_model_branches.py holds
+    them against JAX)."""
+    import jax
+
+    from mbexwn_vocoder_tpu.models import create_model as jax_create_model
+    from mbexwn_vocoder_torch.compat.params_io import flatten, params_to_jax
+
     hp = copy.deepcopy(_speech_hparams())
+    hp["mbexwn_config"]["pp_mod_subnet"].update(n_channels=8, n_layers=2, n_out_channels=8)
     edit(hp["mbexwn_config"])
-    with pytest.raises(NotImplementedError, match=item):
-        create_model(hp, hp["training_config"], hp["preprocess_config"])
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(0))
+    jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+    ref = flatten(jax.jit(lambda k: jmodel.init(k, batch_size=1, T_mel=8))(jax.random.PRNGKey(0)))
+    got = params_to_jax(model.block.state_dict())
+    assert got.keys() == ref.keys(), (item, sorted(got.keys() ^ ref.keys()))
+    assert all(got[k].shape == ref[k].shape for k in ref), item
+    with torch.no_grad():
+        y = model.infer(torch.randn(1, 8, 80, generator=torch.Generator().manual_seed(1)) * 0.5 - 4,
+                        synth_length=8 * 300)
+    assert y.shape == (1, 8 * 300) and bool(y.isfinite().all()), item
 
 
 def test_pp_subnet_training_only_builds_the_f0_subnet_alone():

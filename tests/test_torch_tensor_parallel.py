@@ -9,8 +9,13 @@ normalisation; JAX's init, folded, loaded into the port) on
 unsharded `infer` (1e-4 rel-RMS) and against the port unsharded (1e-5).
 Beside it: one tiny fp64 gradient through the differentiable route under
 tensor parallelism against the unsharded stack (1e-12), `BatchSynthesizer`
-over a 2-D mesh, the weights replicated when the variable is not set, and
-the refusals (the kernel, the int8 mode and streaming keep out of it).
+over a 2-D mesh, the weights replicated when the variable is not set, the
+int8 mode under tensor parallelism (each layer against the unsharded int8
+layer on the same inputs, 1e-5; the whole synthesis against JAX's int8
+within 0.1 x JAX's own int8-against-fp distance, tests/test_torch_quant.py's
+rule), streaming's `synth_batched` over 2 x 2 and 1 x 2 grids (1e-5 from the
+port at mesh=None, 1e-4 from JAX's at mesh=None on the same chunk
+geometry), and what stays refused (channels that do not split).
 """
 import numpy as np
 import pytest
@@ -23,13 +28,15 @@ import mbexwn_vocoder_tpu as mv
 from mbexwn_vocoder_tpu.config import read_config as jax_read_config
 from mbexwn_vocoder_tpu.models import create_model as jax_create_model
 from mbexwn_vocoder_tpu.ops.conv import fold_weight_norm as jax_fold
+from mbexwn_vocoder_tpu.parallel import StreamingSynthesizer as JaxStreamingSynthesizer
 
 from mbexwn_vocoder_torch import get_config_file
 from mbexwn_vocoder_torch.compat.params_io import flatten, params_from_jax
 from mbexwn_vocoder_torch.config import read_config
 from mbexwn_vocoder_torch.models import create_model
 from mbexwn_vocoder_torch.nn.layers import Conv1DWeightNorm
-from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
+from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE, int8_layer
+from mbexwn_vocoder_torch.ops import quant
 from mbexwn_vocoder_torch.parallel import BatchSynthesizer, StreamingSynthesizer, tensor
 from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
 
@@ -159,17 +166,98 @@ def test_fp64_gradient_under_tensor_parallelism(groups):
 
 
 def test_refusals(jax_reference, monkeypatch):
-    """Channels that do not split over the model axis, the int8 mode under
-    tensor parallelism, and streaming over a model axis raise."""
+    """Channels that do not split over the model axis raise, and so does a
+    grid larger than the devices.  The int8 mode under tensor parallelism
+    and streaming over a model axis raised until they were ported; they now
+    run (the tests below hold their output): the int8 mode takes the
+    sharded int8 layers, one max-reduce and one sum-reduce a layer."""
     params, mel, _ = jax_reference
     model = _port(params, monkeypatch, tp=True)
     with pytest.raises(ValueError, match="do not split"):
         tensor.shard_model(model, ["cpu"] * 3)
     tensor.shard_model(model, ["cpu"] * 2)
     monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="int8 mode does not run under tensor"):
-        model.infer(torch.from_numpy(mel), synth_length=SYNTH)
-    with pytest.raises(ValueError, match="data axis only"):
-        StreamingSynthesizer(model, mesh=make_mesh(n_model=2, devices=["cpu", "cpu"]))
+    before = dict(tensor.counts)
+    with torch.no_grad():
+        y = model.infer(torch.from_numpy(mel), synth_length=SYNTH)
+    assert all(wn.route() == "int8" for wn in _stacks(model))
+    assert y.shape == (2, SYNTH) and bool(y.isfinite().all())
+    assert {k: tensor.counts[k] - before[k] for k in before} == {"reduce_add": 4, "max_reduce": 4}
+    ss = StreamingSynthesizer(model, mesh=make_mesh(n_model=2, devices=["cpu", "cpu"]))
+    assert all(wn.tp_devices == (torch.device("cpu"),) * 2 for wn in _stacks(ss.model))
     with pytest.raises(ValueError, match="n_data=3 x n_model=2"):
         make_mesh(n_data=3, n_model=2, devices=["cpu"] * 4)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_int8_layers_under_tensor_parallelism(groups, monkeypatch):
+    """Each int8 layer split over 2 model devices against the unsharded int8
+    layer on the same inputs: every weight is quantized whole and the
+    res/skip input's scale comes from the max-reduce, so each shard
+    quantizes as the whole layer does and only the fp32 sum order of the
+    partials differs (1e-5; a rounding-bin flip would show as ~1e-3 and
+    fail)."""
+    net = _trainable_stack(torch.float32, n_ch_groups=groups)
+    for m in net.modules():
+        if isinstance(m, Conv1DWeightNorm):
+            m.fold_()
+    net.differentiable = False
+    tensor.shard_model(net, ["cpu"] * 2)
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    rng = np.random.RandomState(3)
+    Cg = net.n_grp_channels
+    with torch.no_grad():
+        whole, shards = net.int8_weights(torch.float32), net._tp_int8_weights(torch.float32)
+        for li, dilation in enumerate(np.repeat(net.dilations, groups)):
+            x = torch.from_numpy(rng.randn(2, 40, Cg).astype(np.float32))
+            cond = torch.from_numpy(rng.randn(2, 40, 2 * Cg).astype(np.float32) * 0.5)
+            ref = int8_layer(x, cond, whole[li], int(dilation), net.activation)
+            got = tensor.sharded_int8_layer(x, tensor.scatter_rows(cond, net.tp_devices), shards[li],
+                                            net.tp_devices, net.activation, int(dilation))
+            assert rel_rms(got.numpy(), ref.numpy()) <= 1e-5, (li, rel_rms(got.numpy(), ref.numpy()))
+
+
+def test_int8_synthesis_under_tensor_parallelism(jax_reference, monkeypatch):
+    """The whole synthesis in the int8 mode over a 1 x 2 grid: against the
+    port's unsharded int8 (1e-5) and against JAX's int8 within 0.1 x JAX's
+    int8-against-fp distance."""
+    params, mel, j_fp = jax_reference
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    hp = _edit(jax_read_config(mv.get_config_file("SPEECH")))
+    jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+    j_q = np.asarray(jmodel.infer(params, jnp.asarray(mel), synth_length=SYNTH))
+    plain = _port(params, monkeypatch, tp=False)
+    model = _port(params, monkeypatch, tp=True)
+    replica = replicate(model, make_mesh(n_model=2, devices=["cpu", "cpu"]))[torch.device("cpu")]
+    before = quant.int_mm_calls
+    with torch.no_grad():
+        y_plain = plain.infer(torch.from_numpy(mel), synth_length=SYNTH).numpy()
+        calls = quant.int_mm_calls - before
+        y_tp = replica.infer(torch.from_numpy(mel), synth_length=SYNTH).numpy()
+    assert calls == 2 * 2 * 2 and quant.int_mm_calls - before == calls + 2 * calls  # 2 products a shard a layer
+    assert rel_rms(y_tp, y_plain) <= 1e-5, rel_rms(y_tp, y_plain)
+    assert rel_rms(y_tp, j_q) < 0.1 * rel_rms(j_q, j_fp), (rel_rms(y_tp, j_q), rel_rms(j_q, j_fp))
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 2), (1, 2)])
+def test_streaming_over_a_model_axis(jax_reference, monkeypatch, n_data, n_model):
+    """`synth_batched` over a grid, channels split over "model" and the
+    uniform chunk group over "data", against the port at mesh=None (1e-5)
+    and JAX's `synth_batched` at mesh=None on the same chunk geometry
+    (1e-4)."""
+    params, _, _ = jax_reference
+    mell = (np.random.RandomState(5).randn(1, 48, 80) * 0.5 - 4).astype(np.float32)
+    hp = _edit(jax_read_config(mv.get_config_file("SPEECH")))
+    jmodel, _ = jax_create_model(hp, hp["training_config"], hp["preprocess_config"], quiet=True)
+    ref_jax = JaxStreamingSynthesizer(jmodel, params, chunk_frames=8, halo_frames=4).synth_batched(mell)
+    model = _port(params, monkeypatch, tp=True)
+    ref = StreamingSynthesizer(model, chunk_frames=8, halo_frames=4, device="cpu").synth_batched(mell)
+    mesh = make_mesh(n_data=n_data, n_model=n_model, devices=["cpu"] * (n_data * n_model))
+    ss = StreamingSynthesizer(model, chunk_frames=8, halo_frames=4, mesh=mesh)
+    assert all(wn.tp_devices == (torch.device("cpu"),) * n_model for wn in _stacks(ss.model))
+    reduces = tensor.counts["reduce_add"]
+    got = ss.synth_batched(mell)
+    assert tensor.counts["reduce_add"] > reduces
+    assert got.shape == ref.shape == ref_jax.shape == (1, 48 * 300)
+    assert rel_rms(got, ref) <= 1e-5, rel_rms(got, ref)
+    assert rel_rms(got, ref_jax) <= 1e-4, rel_rms(got, ref_jax)
