@@ -60,6 +60,8 @@ from ..dsp.windows import hann_periodic
 from ..nn.layers import Activation, Conv1DWeightNorm, LinInterpLayer
 from ..nn.subnet import generate_subnet_from_specs
 from ..nn.wavenet import WaveNetAEBlock, resolve_dtype
+from ..observability import (MODEL_ENVELOPE, MODEL_EXCITATION, MODEL_F0_NET, MODEL_POST_PQMF, MODEL_WAVENET,
+                             span)
 from ..ops.oscillator import (oscillate, oscillate_plain, oscillator_phase, pulse_sync_gain_avg as gain_avg,
                               pulse_sync_gain_hold as gain_hold, sinusoid_pulse, subharmonics)
 from ..ops.pqmf_ops import pqmf_analysis, pqmf_synthesis
@@ -266,6 +268,7 @@ class MBExWN(nn.Module):
             self.block_names.append(block_name)
             in_channels = pp_mod["n_out_channels"]
             curr_pulse_rate *= ups
+        self.block_spans = [MODEL_WAVENET + name for name in self.block_names]  # each block's span name
         self.wn_post_net = Conv1DWeightNorm(in_channels, self.mb_factor, 1, name="wn_post_net")
 
         # the PQMF banks, WIO -> OIW: synthesis (1, used, taps+1), the pulse fold's analysis (subbands, 1, taps+1)
@@ -360,11 +363,13 @@ class MBExWN(nn.Module):
     def generate_f0(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T_mel, C) -> (B, T_mel*spect_to_pulse_ups) F0 contour in Hz."""
         T_out = mel.shape[1] * self.spect_to_pulse_upsampling_factor
-        if self.pp_subnet is not None:
-            x = self._run_subnet(self.pp_subnet, mel)
-            f0 = x[:, :, 0] * (self.pp_max_frequency - self.pp_min_frequency) + self.pp_min_frequency
-            return f0[:, :T_out]
-        return torch.full((mel.shape[0], T_out), float(self.pp_max_frequency), dtype=mel.dtype, device=mel.device)
+        with span(MODEL_F0_NET):
+            if self.pp_subnet is not None:
+                x = self._run_subnet(self.pp_subnet, mel)
+                f0 = x[:, :, 0] * (self.pp_max_frequency - self.pp_min_frequency) + self.pp_min_frequency
+                return f0[:, :T_out]
+            return torch.full((mel.shape[0], T_out), float(self.pp_max_frequency), dtype=mel.dtype,
+                              device=mel.device)
 
     def _excite(self, pulse_frequency: torch.Tensor, phase_offset: Optional[torch.Tensor], return_phase: bool):
         """(audio (B, T), phase (B, T) or None) of the oscillator: the analytic
@@ -461,24 +466,28 @@ class MBExWN(nn.Module):
         `mb_gain` (B, >= T_sub, subbands), the multiband-gain branch's gains,
         multiplies the post net's subbands (sliced to their length, as in
         the JAX package)."""
-        x = self.fold_pulse_channels(self.oscillate(pulse_frequency, phase_offset), noise, generator)
+        with span(MODEL_EXCITATION):
+            x = self.fold_pulse_channels(self.oscillate(pulse_frequency, phase_offset), noise, generator)
         remat = self.remat_wavenet_blocks and self.differentiable and torch.is_grad_enabled()
-        for name in self.block_names:
+        for name, block_span in zip(self.block_names, self.block_spans):
             block = getattr(self, name)
-            if remat:
-                # the backward pass runs the block's forward again instead of
-                # keeping its ~n_layers x (B, T, n_channels) activations (the
-                # JAX package's jax.checkpoint around each block)
-                x = checkpoint(block, x, mel, use_reentrant=False)
-            else:
-                x = block(x, mel)
-        x = self.wn_post_net(x)
-        if mb_gain is not None:
-            x = x * mb_gain[:, : x.shape[1]]
-        if self.pqmf_synthesis_filter is None:
-            return x.reshape(x.shape[0], x.shape[1] * x.shape[2])  # depth to time
-        mb = self.multi_band_config
-        return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"], mb.get("max_band"))[:, :, 0]
+            with span(block_span):
+                if remat:
+                    # the backward pass runs the block's forward again instead of
+                    # keeping its ~n_layers x (B, T, n_channels) activations (the
+                    # JAX package's jax.checkpoint around each block)
+                    x = checkpoint(block, x, mel, use_reentrant=False)
+                else:
+                    x = block(x, mel)
+        with span(MODEL_POST_PQMF):
+            x = self.wn_post_net(x)
+            if mb_gain is not None:
+                x = x * mb_gain[:, : x.shape[1]]
+            if self.pqmf_synthesis_filter is None:
+                return x.reshape(x.shape[0], x.shape[1] * x.shape[2])  # depth to time
+            mb = self.multi_band_config
+            return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"],
+                                  mb.get("max_band"))[:, :, 0]
 
     def get_cepstral_windows(self, f0: torch.Tensor, smooth_stride: int) -> torch.Tensor:
         """F0-adaptive cepstral window per frame: smooth F0, pick the nearest
@@ -563,7 +572,10 @@ class MBExWN(nn.Module):
         pulse_frequency = self.generate_f0(mel) if F0 is None or return_PP else None
         f0 = F0 if F0 is not None else pulse_frequency
         if self.ps_off or not self.ps_use_stft:
-            mb_gain = None if self.ps_off else self.ps_gain_interpolator(self.generate_multiband_gain(mel))
+            mb_gain = None
+            if not self.ps_off:
+                with span(MODEL_ENVELOPE):
+                    mb_gain = self.ps_gain_interpolator(self.generate_multiband_gain(mel))
             signal = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset,
                                               mb_gain=mb_gain)
             if not return_PP:
@@ -571,10 +583,11 @@ class MBExWN(nn.Module):
             return signal, [["F0", pulse_frequency[:, :signal.shape[1]:self.F0_down_sampling_factor]]]
         excitation = self.generate_excitation(mel, f0, noise=noise, generator=generator, phase_offset=phase_offset)
         win, hop = self.stft_win_size, self.spect_hop_size
-        padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))
-        source_stft = stft(padded, win, hop, self.fft_size, self.stft_window)[:, : mel.shape[1]]
-        source_filter = self.generate_specenv(mel, f0)
-        signal = istft(source_stft * source_filter, win, hop, self.fft_size, self.istft_window)
+        with span(MODEL_ENVELOPE):
+            padded = F.pad(excitation, (win // 2, win // 2 + hop + 1))
+            source_stft = stft(padded, win, hop, self.fft_size, self.stft_window)[:, : mel.shape[1]]
+            source_filter = self.generate_specenv(mel, f0)
+            signal = istft(source_stft * source_filter, win, hop, self.fft_size, self.istft_window)
         n_pulse = mel.shape[1] * self.spect_to_pulse_upsampling_factor
         signal = signal[:, win // 2: win // 2 + n_pulse * self.F0_down_sampling_factor]
         if not return_PP:

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..dsp.mel import mel_filter, mel_frequencies
 from ..dsp.windows import get_stft_window
+from ..observability import MODEL_NORMMEL, span
 from ..ops.interp import linear_interp_upsample
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import overlap_and_add
@@ -216,7 +217,8 @@ class PaNWaveNet(nn.Module):
             spect = torch.cat((spect, spect[:, -1:]), dim=1)
         upsampled_rms = None
         if self.norm_mel_components is not None:
-            _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
+            with span(MODEL_NORMMEL):
+                _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
         out = self.block(spect, F0=F0, noise=noise, generator=generator, phase_offset=phase_offset,
                          return_PP=return_F0)
         signal, PP = out if return_F0 else (out, None)
@@ -242,8 +244,9 @@ class PaNWaveNet(nn.Module):
             spect = torch.cat((spect, spect[:, -1:]), dim=1)
         upsampled_rms = None
         if self.norm_mel_components is not None:
-            _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(
-                None, spect, synth_length or spect.shape[1] * self.spect_hop_size)
+            with span(MODEL_NORMMEL):
+                _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(
+                    None, spect, synth_length or spect.shape[1] * self.spect_hop_size)
             upsampled_rms = upsampled_rms[:, :, 0]
         if F0 is None:
             F0 = self.block.generate_f0(spect)

@@ -1,11 +1,13 @@
-"""Observability: profiling traces, NaN and finite guards, the JSONL
-metrics stream, the architecture summary, the control-signal dump and the
-analytic FLOP count.
+"""Observability: profiling traces and the port's spans, NaN and finite
+guards, the JSONL metrics stream, the architecture summary, the
+control-signal dump and the analytic FLOP count.
 
 Counterpart of the JAX package's observability.py:
 
 - `profile_trace`: a `torch.profiler` trace of the host and the card,
   written where TensorBoard's profiler plugin or Perfetto opens it;
+- `span`: a named range at a layer boundary of the port (the names below),
+  recorded only while a `torch.profiler` records;
 - `debug_nans` (a dispatch mode that raises at the first op whose output
   holds a NaN, the `mbexwn::` kernel ops included) and `check_finite`;
 - `MetricsLogger`: the JSONL scalar stream;
@@ -26,9 +28,31 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .compat.params_io import params_to_jax
+
+# the port's spans, one per layer boundary, outermost first.  Serving and
+# streaming are first in, first out, so the k-th dispatch (enqueue) of a
+# trace pairs with its k-th collect wait (readback).
+SERVING_DISPATCH = "mbexwn.serving.dispatch"  # a group: stack, copy in, the model's enqueue, copy out, event
+SERVING_COLLECT_WAIT = "mbexwn.serving.collect_wait"  # the host's wait on a group's event
+STREAM_ENQUEUE = "mbexwn.stream.enqueue"  # a live chunk: copy in, carry arithmetic, the model's enqueue
+STREAM_READBACK = "mbexwn.stream.readback"  # a live chunk's blocking copy to the host
+MODEL_NORMMEL = "mbexwn.model.normmel"  # RMS normalisation of the mel
+MODEL_F0_NET = "mbexwn.model.f0_net"
+MODEL_EXCITATION = "mbexwn.model.excitation"  # oscillator, fold to the WaveNet rate, noise channel
+MODEL_WAVENET = "mbexwn.model.wavenet."  # + the block's name: one WaveNet block
+MODEL_POST_PQMF = "mbexwn.model.post_pqmf"  # post net, multiband gains, PQMF synthesis
+MODEL_ENVELOPE = "mbexwn.model.envelope"  # envelope (or multiband gain) subnet, STFT, filter, iSTFT
+
+_NO_SPAN = contextlib.nullcontext()
+# a span's range: an op-scope record (a host event, like an aten op's).  A
+# user-scope range (`torch.profiler.record_function`) would also make the
+# profiler add a device-side range over the kernels launched inside it,
+# which a reader of the trace's device activity counts as device work.
+_record_function = torch._C._profiler._RecordFunctionFast
 
 
 def _leaves_with_path(tree, path: str = ""):
@@ -56,6 +80,18 @@ def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities,
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A context manager that marks the scope as `name` in a `torch.profiler`
+    trace: while a profiler records, a host range named `name` on the clock
+    of the device events it launches (a `profile_trace` shows it above
+    them); otherwise (and while `torch.export` or `torch.compile` traces,
+    which would put the profiler's ops into the graph) a shared no-op, one
+    flag check."""
+    if _autograd_profiler._is_profiler_enabled and not torch.compiler.is_compiling():
+        return _record_function(name)
+    return _NO_SPAN
 
 
 # the innermost debug_nans scope's flag (None outside every scope)

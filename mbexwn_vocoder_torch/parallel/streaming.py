@@ -34,7 +34,9 @@ every shape of the left-halo ramp once on the device, which lets cuDNN
 choose its algorithms and the allocator its blocks before live audio.
 `synth` keeps the carry on the device in fp64, so it reads back only the
 finished audio; `stream` reads back each chunk's audio as it yields it;
-`synth_scan` reads back once at the end.
+`synth_scan` reads back once at the end.  Under a profiler a live chunk's
+enqueue and readback are the spans `mbexwn.stream.enqueue` and
+`mbexwn.stream.readback`; neither stays open while `stream` yields.
 
 The carries and offsets come from the F0 the model synthesises with: the
 F0 net on the mel as the model sees it, RMS-normalised where the model
@@ -74,6 +76,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observability import MODEL_NORMMEL, STREAM_ENQUEUE, STREAM_READBACK, span
 from ..ops.oscillator import phase_velocity
 from ..ops.padding import pad1d
 from ..ops.precision import exact_fp32
@@ -154,7 +157,8 @@ class StreamingSynthesizer:
         mel = mel.contiguous()
         norm = self.model.norm_mel_components
         if norm is not None:
-            _, mel, _ = norm.normalize_inputs_by_rms(None, mel, mel.shape[1] * self.hop)
+            with span(MODEL_NORMMEL):
+                _, mel, _ = norm.normalize_inputs_by_rms(None, mel, mel.shape[1] * self.hop)
         return self.model.block.generate_f0(mel)
 
     @exact_fp32()
@@ -346,8 +350,11 @@ class StreamingSynthesizer:
         carry = None
 
         def emit(mel_span, left, inner, carry):
-            audio, carry = self._chunk(self._to_device(mel_span), carry, left, inner)
-            return audio.cpu().numpy(), carry
+            # the spans close before the caller yields: the consumer's work falls under neither
+            with span(STREAM_ENQUEUE):
+                audio, carry = self._chunk(self._to_device(mel_span), carry, left, inner)
+            with span(STREAM_READBACK):
+                return audio.cpu().numpy(), carry
 
         for slab in frames_iter:
             slab = np.asarray(slab)

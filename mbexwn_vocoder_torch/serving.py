@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .mel_inverter import bucket_len, edge_pad
+from .observability import SERVING_COLLECT_WAIT, SERVING_DISPATCH, span
 from .platform import resolve_device
 
 
@@ -90,22 +91,24 @@ class PipelinedSynthesizer:
         """Enqueue one micro-batch; returns (audio, the CUDA event after its
         copy to the host or None on the CPU, [true T...]).  Does not wait for
         the device."""
-        stack = group[0][0] if len(group) == 1 else np.concatenate([m for m, _ in group], axis=0)
-        Ts = [t for _, t in group]
-        if self.device.type != "cuda":
-            return self._synthesize(torch.from_numpy(np.ascontiguousarray(stack))), None, Ts
-        mell = torch.empty(stack.shape, dtype=torch.float32, pin_memory=True)
-        mell.numpy()[...] = stack
-        y = self._synthesize(mell.to(self.device, non_blocking=True))
-        audio = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        audio.copy_(y, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return audio, done, Ts
+        with span(SERVING_DISPATCH):
+            stack = group[0][0] if len(group) == 1 else np.concatenate([m for m, _ in group], axis=0)
+            Ts = [t for _, t in group]
+            if self.device.type != "cuda":
+                return self._synthesize(torch.from_numpy(np.ascontiguousarray(stack))), None, Ts
+            mell = torch.empty(stack.shape, dtype=torch.float32, pin_memory=True)
+            mell.numpy()[...] = stack
+            y = self._synthesize(mell.to(self.device, non_blocking=True))
+            audio = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            audio.copy_(y, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return audio, done, Ts
 
     def _collect(self, audio, done, Ts) -> List[np.ndarray]:
-        if done is not None:
-            done.synchronize()
+        with span(SERVING_COLLECT_WAIT):
+            if done is not None:
+                done.synchronize()
         hop = self.model.spect_hop_size
         y = audio.numpy()
         return [y[i, : T * hop] for i, T in enumerate(Ts)]

@@ -125,3 +125,173 @@ def test_profile_trace_writes_a_trace(tiny_model, tmp_path):
         text = f.read()
     assert "mbexwn::wavenet_stack" in text and "mbexwn::oscillate" in text
     assert any(e.key == "mbexwn::wavenet_stack" for e in prof.key_averages())
+
+
+# ---------------------------------------------------------------- spans
+
+def _stage_spans(block):
+    """The model's stage spans of one synthesis from a given F0, in order."""
+    return (["mbexwn.model.normmel", "mbexwn.model.excitation"] + block.block_spans
+            + ["mbexwn.model.post_pqmf", "mbexwn.model.envelope"])
+
+
+def _profiled(fn):
+    """(fn's result, the `mbexwn.` and `test.` ranges it recorded on this
+    thread as (name, start_ns, end_ns, parent's name or None), in start
+    order) with `torch.profiler` recording the CPU."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    evs = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.name().startswith(("mbexwn.", "test."))), key=lambda r: (r[1], -r[2]))
+    spans, stack = [], []
+    for name, s, e in evs:
+        while stack and stack[-1][2] < s:
+            stack.pop()
+        spans.append((name, s, e, stack[-1][0] if stack else None))
+        stack.append((name, s, e))
+    return out, spans
+
+
+def _mels(n, lo=6):
+    return [(np.random.RandomState(i).randn(1, lo + i, 80) * 0.5 - 4).astype(np.float32) for i in range(n)]
+
+
+def _serve(model, consumer=None, n=3, batch=2):
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+
+    out = []
+    for y in PipelinedSynthesizer(model, length_buckets=(T_MEL,), depth=2, batch=batch, device="cpu").stream(_mels(n)):
+        out.append(y)
+        if consumer is not None:
+            consumer()
+    return out
+
+
+def _stream(model, consumer=None):
+    from mbexwn_vocoder_torch.parallel.streaming import StreamingSynthesizer
+
+    ss = StreamingSynthesizer(model, chunk_frames=4, halo_frames=4, halo_right=2, device="cpu")
+    mel = _mels(1, lo=20)[0]
+    out = []
+    for audio in ss.stream(mel[:, i: i + 2] for i in range(0, 20, 2)):
+        out.append(audio)
+        if consumer is not None:
+            consumer()
+    return out
+
+
+def _infer(model):
+    with torch.no_grad():
+        return model.infer(torch.from_numpy(_mel()), synth_length=T_MEL * HOP)
+
+
+def test_infer_spans_are_the_model_stages_in_order(tiny_model):
+    _, spans = _profiled(lambda: _infer(tiny_model))
+    blk = tiny_model.block
+    assert [s[0] for s in spans] == ["mbexwn.model.normmel", "mbexwn.model.f0_net", "mbexwn.model.excitation",
+                                     *blk.block_spans, "mbexwn.model.post_pqmf", "mbexwn.model.envelope"]
+    assert blk.block_spans == ["mbexwn.model.wavenet." + n for n in blk.block_names] and len(blk.block_names) == 2
+    assert all(s[3] is None for s in spans)  # the stages do not nest
+
+
+def test_serving_spans_dispatch_each_group_and_wait_on_it(tiny_model):
+    _, spans = _profiled(lambda: _serve(tiny_model))
+    top = [s[0] for s in spans if s[3] is None]
+    # 3 utterances at batch 2: two groups, each dispatched, then (depth 2) collected in order
+    assert top == ["mbexwn.serving.dispatch", "mbexwn.serving.dispatch", "mbexwn.serving.collect_wait",
+                   "mbexwn.serving.collect_wait"]
+    inner = [s[0] for s in spans if s[3] == "mbexwn.serving.dispatch"]
+    one = ["mbexwn.model.normmel", "mbexwn.model.f0_net", *_stage_spans(tiny_model.block)[1:]]
+    assert inner == one + one
+    assert not any(s[3] == "mbexwn.serving.collect_wait" for s in spans)
+
+
+def test_stream_spans_enqueue_and_read_back_each_chunk(tiny_model):
+    chunks, spans = _profiled(lambda: _stream(tiny_model))
+    top = [s[0] for s in spans if s[3] is None]
+    assert top == ["mbexwn.stream.enqueue", "mbexwn.stream.readback"] * len(chunks) and len(chunks) == 5
+    # a chunk: the carry's F0 (normalised mel, F0 net), then the synthesis from that F0
+    one = ["mbexwn.model.normmel", "mbexwn.model.f0_net", *_stage_spans(tiny_model.block)]
+    assert [s[0] for s in spans if s[3] == "mbexwn.stream.enqueue"] == one * len(chunks)
+    assert not any(s[3] == "mbexwn.stream.readback" for s in spans)
+
+
+@pytest.mark.parametrize("mode", ["serve", "stream"])
+def test_no_span_is_open_while_a_stream_yields(tiny_model, mode):
+    """Work the consumer does between two results falls under no span."""
+
+    def consume():
+        with torch.profiler.record_function("test.consumer"):
+            torch.ones(4).mul(3)
+
+    out, spans = _profiled(lambda: _serve(tiny_model, consume, n=4, batch=1) if mode == "serve"
+                           else _stream(tiny_model, consume))
+    consumers = [s for s in spans if s[0] == "test.consumer"]
+    assert len(consumers) == len(out) > 2
+    assert all(s[3] is None for s in consumers)
+
+
+def test_outputs_are_bit_equal_with_the_profiler_on_and_off(tiny_model):
+    for fn in (_infer, _serve, _stream):
+        off = fn(tiny_model)
+        on, spans = _profiled(lambda: fn(tiny_model))
+        assert spans
+        off, on = (off if isinstance(off, list) else [off]), (on if isinstance(on, list) else [on])
+        assert len(off) == len(on) and all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(off, on))
+
+
+def _count_records(monkeypatch):
+    """The names `span` opens a profiler range for, from now on."""
+    from mbexwn_vocoder_torch import observability
+
+    entered = []
+    real = observability._record_function
+    monkeypatch.setattr(observability, "_record_function", lambda name: entered.append(name) or real(name))
+    return entered
+
+
+def test_span_enters_record_function_only_while_a_profiler_records(tiny_model, monkeypatch):
+    from mbexwn_vocoder_torch import observability
+
+    entered = _count_records(monkeypatch)
+    for fn in (_infer, _serve, _stream):
+        fn(tiny_model)
+    assert entered == []
+    with observability.span("mbexwn.test"):
+        pass
+    assert entered == [] and observability.span("a") is observability.span("b")
+    _profiled(lambda: _infer(tiny_model))
+    assert entered[:2] == ["mbexwn.model.normmel", "mbexwn.model.f0_net"]
+
+
+def test_export_under_a_profiler_holds_no_profiler_op(tiny_model, monkeypatch):
+    """`torch.export` traces with the profiler recording: the spans stay out
+    of the graph (they do nothing while export traces) and the artifact
+    computes what the model does."""
+    import io
+
+    from mbexwn_vocoder_torch.compat.export import _read_meta, export_synthesis, load_exported
+
+    entered = _count_records(monkeypatch)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        blob = export_synthesis(tiny_model, T_mel=T_MEL, batch_size=1, platforms=["cpu"])
+    assert entered == []
+    meta, start = _read_meta(blob)
+    program = torch.export.load(io.BytesIO(blob[start: start + meta["program_bytes"][0]]))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+    call, _ = load_exported(blob, device="cpu")
+    assert torch.equal(call(_mel()), _infer(tiny_model))
+
+
+def test_a_span_is_a_host_op_range_not_a_user_annotation(tiny_model):
+    """A span is recorded as an op-scope range: the profiler adds no
+    device-side range over the kernels it encloses (it does for a
+    user-scope `record_function`), which a reader of the device's activity
+    would count as device work."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _infer(tiny_model)
+    ours = [e for e in prof.profiler.kineto_results.events() if e.name().startswith("mbexwn.")]
+    assert len(ours) == 5 + len(tiny_model.block.block_names)
+    assert not any(e.is_user_annotation() for e in ours)
