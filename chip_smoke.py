@@ -977,6 +977,7 @@ def phase_streaming(inverter, check, dev):
             stream = ss.stream(mel[:, i:i + c] for i in range(0, n_chunks * c, c))
             latencies, chunks = [], []
             kernel_lib.reset_launch_counts()  # this path's counts: 0 just before, read just after
+            replays0 = ss.replays
             while True:
                 t0 = time.perf_counter()
                 audio = next(stream, None)
@@ -995,9 +996,13 @@ def phase_streaming(inverter, check, dev):
                    "chunks": len(latencies), "k1_per_chunk": counts["wavenet_layer"] / len(latencies),
                    "k2_per_chunk": counts["oscillator"] / len(latencies)}
             numbers["live"][f"chunk_{c}"] = row
-            check(counts == {"wavenet_layer": n_layers * len(latencies), "oscillator": len(latencies)},
-                  f"live chunk {c} bf16: {len(latencies)} chunks, launches {counts} (expected per chunk "
-                  f"wavenet_layer={n_layers}, oscillator=1)")
+            replayed = ss.replays - replays0  # a replayed chunk's graph counts no kernel launch
+            eager = len(latencies) - replayed
+            row["replayed"] = replayed
+            check(replayed == len(latencies) - 1 and
+                  counts == {"wavenet_layer": n_layers * eager, "oscillator": eager},
+                  f"live chunk {c} bf16: {len(latencies)} chunks, {replayed} replayed a graph (expected all but "
+                  f"the tail), launches {counts} (expected per eager chunk wavenet_layer={n_layers}, oscillator=1)")
             # one steady chunk as stream() emits it (upload, chunk program, readback) under the profiler
             span = mel[:, : LIVE_HALO + c + LIVE_HALO_RIGHT]
             carry = torch.zeros((1,), dtype=torch.float64, device=dev)

@@ -450,13 +450,21 @@ class MBExWN(nn.Module):
         if self.pp_mod_subnet_noise_channel_sigma:
             shape = x.shape[:-1] + (1,)
             if noise is None:
-                if generator is None:
-                    generator = torch.Generator(device=x.device).manual_seed(0)
-                noise = torch.randn(shape, generator=generator, dtype=x.dtype, device=x.device)
+                noise = self.draw_noise(shape, x.dtype, x.device, generator)
             elif tuple(noise.shape) != tuple(shape):
                 raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(shape)}")
             x = torch.cat((x, self.pp_mod_subnet_noise_channel_sigma * noise.to(x.device, x.dtype)), dim=-1)
         return x
+
+    @staticmethod
+    def draw_noise(shape, dtype: torch.dtype, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The noise channel's draw when no noise is given: N(0, 1) of `shape`
+        from `generator`, or from a new generator on `device` seeded 0.  A
+        caller that holds the noise of a shape (streaming's captured chunk
+        programs) draws it here, so it is bit-equal to the draw it stands for."""
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
     def generate_excitation(self, mel: torch.Tensor, pulse_frequency: torch.Tensor,
                             noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,

@@ -40,6 +40,7 @@ SERVING_DISPATCH = "mbexwn.serving.dispatch"  # a group: stack, copy in, the mod
 SERVING_COLLECT_WAIT = "mbexwn.serving.collect_wait"  # the host's wait on a group's event
 STREAM_ENQUEUE = "mbexwn.stream.enqueue"  # a live chunk: copy in, carry arithmetic, the model's enqueue
 STREAM_READBACK = "mbexwn.stream.readback"  # a live chunk's blocking copy to the host
+STREAM_REPLAY = "mbexwn.stream.replay"  # inside an enqueue: the launch of a chunk shape's captured graph
 MODEL_NORMMEL = "mbexwn.model.normmel"  # RMS normalisation of the mel
 MODEL_F0_NET = "mbexwn.model.f0_net"
 MODEL_EXCITATION = "mbexwn.model.excitation"  # oscillator, fold to the WaveNet rate, noise channel

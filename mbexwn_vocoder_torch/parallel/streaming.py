@@ -26,17 +26,36 @@ geometry, edge conventions and outputs:
   `stream` consumes mel slabs as they arrive and yields a chunk's audio as
   soon as `halo_right` frames past its end are in.
 
-In PyTorch the chunk programs are not compiled: there is no jit cache.
-`programs` records the chunk shapes a synthesizer ran, under the JAX
-package's cache keys ((span, left, inner) for a chunk, ("f0", span),
-("batched", span, left, inner), ("scan", n_chunks, B)), and `warm()` runs
-every shape of the left-halo ramp once on the device, which lets cuDNN
-choose its algorithms and the allocator its blocks before live audio.
+In PyTorch the chunk programs are not compiled.  `programs` records the
+chunk shapes a synthesizer ran, under the JAX package's cache keys ((span,
+left, inner) for a chunk, ("f0", span), ("batched", span, left, inner),
+("scan", n_chunks, B)), and `warm(B)` runs every shape of the left-halo ramp
+once on the device, which lets cuDNN choose its algorithms and the
+allocator its blocks before live audio.  On a CUDA device without a mesh,
+`warm` then captures each of those shapes as a CUDA graph (one graph memory
+pool for all of them): the chunk program after the F0 contour, which is the
+offset, the synthesis from that F0, the carry update and the slice, on
+static input buffers and with the noise drawn once, the draw the model makes
+at that shape.  A chunk whose key was captured (B, span, left, inner, the
+dtype, the WaveNet stacks' routes, the device and the weights' versions) runs
+the RMS normalisation and the F0 net eagerly, so their hooks fire and their
+output is a fresh tensor, copies the span, the F0 and the carry into the
+buffers and replays the graph: one launch where the body enqueues ~220.
+Every other chunk (on the CPU, over a mesh, the tail flush, a batch or
+shape `warm` did not capture) runs the same body eagerly, with the same
+output bit for bit.  Nothing is captured in `synth` or `stream`.  A
+replayed chunk's audio lives in the graph's buffer until that shape is
+replayed again, which chunks of every stream on the synthesizer share:
+`stream` reads it back before it yields, `synth` copies it into its output
+in stream order, and the carry is handed out as a copy.
 `synth` keeps the carry on the device in fp64, so it reads back only the
 finished audio; `stream` reads back each chunk's audio as it yields it;
 `synth_scan` reads back once at the end.  Under a profiler a live chunk's
 enqueue and readback are the spans `mbexwn.stream.enqueue` and
-`mbexwn.stream.readback`; neither stays open while `stream` yields.
+`mbexwn.stream.readback`, and a graph's launch inside the enqueue is
+`mbexwn.stream.replay`; none stays open while `stream` yields.  A replay
+runs no Python, so the model-stage spans of the captured part are not
+recorded then: its device time falls under the replay span.
 
 The carries and offsets come from the F0 the model synthesises with: the
 F0 net on the mel as the model sees it, RMS-normalised where the model
@@ -47,8 +66,9 @@ the mel as given: for a normalising model that is not the contour its
 oscillator integrates, and its chunked output then departs from one-shot
 (by more than 1e-2 rel-RMS, tests/test_torch_streaming.py); for a model
 that does not normalise the two are the same computation.  Noise is drawn
-per chunk call from a generator seeded 0, so chunked output equals
-one-shot output only with the noise channel off (sigma 0).
+per chunk call from a generator seeded 0 (a captured chunk holds that
+draw), so chunked output equals one-shot output only with the noise
+channel off (sigma 0).
 
 Over a mesh (`parallel.mesh.make_mesh`), `synth_batched` runs its uniform
 middle chunk group sequence-parallel: that group's rows (chunks x B) are
@@ -70,13 +90,16 @@ axis).
 """
 from __future__ import annotations
 
+import itertools
+from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..observability import MODEL_NORMMEL, STREAM_ENQUEUE, STREAM_READBACK, span
+from ..nn.wavenet import WaveNetAE
+from ..observability import MODEL_NORMMEL, STREAM_ENQUEUE, STREAM_READBACK, STREAM_REPLAY, span
 from ..ops.oscillator import phase_velocity
 from ..ops.padding import pad1d
 from ..ops.precision import exact_fp32
@@ -106,6 +129,20 @@ def _phase_increment(f0: torch.Tensor, rate: float) -> torch.Tensor:
 def _edge_pad_time(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """(B, T) -> (B, lo + T + hi), repeating the first and last sample."""
     return pad1d(x[:, :, None], lo, hi, "EDGE")[:, :, 0]
+
+
+@dataclass
+class _ChunkGraph:
+    """One chunk shape's captured program: the graph, its static inputs
+    (mel span (B, span, C), F0 (B, span * stp), carry (B,) fp64), the noise
+    it holds, and its outputs (audio (B, inner * hop), the carry at t1)."""
+    graph: "torch.cuda.CUDAGraph"
+    mel: torch.Tensor
+    f0: torch.Tensor
+    carry: torch.Tensor
+    noise: Optional[torch.Tensor]
+    audio: torch.Tensor
+    carry_out: torch.Tensor
 
 
 class StreamingSynthesizer:
@@ -138,6 +175,11 @@ class StreamingSynthesizer:
         self.hop = blk.spect_hop_size
         self.osc_rate = blk.wavetable.sample_rate  # the rate the oscillator integrates F0 at
         self.programs: Set[tuple] = set()
+        self._stacks = [m for m in self.model.modules() if isinstance(m, WaveNetAE)]
+        self._state = list(itertools.chain(self.model.parameters(), self.model.buffers()))
+        self._graphs: Dict[tuple, _ChunkGraph] = {}
+        self._pool = self._capture_stream = None
+        self.replays = 0  # chunks that replayed a captured graph
 
     # ---------------------------------------------------------------- pieces
 
@@ -161,23 +203,97 @@ class StreamingSynthesizer:
                 _, mel, _ = norm.normalize_inputs_by_rms(None, mel, mel.shape[1] * self.hop)
         return self.model.block.generate_f0(mel)
 
-    @exact_fp32()
-    @torch.inference_mode()
-    def _chunk(self, mel_span: torch.Tensor, carry: torch.Tensor, left: int, inner: int):
-        """The chunk program: mel span (B, span, C) on the device and the
-        carry (B,) fp64, the phase (mod 1) just before frame t0 -> (audio of
-        [t0, t1) (B, inner * hop), the carry at t1).  Enqueued, not waited for."""
-        span = mel_span.shape[1]
-        self.programs.add((span, left, inner))
+    def _body(self, mel_span: torch.Tensor, f0: torch.Tensor, carry: torch.Tensor, left: int, inner: int,
+              noise: Optional[torch.Tensor] = None):
+        """The chunk program after the F0 contour, eager or under capture:
+        mel span (B, span, C), its F0 (B, span * stp), the carry (B,) fp64,
+        the phase (mod 1) just before frame t0, and the noise (None: the
+        model draws it) -> (audio of [t0, t1) (B, inner * hop), the carry at
+        t1)."""
         stp, hop = self.stp, self.hop
-        mel_span = mel_span.contiguous()
-        f0 = self._model_f0(mel_span)
         left_inc = phase_velocity(f0[:, : left * stp], self.osc_rate).sum(dim=1)
         offset = torch.remainder(carry.float() - left_inc, 1.0)
-        y = self.model.infer(mel_span, synth_length=span * hop, F0=f0, phase_offset=offset)
+        y = self.model.infer(mel_span, synth_length=mel_span.shape[1] * hop, F0=f0, phase_offset=offset,
+                             noise=noise)
         carry = torch.remainder(carry + _phase_increment(f0[:, left * stp: (left + inner) * stp], self.osc_rate),
                                 1.0)
         return y[:, left * hop: (left + inner) * hop], carry
+
+    def _graph_key(self, mel_span: torch.Tensor, left: int, inner: int) -> tuple:
+        """What a captured chunk program holds fixed: the shape, the dtype,
+        the WaveNet stacks' routes (the int8 mode is read at call time), the
+        device, and the versions of the model's weights (a weight changed in
+        place, as `load_state_dict` changes it, is another key)."""
+        B, length = mel_span.shape[:2]
+        return (B, length, left, inner, mel_span.dtype, tuple(m.route() for m in self._stacks), self.device,
+                tuple(t._version for t in self._state))
+
+    def _graphs_apply(self) -> bool:
+        """Graphs run on a CUDA device without a mesh (a mesh's tensor
+        parallelism reduces across devices)."""
+        return self.device.type == "cuda" and self.mesh is None
+
+    def _graph_for(self, mel_span: torch.Tensor, left: int, inner: int) -> Optional[_ChunkGraph]:
+        """The graph `warm` captured for this chunk's key, where graphs
+        apply; else None and the chunk runs eagerly."""
+        if not self._graphs or not self._graphs_apply():
+            return None
+        return self._graphs.get(self._graph_key(mel_span, left, inner))
+
+    def _held_noise(self, B: int, length: int) -> Optional[torch.Tensor]:
+        """The noise channel a chunk of B rows and `length` mel frames draws
+        (None with the channel off): the model's own seed-0 draw, made once."""
+        blk = self.model.block
+        if not blk.pp_mod_subnet_noise_channel_sigma:
+            return None
+        return blk.draw_noise((B, blk.wn_input_length(length), 1), torch.float32, self.device)
+
+    @exact_fp32()
+    @torch.inference_mode()
+    def _capture(self, B: int, length: int, left: int, inner: int) -> None:
+        """Capture the chunk program of one shape as a CUDA graph into the
+        synthesizer's pool, after one run of it on the capture stream (its
+        first use of that stream's library handles and workspaces)."""
+        dev = self.device
+        mel = torch.full((B, length, self.model.mel_channels), -10.0, dtype=torch.float32, device=dev)
+        key = self._graph_key(mel, left, inner)
+        if key in self._graphs:
+            return
+        if self._pool is None:
+            self._pool, self._capture_stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        f0 = self._model_f0(mel)
+        carry = torch.zeros((B,), dtype=torch.float64, device=dev)
+        noise = self._held_noise(B, length)
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(mel, f0, carry, left, inner, noise)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            audio, carry_out = self._body(mel, f0, carry, left, inner, noise)
+        self._graphs[key] = _ChunkGraph(graph, mel, f0, carry, noise, audio, carry_out)
+
+    @exact_fp32()
+    @torch.inference_mode()
+    def _chunk(self, mel_span: torch.Tensor, carry: torch.Tensor, left: int, inner: int):
+        """The chunk program: mel span (B, span, C) on the host or the device
+        and the carry (B,) fp64 on the device, the phase (mod 1) just before
+        frame t0 -> (audio of [t0, t1) (B, inner * hop), the carry at t1).
+        Enqueued, not waited for.  A captured shape's audio is the graph's
+        buffer, valid until that shape is replayed again."""
+        self.programs.add((mel_span.shape[1], left, inner))
+        g = self._graph_for(mel_span, left, inner)
+        if g is None:
+            mel_span = mel_span.to(self.device).contiguous()
+            return self._body(mel_span, self._model_f0(mel_span), carry, left, inner)
+        g.mel.copy_(mel_span)
+        g.f0.copy_(self._model_f0(g.mel))
+        g.carry.copy_(carry)
+        with span(STREAM_REPLAY):
+            g.graph.replay()
+        self.replays += 1
+        return g.audio, g.carry_out.clone()
 
     def _bounds(self, T: int) -> List[Tuple[int, int, int, int]]:
         """(t0, t1, lo, hi) of every chunk: [t0, t1) synthesised on [lo, hi)."""
@@ -198,11 +314,11 @@ class StreamingSynthesizer:
             return self._one_shot(mell)
         mel = self._to_device(mell)
         carry = torch.zeros((B,), dtype=torch.float64, device=self.device)
-        outs = []
+        out = torch.empty((B, T * self.hop), dtype=torch.float32, device=self.device)
         for t0, t1, lo, hi in self._bounds(T):
             audio, carry = self._chunk(mel[:, lo:hi], carry, t0 - lo, t1 - t0)
-            outs.append(audio)
-        return torch.cat(outs, dim=1).cpu().numpy()
+            out[:, t0 * self.hop: t1 * self.hop] = audio  # before a replay of the shape overwrites it
+        return out.cpu().numpy()
 
     @exact_fp32()
     @torch.inference_mode()
@@ -322,14 +438,18 @@ class StreamingSynthesizer:
     def warm(self, batch_size: int = 1) -> None:
         """Run every chunk shape stream() and synth() meet in the left-halo
         ramp (the left context grows min(h, k * c) until it reaches h) once
-        on the device, so live synthesis meets no first-call cost at its
-        first audio."""
+        on the device at `batch_size` rows, so live synthesis meets no
+        first-call cost at its first audio.  On a CUDA device without a
+        mesh, then capture each shape's chunk program as a CUDA graph, which
+        every later chunk of that shape and batch replays."""
         c, h, hr = self.chunk_frames, self.halo_frames, self.halo_right
         C = self.model.mel_channels
         carry = torch.zeros((batch_size,), dtype=torch.float64, device=self.device)
         for left in sorted({min(h, k * c) for k in range(-(-h // c) + 1)}):
             mel = torch.full((batch_size, left + c + hr, C), -10.0, dtype=torch.float32, device=self.device)
             self._chunk(mel, carry, left, c)
+            if self._graphs_apply():
+                self._capture(batch_size, left + c + hr, left, c)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -352,7 +472,8 @@ class StreamingSynthesizer:
         def emit(mel_span, left, inner, carry):
             # the spans close before the caller yields: the consumer's work falls under neither
             with span(STREAM_ENQUEUE):
-                audio, carry = self._chunk(self._to_device(mel_span), carry, left, inner)
+                mel_span = torch.from_numpy(np.ascontiguousarray(mel_span, dtype=np.float32))
+                audio, carry = self._chunk(mel_span, carry, left, inner)
             with span(STREAM_READBACK):
                 return audio.cpu().numpy(), carry
 

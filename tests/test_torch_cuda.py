@@ -21,7 +21,11 @@ bucket against the plain K1 path (the largest shapes the kernels see).
 Streaming: K1's causal taps against the plain version (ragged batches, both
 host entries), and synth_batched and stream() of a full-width causal SPEECH
 on the card against the same with K1 replaced by its plain version and
-against the CPU.  Training: both kernels raise on CUDA inputs that require
+against the CPU.  Live chunks as CUDA graphs (causal SPEECH, chunk 16,
+halo 32 + 2): two sessions interleaved through the ramp, the steady state
+and the tail flush give audio, carries and F0-net outputs bit-equal to the
+eager path; a replayed chunk makes at most 120 launch calls and counts no
+kernel launch; K2 captured in a graph equals its eager launch.  Training: both kernels raise on CUDA inputs that require
 grad (they have no backward pass), one step of the trainer's
 differentiable route on the card equals the CPU's (`training.parity` gives
 the rule), and a trained model, folded, synthesises through both kernels.
@@ -38,6 +42,8 @@ the CPU without a K1 launch; tensor parallelism over a model axis of the
 one card equals the unsharded model; the int8 products at the registry
 widths are exact and the int8 mode equals the CPU's.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -324,6 +330,134 @@ def test_causal_streaming_on_the_card(card, monkeypatch, mode):
     assert got.shape == plain.shape == cpu.shape == (2, 150 * 300) and np.isfinite(got).all()
     assert _rel(got, plain) <= 1e-4
     assert _rel(got, cpu) <= 1e-3
+
+
+# ---- live chunks as CUDA graphs: causal SPEECH (shipped weights, noise on), chunk 16, halo 32 + 2
+
+LIVE = dict(chunk_frames=16, halo_frames=32, halo_right=2)
+LAUNCH_CALL = re.compile(r"^(cuda|cu)(LaunchKernel|LaunchCooperativeKernel|LaunchKernelEx|GraphLaunch)")
+
+
+def _live_model(monkeypatch, dtype):
+    from mbexwn_vocoder_torch.models import create_registry_model
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        if dtype is None:
+            monkeypatch.delenv(var, raising=False)  # the registry config's bf16
+        else:
+            monkeypatch.setenv(var, dtype)
+    return create_registry_model("SPEECH", force_causal=True)
+
+
+def _slabs(mel, slab):
+    return (mel[:, i:i + slab] for i in range(0, mel.shape[1], slab))
+
+
+def _interleaved(ss, mels, slab=2):
+    """Two live sessions on one synthesizer, a chunk of each in turn, through
+    the ramp, the steady state and the tail flush -> per session, the
+    (audio, carry) of each chunk, and the F0 net's outputs in call order."""
+    log, f0s, current = {}, [], [None]
+    real = ss._chunk
+
+    def chunk(mel_span, carry, left, inner):
+        audio, carry = real(mel_span, carry, left, inner)
+        log[current[0]].append((audio.cpu().numpy().copy(), carry.cpu().numpy().copy()))
+        return audio, carry
+
+    ss._chunk = chunk
+    handle = ss.model.block.pp_subnet.register_forward_hook(lambda m, i, o: f0s.append(o.float().cpu()))
+    try:
+        streams = {k: ss.stream(_slabs(m, slab)) for k, m in enumerate(mels)}
+        for k in streams:
+            log[k] = []
+        while streams:
+            for k in list(streams):
+                current[0] = k
+                if next(streams[k], None) is None:
+                    del streams[k]
+    finally:
+        handle.remove()
+        del ss._chunk
+    return log, f0s
+
+
+@pytest.mark.parametrize("dtype", ["", None])
+def test_live_graphs_replay_bit_equal_to_eager(card, monkeypatch, dtype):
+    """Two sessions interleaved on one warmed synthesizer: every chunk of the
+    ramp and the steady state replays a graph, the tail flushes run
+    eagerly, and the audio, the carries and the F0 net's outputs (the
+    check's hook) equal the eager path's bit for bit."""
+    from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
+
+    model = _live_model(monkeypatch, dtype)
+    mels = [_mel(16 * 8 + 5, 40), _mel(16 * 8, 41)]  # tails: 5 frames; 16 frames with the lookahead cut
+    graphed = StreamingSynthesizer(model, device=card, **LIVE)
+    graphed.warm()
+    assert len(graphed._graphs) == 3
+    got, got_f0 = _interleaved(graphed, mels)
+    eager = StreamingSynthesizer(model, device=card, **LIVE)
+    want, want_f0 = _interleaved(eager, mels)
+    assert eager.replays == 0 and graphed.replays == 8 + 7  # every chunk but the tail
+    assert [len(got[k]) for k in got] == [len(want[k]) for k in want] == [9, 8]
+    for k in want:
+        for (a, c), (wa, wc) in zip(got[k], want[k]):
+            assert np.array_equal(a, wa) and np.array_equal(c, wc)
+    assert len(got_f0) == len(want_f0) == 17
+    assert all(torch.equal(a, b) for a, b in zip(got_f0, want_f0))
+
+
+def test_a_replayed_chunk_is_one_graph_launch(card, monkeypatch):
+    """warm() counts the kernels it runs and captures (one K1 stack a WaveNet
+    block and one K2 a chunk program); a replayed chunk counts none and
+    makes at most 120 launch calls, one of them the graph's: the rest are
+    the eager NormMel's (20) and F0 net's (95) on the shipped bf16 config,
+    against ~340 for an eager chunk."""
+    from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
+
+    ss = StreamingSynthesizer(_live_model(monkeypatch, None), device=card, **LIVE)
+    before = dict(kernel_lib.launches)
+    ss.warm()
+    runs = 3 * 3  # three ramp shapes: the eager run, the run on the capture stream, the capture
+    assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 24 * runs
+    assert kernel_lib.launches["oscillator"] - before["oscillator"] == runs
+    span = torch.from_numpy(_mel(50, 42))
+    carry = torch.zeros((1,), dtype=torch.float64, device=card)
+    ss._chunk(span, carry, 32, 16)[0].cpu()
+    before = dict(kernel_lib.launches)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ss._chunk(span, carry, 32, 16)[0].cpu()
+    assert kernel_lib.launches == before and ss.replays == 2
+    names = [e.name for e in prof.events() if LAUNCH_CALL.match(e.name)]
+    assert sum("GraphLaunch" in n for n in names) == 1 and len(names) <= 120, names
+
+
+@pytest.mark.parametrize("B,T", [(3, 12_345), (4, 300_000)])
+def test_k2_in_a_cuda_graph_equals_its_eager_launch(card, B, T):
+    """K2's cooperative launch captured in a CUDA graph: each replay equals
+    the eager launch on the inputs then in its buffers, bit for bit (the
+    second shape has more chunks than CTAs resident at once)."""
+    g = torch.Generator().manual_seed(B + T)
+    tables = torch.randn(513, 13, generator=g).to(card)
+    consts = (46.875, 1.25, 1.0, 1.25 ** 12, 12000.0)
+    f0 = (40.0 + 560.0 * torch.rand(B, T, generator=g)).to(card)
+    offset = (torch.rand(B, generator=g) - 0.5).to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = kernel_lib.launches["oscillator"]
+    with torch.cuda.graph(graph, stream=side):
+        audio, phase = oscillate(f0, tables, *consts, phase_offset=offset, return_phase=True)
+    assert kernel_lib.launches["oscillator"] - before == 1
+    for step in range(2):
+        if step:
+            f0.copy_((40.0 + 560.0 * torch.rand(B, T, generator=g)).to(card))
+            offset.copy_((torch.rand(B, generator=g) - 0.5).to(card))
+        graph.replay()
+        want, want_phase = oscillate(f0, tables, *consts, phase_offset=offset, return_phase=True)
+        torch.cuda.synchronize()
+        assert torch.equal(audio, want) and torch.equal(phase, want_phase)
 
 
 @pytest.fixture

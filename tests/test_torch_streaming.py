@@ -9,6 +9,12 @@ chunked output equals one-shot output only without noise.  JAX's random
 init (PRNGKey(0)), folded, is loaded into the port.  Bounds: chunked
 against one-shot 2e-3 rel-RMS (the JAX tests' bound, fp32 cumsum noise),
 the port's modes against the JAX package's 1e-3 rel-RMS.
+
+The live chunks' CUDA graphs are held here where the CPU can hold them: the
+noise a captured chunk holds is the model's own draw, the rule that picks a
+graph over the eager body, stream() bit-equal to the chunk program as it
+ran before graphs, and the F0 net's hook firing once a chunk (a causal
+model at the tiny width with noise and normalisation on).
 """
 import os
 
@@ -165,6 +171,122 @@ def test_f0_net_runs_once_a_chunk(models, monkeypatch):
     calls.clear()
     ss.synth(mell)
     assert len(calls) == len(ss._bounds(T))
+    # stream(): the F0 net's forward hook (the benchmark's F0 tap) fires once a chunk
+    calls.clear()
+    hooked = []
+    handle = blk.pp_subnet.register_forward_hook(lambda module, inputs, output: hooked.append(output.shape))
+    try:
+        chunks = list(ss.stream(mell[:, i: i + 8] for i in range(0, T, 8)))
+    finally:
+        handle.remove()
+    assert len(hooked) == len(calls) == len(chunks) == len(ss._bounds(T))
+
+
+LIVE = dict(chunk_frames=16, halo_frames=32, halo_right=2)  # the live geometry: ramp spans 18, 34, 50
+
+
+@pytest.fixture(scope="module")
+def noisy_model():
+    """A causal model at the tiny width with the noise channel on (sigma 0.5)
+    and RMS normalisation on, as the registry models ship."""
+    hp = causal_small_hparams(force_causal=True)
+    hp["mbexwn_config"].update(pp_mod_subnet_noise_channel_sigma=0.5, normalize_rms_from_mell=True)
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"])
+    return model.init(torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_held_noise_is_the_models_own_draw(noisy_model, models, B):
+    """The noise a captured chunk holds equals, bit for bit, the seed-0 draw
+    `fold_pulse_channels` makes itself, at every ramp shape of the live
+    geometry; with the noise channel off there is none."""
+    blk = noisy_model.block
+    ss = StreamingSynthesizer(noisy_model, device="cpu", **LIVE)
+    ss.warm(B)
+    spans = sorted(span for span, _, _ in ss.programs)
+    assert spans == [18, 34, 50]
+    for span in spans:
+        held = ss._held_noise(B, span)
+        assert held.shape == (B, blk.wn_input_length(span), 1)
+        pulse = blk.oscillate(torch.full((B, span * blk.spect_to_pulse_upsampling_factor), 140.0))
+        assert torch.equal(blk.fold_pulse_channels(pulse, noise=held), blk.fold_pulse_channels(pulse))
+    assert StreamingSynthesizer(models[2], device="cpu", **LIVE)._held_noise(B, 50) is None
+
+
+def test_graph_engages_only_where_warm_captured(noisy_model, models, monkeypatch):
+    """The rule that picks a captured graph over the eager body: never on the
+    CPU (warm captures nothing, a chunk runs eagerly whatever is stored),
+    never over a mesh, and only for a key warm captured: not for another
+    batch or shape, a tail flush, a changed weight, or a WaveNet route the
+    int8 mode changed.  On the card the graph's output is held against the
+    eager path's (tests/test_torch_cuda.py)."""
+    ss = StreamingSynthesizer(noisy_model, device="cpu", **LIVE)
+    ss.warm()
+    assert ss._graphs == {} and ss.replays == 0
+    mel = torch.full((1, 50, 80), -4.0)
+    sentinel = object()
+    ss._graphs[ss._graph_key(mel, 32, 16)] = sentinel
+    audio, carry = ss._chunk(mel, torch.zeros((1,), dtype=torch.float64), 32, 16)
+    assert ss.replays == 0 and audio.shape == (1, 16 * HOP) and carry.dtype == torch.float64
+
+    monkeypatch.setattr(ss, "device", torch.device("cuda"))  # the rule alone: nothing runs below
+    ss._graphs = {ss._graph_key(mel, 32, 16): sentinel}
+    assert ss._graph_for(mel, 32, 16) is sentinel
+    for shape, left, inner in (((2, 50, 80), 32, 16),  # a batch warm did not capture
+                               ((1, 40, 80), 22, 16),  # a shape warm did not capture
+                               ((1, 37, 80), 32, 5),  # the tail flush: a short last chunk
+                               ((1, 48, 80), 32, 16)):  # the tail flush: the lookahead cut at the end
+        assert ss._graph_for(torch.zeros(shape), left, inner) is None
+    monkeypatch.setattr(ss, "mesh", object())
+    assert ss._graph_for(mel, 32, 16) is None
+    monkeypatch.setattr(ss, "mesh", None)
+    with torch.no_grad():
+        next(noisy_model.parameters()).add_(0.0)  # the same values, a new version
+    assert ss._graph_for(mel, 32, 16) is None
+
+    same = StreamingSynthesizer(models[2], device="cpu", **LIVE)  # SAME taps: the int8 mode takes them
+    monkeypatch.setattr(same, "device", torch.device("cuda"))
+    same._graphs = {same._graph_key(mel, 32, 16): sentinel}
+    assert same._graph_for(mel, 32, 16) is sentinel
+    monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
+    assert same._graph_for(mel, 32, 16) is None
+
+
+def _chunks_before_graphs(model, mell, c, h, hr):
+    """The chunk program as `stream` ran it before graphs, written out: per
+    chunk the F0 net on the (normalised) span, the offset from the fp64
+    carry, one synthesis that draws its noise, the carry update."""
+    blk = model.block
+    stp, hop, rate = blk.spect_to_pulse_upsampling_factor, blk.spect_hop_size, blk.wavetable.sample_rate
+    B, n, _ = mell.shape
+    carry = torch.zeros((B,), dtype=torch.float64)
+    outs = []
+    with torch.inference_mode():
+        for t0 in range(0, n, c):
+            t1 = min(t0 + c, n)
+            lo, hi = max(0, t0 - h), min(n, t1 + hr)
+            left, inner = t0 - lo, t1 - t0
+            span = torch.from_numpy(mell[:, lo:hi]).contiguous()
+            _, normed, _ = model.norm_mel_components.normalize_inputs_by_rms(None, span, span.shape[1] * hop)
+            f0 = blk.generate_f0(normed)
+            offset = torch.remainder(carry.float() - (f0[:, : left * stp] * (1.0 / rate)).sum(dim=1), 1.0)
+            y = model.infer(span, synth_length=span.shape[1] * hop, F0=f0, phase_offset=offset)
+            inc = (f0[:, left * stp: (left + inner) * stp] * (1.0 / rate)).double().sum(dim=1)
+            carry = torch.remainder(carry + inc, 1.0)
+            outs.append(y[:, left * hop: (left + inner) * hop].numpy())
+    return np.concatenate(outs, axis=1)
+
+
+def test_stream_on_the_cpu_is_bit_equal_to_before(noisy_model):
+    """stream() on the CPU, warmed (nothing is captured there), through the
+    ramp, the steady state and a tail flush, equals the chunk program as it
+    ran before graphs bit for bit, noise channel and normalisation on."""
+    mell = _mel(21, B=2, frames=16 * 6 + 5)
+    ss = StreamingSynthesizer(noisy_model, device="cpu", **LIVE)
+    ss.warm(2)
+    got = np.concatenate(list(ss.stream(mell[:, i: i + 2] for i in range(0, mell.shape[1], 2))), axis=1)
+    assert ss.replays == 0
+    np.testing.assert_array_equal(got, _chunks_before_graphs(noisy_model, mell, 16, 32, 2))
 
 
 def test_synth_scan_multi_utterance(models):
