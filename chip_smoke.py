@@ -195,9 +195,10 @@ prints no result line:
      implies at [5]'s synthesis time; each synthesis 24 K1 + 1 K2;
  13. every route of the WaveNet stack, SPEECH full width (C=320): (a) the
      branches the kernel does not take (gates glu and gsu, n_ch_groups 2,
-     kernel_size 5 on SPEECH, and per-layer conditioning on a standalone
-     stack), random init: fp32 card against the port's CPU <= 1e-3
-     rel-RMS, K1 launches 0 (24 for the unedited gtu reference), bf16 ms;
+     kernel_size 5 on SPEECH), and per-layer conditioning on a standalone
+     stack (K1's since WaveGlow), random init: fp32 card against the port's
+     CPU <= 1e-3 rel-RMS, K1 launches 0 (24 for the unedited gtu reference,
+     12 for the per-layer stack), bf16 ms;
      (b) tensor parallelism (MBEXWN_TP_AXIS=model, the shipped weights, a
      1 x 2 mesh of cuda:0 twice, BatchSynthesizer at batch 2) against the
      same model unsharded (fp32 <= 1e-5, bf16 <= 2e-2), K1 launches 0, ms
@@ -232,13 +233,25 @@ prints no result line:
      beside unsharded int8 and tensor-parallel bf16; (e) the tiny fp64
      training step with the envelope's aux losses, card against CPU (loss
      1e-12, leaves 1e-9).
+ 15. WaveGlow (models/waveglow.py) at its published widths, seeded weights
+     (benchmark/configs/waveglow.json): (a) fp32 and bf16 synthesis of 64
+     frames against the plain reference (tests/waveglow_reference.py) on
+     the card (fp32 <= 1e-4, bf16 <= 0.05 rel-RMS), every WN on route k1,
+     96 K1 launches a synthesis; (b) one WN, its cond the real cond conv's
+     output: at batch 1 and 512 frames K1, the whole WN, K1's bound and
+     plain ms, and K1 against its plain version there and at batch 8 of
+     bucket 1024 (32,768 rows an utterance, a 2.15 GB cond; 8 launches),
+     bf16 <= 2e-2 rel-RMS; (c) PipelinedSynthesizer at batch 8 in bucket
+     1024: 96 launches a group, ms a group, peak memory.
+     `chip_smoke.py --waveglow` runs [1]'s build and [15] alone.
 The last lines are a one-line summary of the end-to-end numbers, a
 `serving:` JSON line with phase [7]'s numbers, a `streaming:` JSON line
 with phase [8]'s, a `training:` JSON line with phase [9]'s, a
 `training_driver:` JSON line with phase [10]'s, a `parallel:` JSON line
 with phase [11]'s, an `export_remat_observability:` JSON line with phase
 [12]'s, a `routes:` JSON line with phase [13]'s, a `branches:` JSON line
-with phase [14]'s, the card's name and power limit, a `kernels` JSON line
+with phase [14]'s, a `waveglow:` JSON line with phase [15]'s, the card's
+name and power limit, a `kernels` JSON line
 (its launches: the main path of [4], SPEECH bf16, plus one pass of each
 long-form mode of [8](b), the live streams of [8](c), the trained and the
 reloaded model's syntheses of [9](d), the CLI export's synthesis of
@@ -247,7 +260,8 @@ mesh passes of (d); [12]'s: one call of each loaded artifact and the
 syntheses under profile_trace, debug_nans and dump_controls; [13]'s
 syntheses on every route and the int8 artifact's call; [14]'s branch
 syntheses, pulse-gain calls, streaming passes and int8 synthesis over a
-model axis; each counted from 0 just before it), and
+model axis; [15]'s syntheses, its batch-8 WN and its groups; each counted
+from 0 just before it), and
 `{"ok": true, "device": {...}}`.
 Needs no network and no JAX.
 """
@@ -2350,7 +2364,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
         finite = bool(torch.isfinite(net16(a_full, m_full)).all())
     row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, route=net.route(), bf16_ms_cuda_events=ms,
                rows=rows_full)
-    check(err <= 1e-3 and finite and counts == {"wavenet_layer": 0, "oscillator": 0},
+    check(err <= 1e-3 and finite and counts == {"wavenet_layer": net.n_layers, "oscillator": 0},
           f"(a) standalone WaveNetAE C=320 with per-layer conditioning ({net.cond.filters} cond channels), fp32 "
           f"{rows_cpu} rows: card vs CPU rel-RMS {err:.3e} (<= 1e-3); route {net.route()}; launches {counts}; "
           f"bf16 {rows_full} rows (block 0 of a {N_FRAMES}-frame synthesis): {ms:.2f} ms (CUDA events)")
@@ -2938,6 +2952,146 @@ def phase_branches(check, dev, synth_ms: float):
     return numbers
 
 
+def waveglow_config() -> dict:
+    """[15]'s configuration: NVIDIA's WaveGlow at its published widths with
+    seeded weights, as the benchmark's `waveglow` configuration states it."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs", "waveglow.json")) as f:
+        return json.load(f)
+
+
+WAVEGLOW_GROUP_FRAMES = (513, 1000)  # [15](c): a batch-8 group in bucket 1024
+
+
+def phase_waveglow(check, dev):
+    """[15] WaveGlow (models/waveglow.py) at its published widths on the card:
+    (a) the fp32 synthesis (K1's FMA route) against the plain reference's on
+    the card, and the bf16 one: 96 K1 launches a synthesis, its distance to
+    the reference; (b) one WN's K1 at batch 1 and 512 frames, the whole WN,
+    K1's bound and its plain version; (c) PipelinedSynthesizer at batch 8 in
+    bucket 1024: 96 launches a group, the group's time and peak memory."""
+    import tempfile
+
+    import torch
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+    from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+    from mbexwn_vocoder_torch.serving import PipelinedSynthesizer
+    from tests.waveglow_reference import Reference, write_model_dir
+
+    out, config = {}, waveglow_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_model_dir(config, os.path.join(tmp, "waveglow"))
+        ref = Reference(config, path, dev)
+        mel = make_mel(64, 80, SEED + 150)
+        mel_dev = torch.from_numpy(mel).to(dev)
+        y_ref = ref.synth(mel_dev).cpu().numpy()[0]
+        for name, dtype in (("fp32", ""), ("bf16", None)):
+            if dtype is None:
+                os.environ.pop("MBEXWN_WN_DTYPE", None)
+            else:
+                os.environ["MBEXWN_WN_DTYPE"] = dtype
+            inv = MELInverter(path, device=dev, length_buckets=(64, 512, 1024))
+            os.environ.pop("MBEXWN_WN_DTYPE", None)
+            inv.synth_from_mel(mel)
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()
+            y = inv.synth_from_mel(mel)
+            counts = dict(kernel_lib.launches)
+            err = rel_rms(y, y_ref)
+            out[f"{name}_rel_rms_vs_reference"], out[f"{name}_launches"] = err, counts
+            n_wn = sum(wn.n_layers for wn in inv.model.WN)
+            routes = sorted({wn.route() for wn in inv.model.WN})
+            check(routes == ["k1"] and counts == {"wavenet_layer": n_wn, "oscillator": 0} and np.isfinite(y).all()
+                  and (err <= 1e-4 if name == "fp32" else err <= 0.05),
+                  f"(a) WaveGlow {name} 64 frames: routes {routes}, launches {counts} (expected {n_wn}), rel-RMS "
+                  f"{err:.3e} against the fp32 reference on the card (<= {1e-4 if name == 'fp32' else 0.05:g})")
+        # (b) one WN at batch 1 and 512 frames (rows 512 * 256 / 8), and at batch 8 of bucket 1024, its cond the
+        # real cond conv's output: K1 against its plain version
+        model = inv.model
+        wn = model.WN[0]
+
+        def wn_operands(mel_np, seed):
+            cond_in = model.upsample(torch.from_numpy(mel_np).to(dev)).to(torch.bfloat16)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            x_in = torch.randn((mel_np.shape[0], cond_in.shape[1], wn.start.in_channels), device=dev, generator=g)
+            x_in = x_in * 0.6
+            cond = wn.conditioning(cond_in).unflatten(-1, (wn.n_layers, 2 * wn.n_channels))
+            return x_in, cond_in, wn.start(x_in.to(torch.bfloat16)), cond
+
+        with torch.inference_mode():
+            weights = wn.stack_weights(torch.bfloat16)
+            x_in, cond_in, xs, cond = wn_operands(make_mel(N_FRAMES, 80, SEED + 151), SEED + 152)
+            k1_ms = cuda_time_ms(lambda: wavenet_stack(xs, cond, weights, wn.dilations), iters=20)
+            wn_ms = cuda_time_ms(lambda: wn(x_in, cond_in), iters=20)
+            with exact_fp32():
+                plain_ms = cuda_time_ms(lambda: wavenet_stack_plain(xs, cond, weights, wn.dilations), iters=5)
+                err_1 = rel_rms(wavenet_stack(xs, cond, weights, wn.dilations).cpu(),
+                                wavenet_stack_plain(xs, cond, weights, wn.dilations).cpu())
+        B, T, C = xs.shape
+        flop = B * T * C * C * (16.0 * (wn.n_layers - 1) + 14.0)
+        nbytes = 2.0 * B * T * C * (1 + 2 * wn.n_layers) + 2.0 * (8 * wn.n_layers - 1) * C * C + 4.0 * B * T * C
+        bound_ms = 1e3 * max(flop / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
+        out["wn_batch1_512_frames"] = {"rows": T, "k1_ms": k1_ms, "wn_ms": wn_ms, "k1_plain_ms": plain_ms,
+                                       "k1_bound_ms": bound_ms, "k1_tflops": flop / k1_ms / 1e9,
+                                       "k1_vs_plain_rel_rms": err_1}
+        check(err_1 <= 2e-2, f"(b) one WN (C={C}, {wn.n_layers} layers) at batch 1, {N_FRAMES} frames ({T} rows): K1 "
+                             f"{k1_ms:.3f} ms ({flop / k1_ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms), the whole "
+                             f"WN {wn_ms:.3f} ms, K1's plain version {plain_ms:.3f} ms; K1 vs plain rel-RMS "
+                             f"{err_1:.3e} (<= 2e-2)")
+        del x_in, cond_in, xs, cond
+        mels8 = np.concatenate([make_mel(1024, 80, SEED + 170 + i) for i in range(8)])
+        with torch.inference_mode():
+            _, _, xs, cond = wn_operands(mels8, SEED + 171)
+            kernel_lib.reset_launch_counts()
+            with exact_fp32():
+                got = wavenet_stack(xs, cond, weights, wn.dilations)
+                torch.cuda.synchronize()
+                launches = kernel_lib.launches["wavenet_layer"]
+                err_8 = rel_rms(got.cpu(), wavenet_stack_plain(xs, cond, weights, wn.dilations).cpu())
+        out["wn_batch8_bucket1024"] = {"rows": int(xs.shape[1]), "k1_vs_plain_rel_rms": err_8, "launches": launches}
+        check(err_8 <= 2e-2 and launches == wn.n_layers and bool(torch.isfinite(got).all()),
+              f"(b) one WN at batch 8, bucket 1024 ({xs.shape[1]} rows an utterance; cond {cond.numel() * 2 / 1e9:.2f} "
+              f"GB read in place): K1 vs plain rel-RMS {err_8:.3e} (<= 2e-2), {launches} launches")
+        del xs, cond, got
+        # (c) serving: groups of 8 in bucket 1024
+        synth = PipelinedSynthesizer(model, length_buckets=(1024,), depth=3, batch=8, device=dev)
+        lengths = np.linspace(*WAVEGLOW_GROUP_FRAMES, 8).astype(int)
+        mels = [make_mel(int(T), 80, SEED + 160 + i)[0] for i, T in enumerate(lengths)]
+        synth.map(mels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernel_lib.reset_launch_counts()
+        n_groups = 6
+        t0 = time.perf_counter()
+        ys = synth.map(mels * n_groups)
+        group_ms = (time.perf_counter() - t0) * 1e3 / n_groups
+        counts = dict(kernel_lib.launches)
+        audio_s = float(np.sum(lengths)) * 256 / 22050
+        out["serving_batch8"] = {"group_ms_host": group_ms, "audio_s_per_s": audio_s / group_ms * 1e3,
+                                 "launches_per_group": counts["wavenet_layer"] / n_groups,
+                                 "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        check(counts["wavenet_layer"] == 96 * n_groups and all(np.isfinite(y).all() for y in ys),
+              f"(c) PipelinedSynthesizer batch 8, bucket 1024, {n_groups} groups: {group_ms:.1f} ms a group "
+              f"({audio_s / group_ms * 1e3:.1f} audio-s/s, host clock), {counts['wavenet_layer'] / n_groups:.0f} "
+              f"K1 launches a group, peak {out['serving_batch8']['peak_memory_gb']:.2f} GB")
+        out["launches"] = {k: out["fp32_launches"][k] + out["bf16_launches"][k] + counts[k] for k in counts}
+        out["launches"]["wavenet_layer"] += out["wn_batch8_bucket1024"]["launches"]
+        del inv, model, synth, ref
+    return out
+
+
+def checker(failures: list):
+    """A phase's `check(ok, what)`: prints the line and records a failure."""
+
+    def check(ok: bool, what: str):
+        print(f"  {'ok  ' if ok else 'FAIL'} {what}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    return check
+
+
 def main() -> int:
     try:
         import torch
@@ -2959,11 +3113,7 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     failures = []
-
-    def check(ok: bool, what: str):
-        print(f"  {'ok  ' if ok else 'FAIL'} {what}", flush=True)
-        if not ok:
-            failures.append(what)
+    check = checker(failures)
 
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3246,6 +3396,11 @@ def main() -> int:
     k1_max_abs = max(k1_max_abs, branches.get("k1_bf16_max_abs", 0.0))
     k2_err = max(k2_err, branches.get("k2_max_abs", 0.0))
     print(f"  phase [14] {branches['seconds']:.1f} s", flush=True)
+    print("[15] WaveGlow (12 flows x 8-layer WN at C=256, per-layer cond on K1)", flush=True)
+    t0 = time.perf_counter()
+    waveglow = phase_waveglow(check, dev)
+    waveglow["seconds"] = time.perf_counter() - t0
+    print(f"  phase [15] {waveglow['seconds']:.1f} s", flush=True)
 
     # each path's counts, set to 0 just before it and read just after: [4]'s synthesis, one pass of each
     # long-form mode ([8](b), shipped model), the live streams ([8](c)), the trained and the reloaded
@@ -3260,7 +3415,7 @@ def main() -> int:
                 + training["trained_synthesis_launches"][k] + training["reloaded_synthesis_launches"][k]
                 + cli_run["cli"]["synthesis_launches"][k] + parallel["launches"][k]
                 + slice9["export"].get("launches", {}).get(k, 0) + slice9["observability"]["launches"][k]
-                + routes["launches"][k] + branches["launches"][k] for k in main_launches}
+                + routes["launches"][k] + branches["launches"][k] + waveglow["launches"][k] for k in main_launches}
 
     if failures:
         print(f"chip_smoke: FAIL {len(failures)} check(s): {failures}", flush=True)
@@ -3292,6 +3447,7 @@ def main() -> int:
     print("export_remat_observability: " + json.dumps(slice9, default=str), flush=True)
     print("routes: " + json.dumps(routes, default=str), flush=True)
     print("branches: " + json.dumps(branches, default=str), flush=True)
+    print("waveglow: " + json.dumps(waveglow, default=str), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3299,7 +3455,23 @@ def main() -> int:
     return 0
 
 
+def main_waveglow() -> int:
+    """`chip_smoke.py --waveglow`: [1]'s build, then [15] alone."""
+    import torch
+    from mbexwn_vocoder_torch.ops import kernel_lib
+
+    dev, failures = torch.device("cuda:0"), []
+    check = checker(failures)
+    kernel_lib.library()
+    print("[15] WaveGlow (12 flows x 8-layer WN at C=256, per-layer cond on K1)", flush=True)
+    print("waveglow: " + json.dumps(phase_waveglow(check, dev), default=str), flush=True)
+    print(f"chip_smoke --waveglow: {'FAIL ' + str(failures) if failures else 'ok'}", flush=True)
+    return 1 if failures else 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--artifact-child":
         sys.exit(artifact_child(sys.argv[2]))
+    if sys.argv[1:] == ["--waveglow"]:
+        sys.exit(main_waveglow())
     sys.exit(main())

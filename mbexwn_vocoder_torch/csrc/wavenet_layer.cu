@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel mbexwn_vocoder_tpu/ops/pallas_wavenet.py
 // (fused_wavenet_group, body _group_kernel, driven by fused_wavenet_stack).
-// Per layer, for x (B, T, C) and the shared conditioning slab cond (B, T, 2C):
+// Per layer, for x (B, T, C) and the conditioning slab cond (B, T, 2C), shared by
+// all layers or the layer's own (cond_i of a per-layer (B, T, L, 2C) cond):
 //   y    = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b_dil + cond[t]    (C -> 2C; SAME)
 //   y    = x[t-2d] W0 + x[t-d] W1 + x[t] W2 + b_dil + cond[t]   (C -> 2C; causal)
 //   g    = tanh(y[:, :C]) * sigmoid(y[:, C:])                  (rounded to the operand type)
@@ -15,7 +16,10 @@
 // product and writes no x'.  SAME and causal differ only in the row of x
 // each tap reads, (tap + tap0) * d with tap0 = -1 or -2: a runtime argument
 // (a row coordinate of a TMA box, or of the fp32 kernel's loads), not a
-// template instance.
+// template instance.  Shared and per-layer conditioning differ only in where
+// a layer's slab starts and the distance between its rows (2 Ch, or L x 2 Ch
+// from column i x 2 Ch): the fp32 kernel's cond_ld and the bf16 kernel's cond
+// tensor map, encoded per layer.
 //
 // Operand layout.  The reduction dimension is padded with zeros to Cp, a
 // multiple of 64 (320 stays 320, 340 becomes 384): x and x' are (B, T, Cp),
@@ -43,10 +47,10 @@
 //     thread issues TMA loads; setmaxnreg moves registers from the producer
 //     (40) to the consumers (232);
 //   - the output columns are walked in chunks of P pairs (column j with
-//     column C+j), P = 112 at C = 320 (3 chunks) and 88 at C = 340 (4
-//     chunks), so a chunk's tanh and sigmoid halves meet in one thread's
-//     accumulators (2 x P/2 fp32 registers) and the gate is computed in
-//     registers.  P = 160 (2 chunks, 160 accumulator registers) spilled and
+//     column C+j), P = 112 at C = 320 (3 chunks), 88 at C = 340 (4
+//     chunks) and 88 at C = 256 (3 chunks, WaveGlow's width), so a chunk's
+//     tanh and sigmoid halves meet in one thread's accumulators (2 x P/2
+//     fp32 registers) and the gate is computed in registers.  P = 160 (2 chunks, 160 accumulator registers) spilled and
 //     ran several times slower on the H100.  Per CTA and layer at C = 320 that stages 3 x 3 x 128 x
 //     320 x 2 B = 0.74 MB of x and the 1.64 MB of weights for 210 MFLOP: ~88
 //     FLOP per byte staged (the mma.sync kernel this replaces, 64-row tiles
@@ -140,7 +144,7 @@ template <bool kSkipOnly>
 __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
     const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w_dil,
     const float* __restrict__ b_dil, const float* __restrict__ w_rs, const float* __restrict__ b_rs,
-    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int d, int tap0) {
+    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int cond_ld, int d, int tap0) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);  // [kDepth][kLdA]
   float* Bs = As + kDepth * kLdA;              // [kDepth][kLdB]
@@ -151,7 +155,6 @@ __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
   const int tid = threadIdx.x;
   const int rg = tid / 16;  // rows rg*4 .. rg*4+3
   const int cg = tid % 16;  // pairs cg*2, cg*2+1
-  const int C2 = 2 * C;
   const long long row_base = static_cast<long long>(b) * T_len;
 
   for (int c0 = 0; c0 < C; c0 += kPairs) {
@@ -190,8 +193,8 @@ __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
         float ya = acc[i][q] + b_dil[j];
         float ys = acc[i][2 + q] + b_dil[C + j];
         if (t < T_len) {
-          ya += cond[(row_base + t) * C2 + j];
-          ys += cond[(row_base + t) * C2 + C + j];
+          ya += cond[(row_base + t) * cond_ld + j];
+          ys += cond[(row_base + t) * cond_ld + C + j];
         }
         Gs[j * kLdA + r] = tanhf(ya) * sigmoidf(ys);
       }
@@ -265,10 +268,14 @@ int ring_stages(int Cp) {
   return n;
 }
 
-// Column pairs per chunk, of the two instantiated widths: one that leaves
-// room for three stages, then the fewest chunks, then the least padding
-// (C = 320: 3 x 112 with 3 stages; C = 340: 4 x 88 with 3 stages, since 112
-// leaves room for only 2 beside the 96 KB gated tile).
+// Column pairs per chunk, of the two instantiated widths: the one that leaves
+// room for the most stages, then the fewest chunks, then the least padding
+// (C = 320: 3 x 112, both widths with 3 stages; C = 340: 4 x 88 with 3
+// stages, since 112 leaves room for only 2 beside the 96 KB gated tile;
+// C = 256: 3 x 88 with 4 stages beside the 64 KB gated tile, 7 % faster on
+// the H100 than 3 x 112 with 3).  A 2 x 128 instance (3 stages) ran 7 %
+// slower than 3 x 88 at C = 256 and its output differed from run to run:
+// not kept.
 int pairs_per_chunk(int C, int Cp) {
   const int widths[2] = {88, 112};
   const int rings[2] = {ring_stages<88>(Cp), ring_stages<112>(Cp)};
@@ -276,7 +283,7 @@ int pairs_per_chunk(int C, int Cp) {
   long best_score = -1;
   for (int i = 0; i < 2; ++i) {
     const int n_chunks = (C + widths[i] - 1) / widths[i];
-    const long score = (rings[i] >= 3 ? 0 : 1000000L) + 1000L * n_chunks + (n_chunks * widths[i] - C);
+    const long score = 1000000L * (kMaxRing - rings[i]) + 1000L * n_chunks + (n_chunks * widths[i] - C);
     if (best_score < 0 || score < best_score) { best = widths[i]; best_score = score; }
   }
   return best;
@@ -757,15 +764,19 @@ int encode_buf_maps(BufMaps* m, const void* x, int B, int T_len, int C, int Cp) 
   return encode_rows_map(&m->o, x, B, T_len, C, Cp, P, 64, false);
 }
 
-// The maps a stack's layers share: cond in plain 128 x P boxes, and the fp32
-// skip sum in 64 x P/2 boxes for the reduce-add.
+// The maps a stack's layers share: cond in plain 128 x P boxes (a layer's
+// slab: 2 Ch columns of rows cond_ld apart; per-layer cond re-encodes it for
+// each layer), and the fp32 skip sum in 64 x P/2 boxes for the reduce-add.
 struct SharedMaps {
   CUtensorMap cond, skip;
 };
-int encode_shared_maps(SharedMaps* m, const void* cond, const void* skip, int B, int T_len, int C, int Cp, int Ch) {
-  const int P = pairs_per_chunk(C, Cp);
-  if (int e = encode_rows_map(&m->cond, cond, B, T_len, 2 * Ch, 2 * Ch, P, kTileRows, false)) return e;
-  return encode_rows_map(&m->skip, skip, B, T_len, C, C, P / 2, 64, false, true);
+int encode_cond_map(CUtensorMap* map, const void* cond, int B, int T_len, int C, int Cp, int Ch, int cond_ld) {
+  return encode_rows_map(map, cond, B, T_len, 2 * Ch, cond_ld, pairs_per_chunk(C, Cp), kTileRows, false);
+}
+int encode_shared_maps(SharedMaps* m, const void* cond, const void* skip, int B, int T_len, int C, int Cp, int Ch,
+                       int cond_ld) {
+  if (int e = encode_cond_map(&m->cond, cond, B, T_len, C, Cp, Ch, cond_ld)) return e;
+  return encode_rows_map(&m->skip, skip, B, T_len, C, C, pairs_per_chunk(C, Cp) / 2, 64, false, true);
 }
 
 template <int P, bool kSkipOnly>
@@ -799,10 +810,11 @@ struct Layer {
 };
 
 // dtype: 0 = fp32 operands (FMA), 1 = bf16 operands (tensor cores); fp32
-// accumulation in both.  The maps (bf16 only) describe x_in, x_out, cond and skip.
+// accumulation in both.  The maps (bf16 only) describe x_in, x_out, cond and skip;
+// cond (fp32 only) is the layer's slab, its rows cond_ld elements apart.
 int launch_layer(int dtype, const Layer& l, const void* x_in, const void* cond, void* x_out, void* skip,
                  const BufMaps* in, const BufMaps* out, const SharedMaps* sh, int B, int T_len, int C, int Cp, int Ch,
-                 cudaStream_t s) {
+                 int cond_ld, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid((T_len + kRows - 1) / kRows, B);
     const size_t smem = sizeof(float) * (kDepth * kLdA + kDepth * kLdB + static_cast<size_t>(C) * kLdA);
@@ -812,7 +824,7 @@ int launch_layer(int dtype, const Layer& l, const void* x_in, const void* cond, 
     kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(x_in), static_cast<const float*>(cond), static_cast<const float*>(l.w_dil),
         static_cast<const float*>(l.b_dil), static_cast<const float*>(l.w_rs), static_cast<const float*>(l.b_rs),
-        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, l.d, l.tap0);
+        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, cond_ld, l.d, l.tap0);
     return cuda_fail(cudaGetLastError());
   }
   const LayerArgs args = {static_cast<const bf16*>(l.b_dil), static_cast<const bf16*>(l.b_rs), T_len, C, Cp, Ch, l.d,
@@ -863,17 +875,19 @@ extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* con
     if (int e = encode_weight_maps(wmaps, w_dil, w_rs, C, Cp, skip_only ? C : 2 * C)) return e;
     if (int e = encode_buf_maps(&in, x_in, B, T_len, C, Cp)) return e;
     if (int e = encode_buf_maps(&out, x_out, B, T_len, C, Cp)) return e;
-    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch)) return e;
+    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, 2 * Ch)) return e;
   }
   const Layer l = {w_dil, b_dil, w_rs, b_rs, wmaps, d, skip_only, causal ? -2 : -1};
-  const int e = launch_layer(dtype, l, x_in, cond, x_out, skip, &in, &out, &sh, B, T_len, C, Cp, Ch,
+  const int e = launch_layer(dtype, l, x_in, cond, x_out, skip, &in, &out, &sh, B, T_len, C, Cp, Ch, 2 * Ch,
                              static_cast<cudaStream_t>(stream));
   return e ? e : 1;
 }
 
 // A whole stack in one host call: layer i reads x_bufs[i % 2] and writes
 // x_bufs[(i + 1) % 2]; the caller has put x into x_bufs[0] and zeros into
-// skip and into the pad columns of both buffers.  The per-layer arrays hold
+// skip and into the pad columns of both buffers.  cond is (B, T, 2 Ch) shared
+// by every layer (per_layer_cond = 0) or (B, T, n_layers, 2 Ch), layer i's
+// slab at column i x 2 Ch of each row (per_layer_cond = 1).  The per-layer arrays hold
 // n_layers device pointers (weight_maps: n_layers x 2 tensor maps in host
 // memory from mbexwn_wavenet_weight_maps, bf16 only).  causal: every
 // layer's taps at t-2d, t-d, t.  Enqueues on `stream`, allocates and
@@ -882,9 +896,11 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
                                     const void* const* w_dil, const void* const* b_dil, const void* const* w_rs,
                                     const void* const* b_rs, const int* dils, const int* skip_only,
                                     const void* weight_maps, void* skip, int B, int T_len, int C, int Cp, int Ch,
-                                    int causal, void* stream) {
-  if (bad_shape(dtype, B, T_len, C, Cp, Ch) || n_layers < 0 || (causal != 0 && causal != 1))
+                                    int per_layer_cond, int causal, void* stream) {
+  if (bad_shape(dtype, B, T_len, C, Cp, Ch) || n_layers < 0 || (causal != 0 && causal != 1) ||
+      (per_layer_cond != 0 && per_layer_cond != 1))
     return cuda_fail(cudaErrorInvalidValue);
+  const int cond_ld = (per_layer_cond ? n_layers : 1) * 2 * Ch;  // elements between two rows of cond
   void* bufs[2] = {x_buf0, x_buf1};
   BufMaps maps[2];  // of the two ping-pong buffers
   SharedMaps sh;
@@ -892,13 +908,19 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
   if (dtype == 1) {
     for (int i = 0; i < 2; ++i)
       if (int e = encode_buf_maps(&maps[i], bufs[i], B, T_len, C, Cp)) return e;
-    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch)) return e;
+    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, cond_ld)) return e;
   }
+  const size_t elem = dtype == 1 ? sizeof(bf16) : sizeof(float);
   for (int i = 0; i < n_layers; ++i) {
-    if (dtype == 1) memcpy(wmaps, static_cast<const unsigned char*>(weight_maps) + i * sizeof(wmaps), sizeof(wmaps));
+    const void* cond_i = static_cast<const unsigned char*>(cond) + (per_layer_cond ? i * 2 * Ch * elem : 0);
+    if (dtype == 1) {
+      memcpy(wmaps, static_cast<const unsigned char*>(weight_maps) + i * sizeof(wmaps), sizeof(wmaps));
+      if (per_layer_cond && i > 0)
+        if (int e = encode_cond_map(&sh.cond, cond_i, B, T_len, C, Cp, Ch, cond_ld)) return e;
+    }
     const Layer l = {w_dil[i], b_dil[i], w_rs[i], b_rs[i], wmaps, dils[i], skip_only[i], causal ? -2 : -1};
-    if (int e = launch_layer(dtype, l, bufs[i % 2], cond, bufs[(i + 1) % 2], skip, &maps[i % 2], &maps[(i + 1) % 2], &sh, B,
-                             T_len, C, Cp, Ch, static_cast<cudaStream_t>(stream)))
+    if (int e = launch_layer(dtype, l, bufs[i % 2], cond_i, bufs[(i + 1) % 2], skip, &maps[i % 2], &maps[(i + 1) % 2], &sh,
+                             B, T_len, C, Cp, Ch, cond_ld, static_cast<cudaStream_t>(stream)))
       return e;
   }
   return n_layers;

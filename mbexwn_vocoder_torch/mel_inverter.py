@@ -1,8 +1,9 @@
 """MELInverter: the high-level inference facade.
 
 Counterpart of the JAX package's mel_inverter.py.  Loads a model directory
-(config.yaml + weights.npz), rescales external mel spectrograms into the
-model's convention, and synthesises on one device: the card by default
+(config.yaml + weights.npz: a registry model, or a WaveGlow with its
+`waveglow_config`), rescales external mel spectrograms into the model's
+convention, and synthesises on one device: the card by default
 (`device="cuda"`), the CPU only when the caller asks for it.  Mels are
 edge-padded to length buckets and the padded audio tail is trimmed, as in
 the JAX package, so a serving loop sees a few shapes only
@@ -137,8 +138,7 @@ class MELInverter:
     def noise_shape(self, scaled_mell: np.ndarray):
         """Shape of the noise channel `synth_from_mel` draws for this mel
         (it depends on the padded bucket length)."""
-        T_pad = self._bucket_len(scaled_mell.shape[1])
-        return scaled_mell.shape[0], self.model.block.wn_input_length(T_pad), 1
+        return self.model.noise_shape(scaled_mell.shape[0], self._bucket_len(scaled_mell.shape[1]))
 
     def warm(self, buckets=None, batch_size: int = 1) -> None:
         """Run one synthesis per length bucket (all configured buckets by
@@ -205,7 +205,7 @@ class MELInverter:
         if verbose:
             print(f"restore from {weights_npz}", file=sys.stderr)
         state = params_from_jax(flatten(fold_weight_norm(load_params(weights_npz))))
-        model.block.load_state_dict(state, strict=True)
+        getattr(model, "block", model).load_state_dict(state, strict=True)  # PaNWaveNet's weights are its block's
         self.model = model.eval().to(self.device)
 
         self.mel_channels = self.preprocess_config["mel_channels"]

@@ -1,4 +1,5 @@
-"""Model factory: only the mbexwn family exists.  `create_registry_model`
+"""Model factory: the mbexwn family (`mbexwn_config`) and WaveGlow
+(`waveglow_config`, models/waveglow.py).  `create_registry_model`
 builds a registry model with config keys overridden and its shipped
 weights.  Either builds the folded (inference) form unless asked for the
 trainable one."""
@@ -11,6 +12,7 @@ from ..compat.params_io import flatten, load_params, params_from_jax
 from ..config import read_config
 from ..ops.conv import fold_weight_norm
 from .pan_wavenet import PaNWaveNet
+from .waveglow import WaveGlow
 
 
 def create_model(hparams, training_config, preprocess_config, name="myWaveGlow", quiet=True, trainable=False, **_):
@@ -21,8 +23,12 @@ def create_model(hparams, training_config, preprocess_config, name="myWaveGlow",
         if trainable:
             model.trainable_()
         return model, False
+    if "waveglow_config" in hparams:
+        if trainable:
+            raise NotImplementedError("create_model: WaveGlow is ported for synthesis only (no trainable form)")
+        return WaveGlow(hparams["waveglow_config"], preprocess_config), False
     raise NotImplementedError(f"create_model::error::unknown config requested {list(hparams.keys())}. "
-                              f"Only mbexwn_config is currently supported.")
+                              f"Only mbexwn_config and waveglow_config are supported.")
 
 
 def create_registry_model(model_id_or_path: str, trainable: bool = False, **mbexwn_overrides) -> PaNWaveNet:

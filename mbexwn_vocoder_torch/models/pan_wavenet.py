@@ -203,6 +203,10 @@ class PaNWaveNet(nn.Module):
     def has_components(self) -> bool:
         return True
 
+    def noise_shape(self, batch: int, T_mel: int):
+        """The shape of `infer`'s `noise` (the noise channel) for a mel of T_mel frames."""
+        return batch, self.block.wn_input_length(T_mel), 1
+
     @exact_fp32()
     def infer(self, spect: torch.Tensor, synth_length: int = 0, F0: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,

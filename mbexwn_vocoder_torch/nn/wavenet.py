@@ -4,17 +4,20 @@ Counterpart of the JAX package's nn/wavenet.py (`WaveNetAE`,
 `WaveNetAEBlock`).  The start, pre-conditioning, conditioning, end and
 up/down convs are plain `F.conv1d`.  The dilated gated stack takes one of
 three routes (`WaveNetAE.route`), by the JAX package's own dispatch rule
-(its nn/wavenet.py:259-284), not as a fallback:
+(its nn/wavenet.py:259-284) widened to per-layer conditioning, not as a
+fallback:
 
 - "k1", the kernel: `ops.wavenet_stack.wavenet_stack`, the CUDA kernel on a
   CUDA tensor and its plain version on a CPU tensor.  It takes a stack only
-  when all of these hold: one channel group, the conditioning shared by all
-  layers through the sub-pixel + linear upsampling path, kernel size 3, the
-  gtu gate, no tensor-parallel axis and no int8 mode; SAME or CAUSAL taps
-  alike.  This is the route of every registry model.  It has no backward
-  pass (nor has the JAX package's Pallas stack): `stack_weights` raises
-  when grad mode is on and a weight requires grad, and the kernel raises on
-  CUDA tensors that require grad;
+  when all of these hold: one channel group, conditioning (shared by all
+  layers through the sub-pixel + linear upsampling path, or per layer: the
+  JAX package's layer loop takes those), kernel size 3, the gtu gate, no
+  tensor-parallel axis and no int8 mode; SAME or CAUSAL taps alike.  This
+  is the route of every registry model and of WaveGlow's WNs
+  (models/waveglow.py).  It has no backward pass (nor has the JAX
+  package's Pallas stack): `stack_weights` raises when grad mode is on and
+  a weight requires grad, and the kernel raises on CUDA tensors that
+  require grad;
 - "int8", the int8 mode (`MBEXWN_WN_QUANT=int8`, read at call time, as the
   JAX package reads it): every dilated and res/skip conv of a SAME, k=3
   stack is an int8 product (ops/quant.py); the start, end and cond convs
@@ -32,7 +35,9 @@ three routes (`WaveNetAE.route`), by the JAX package's own dispatch rule
 Branches: `n_ch_groups` channel groups (the residual, the cond slab and
 the skip sum split per group; layers `conv1D_{i}g{g}` / `res_skip_{i}g{g}`
 for g > 0), per-layer conditioning (`cond_conv_upsampling=None`: one cond
-conv of 2*C*n_layers channels, one slab a layer and group),
+conv of 2*C*n_layers channels, one slab a layer and group; a 1-wide one
+without pre-cond convs is a product on the channels-last rows, so its
+(B, T, L * 2C) output is the row-major slab K1 reads as it is),
 `pre_cond_layer_channels` (`precond_{i}` convs before the cond conv),
 `disable_conditioning`, any odd kernel size, the gtu/glu/gfu/gsu gates.
 
@@ -61,6 +66,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import Int8Weight, conv1x1_int8_prepared, dilated_conv1d_k3_int8_prepared, wn_quant_mode
@@ -212,7 +218,7 @@ class WaveNetAE(nn.Module):
             return self.frozen_route
         if wn_quant_mode() == "int8" and self.kernel_size == 3 and not self.causal:
             return "int8"
-        if (self.n_ch_groups == 1 and self.shared_cond and self.kernel_size == 3 and self.activation == "gtu"
+        if (self.n_ch_groups == 1 and self.cond is not None and self.kernel_size == 3 and self.activation == "gtu"
                 and self.tp_axis is None):
             return "k1"
         return "layers"
@@ -325,6 +331,10 @@ class WaveNetAE(nn.Module):
         c = spect
         for i in range(self.n_pre_cond):
             c = getattr(self, f"precond_{i}")(c)
+        if self.cond_linup is None and self.n_pre_cond == 0 and self.cond.kernel_size == 1:
+            # a 1-wide per-layer cond conv as a product on the rows: row-major (B, T, L * 2C)
+            bias = self.cond.bias
+            return F.linear(c, self.cond.kernel()[:, :, 0].to(c.dtype), None if bias is None else bias.to(c.dtype))
         c = self.cond(c)
         return c if self.cond_linup is None else self.cond_linup(c)
 
@@ -339,6 +349,8 @@ class WaveNetAE(nn.Module):
             raise RuntimeError(f"conditioning length {cond.shape[1]} != stack length {started.shape[1]}")
         route = self.route()
         if route == "k1":
+            if not self.shared_cond:  # one slab a layer: K1 reads layer i's at column i * 2C of each row
+                cond = cond.unflatten(-1, (self.n_layers, 2 * self.n_channels))
             skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation,
                                  causal=self.causal).to(started.dtype)
         else:

@@ -47,6 +47,9 @@ MODEL_EXCITATION = "mbexwn.model.excitation"  # oscillator, fold to the WaveNet 
 MODEL_WAVENET = "mbexwn.model.wavenet."  # + the block's name: one WaveNet block
 MODEL_POST_PQMF = "mbexwn.model.post_pqmf"  # post net, multiband gains, PQMF synthesis
 MODEL_ENVELOPE = "mbexwn.model.envelope"  # envelope (or multiband gain) subnet, STFT, filter, iSTFT
+WAVEGLOW_UPSAMPLE = "mbexwn.model.waveglow.upsample"  # WaveGlow's upsampler, its trim, the group unfold, the cast
+WAVEGLOW_COUPLING = "mbexwn.model.waveglow.coupling"  # WaveGlow: z, each flow's coupling inverse, W^-1, early z
+# WaveGlow's WNs take MODEL_WAVENET + "flow<k>"
 
 _NO_SPAN = contextlib.nullcontext()
 # a span's range: an op-scope record (a host event, like an aten op's).  A
@@ -228,7 +231,9 @@ def synthesis_flops(model, T_mel: int = 1, batch: int = 1) -> Dict:
     """Analytic FLOP count per synthesis call, the JAX package's
     `synthesis_flops` (the same terms and numbers): subnets, WaveNet stacks,
     post net, PQMF, the oscillator's tent cross-fade and the rDFTs of the
-    envelope and the STFT/iSTFT."""
+    envelope and the STFT/iSTFT.  A WaveGlow model: `waveglow_flops`."""
+    if not hasattr(model, "block"):
+        return waveglow_flops(model, T_mel, batch)
     blk = model.block
     hop = blk.spect_hop_size
     t12k = T_mel * blk.spect_to_pulse_upsampling_factor
@@ -284,3 +289,27 @@ def synthesis_flops(model, T_mel: int = 1, batch: int = 1) -> Dict:
         "flops_per_audio_second": total / audio_seconds,
         "breakdown": {k: batch * v for k, v in breakdown.items()},
     }
+
+
+def waveglow_flops(model, T_mel: int = 1, batch: int = 1) -> Dict:
+    """Analytic FLOP count of one WaveGlow synthesis (models/waveglow.py),
+    2 per multiply-add: the transposed-conv upsampler (every input frame
+    against the whole kernel), and per flow at T_mel * hop / n_group rows its
+    WN (start, the 1-wide per-layer cond conv, 16 C^2 a row and layer and
+    14 C^2 for the skip-only last, end), the coupling's subtract, exp and
+    divide (3 a row and channel) and W^-1."""
+    G, hop = model.n_group, model.spect_hop_size
+    rows = T_mel * hop // G
+    up = model.upsample
+    breakdown = {"upsample": 2 * T_mel * up.weight.shape[0] * up.weight.shape[1] * up.kernel_size,
+                 "wavenet_layers": 0, "wavenet_cond": 0, "wavenet_start_end": 0, "coupling": 0}
+    for wn, inv in zip(model.WN, model.convinv):
+        C, L, h = wn.n_channels, wn.n_layers, wn.end.filters // 2
+        breakdown["wavenet_layers"] += rows * C * C * (16 * (L - 1) + 14)
+        breakdown["wavenet_cond"] += 2 * rows * wn.cond.in_channels * wn.cond.filters
+        breakdown["wavenet_start_end"] += 2 * rows * h * C + 2 * rows * C * 2 * h
+        c = inv.weight.shape[0]
+        breakdown["coupling"] += 3 * rows * h + 2 * rows * c * c
+    total = batch * sum(breakdown.values())
+    return {"flops_per_call": total, "flops_per_audio_second": total / (batch * T_mel * hop / model.sample_rate),
+            "breakdown": {k: batch * v for k, v in breakdown.items()}}

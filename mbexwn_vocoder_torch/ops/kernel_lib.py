@@ -44,8 +44,8 @@ _SIGNATURES = {
     "mbexwn_wavenet_layer": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, n_layers, x_buf0, x_buf1, cond, per-layer pointer arrays w_dil, b_dil,
     # w_rs, b_rs, int arrays dilations and skip_only, weight tensor maps (host,
-    # bf16 only), skip, B, T, C, Cp, Ch, causal, stream
-    "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # bf16 only), skip, B, T, C, Cp, Ch, per-layer cond, causal, stream
+    "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # out (host, 2 x 128 bytes), w_dil, w_rs, C, Cp, rows of w_rs
     "mbexwn_wavenet_weight_maps": [_P, _P, _P, _I, _I, _I],
     # f0, tables, phase_offset (or null), out, phase out (or null), chunk scratch,

@@ -1,10 +1,14 @@
 """The dilated gated WaveNet stack: per layer
-    y  = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b + cond        (C -> 2C; SAME)
-    y  = x[t-2d] W0 + x[t-d] W1 + x[t] W2 + b + cond       (C -> 2C; causal)
+    y  = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b + cond_i      (C -> 2C; SAME)
+    y  = x[t-2d] W0 + x[t-d] W1 + x[t] W2 + b + cond_i     (C -> 2C; causal)
     g  = tanh(y[:C]) * sigmoid(y[C:])
     rs = g W_rs + b_rs                                      (C -> 2C)
     x <- x + rs[:C]  (zero outside [0, T)),   skip += rs[C:]
-with a skip-only last layer (W_rs is C -> C).
+with a skip-only last layer (W_rs is C -> C).  cond_i is one slab shared by
+every layer, cond (B, T, 2C), or layer i's own, cond[:, :, i] of a per-layer
+cond (B, T, L, 2C): a per-layer cond conv's channels-last output viewed with
+a layer axis (WaveGlow's WN), which the kernel reads in place, each layer's
+rows L x 2C apart.
 
 Counterpart of the JAX package's ops/pallas_wavenet.py
 (`fused_wavenet_stack`).  `wavenet_stack` is the entry point: on a CUDA
@@ -194,10 +198,11 @@ def gate(activation: str, half_act: torch.Tensor, half_sigmoid: torch.Tensor) ->
 
 def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
                         dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
-    """(B, T, C) x, (B, T, 2C) cond -> (B, T, C) fp32 skip sum, in plain PyTorch
-    (fp32 products of the operand-dtype values); `causal` shifts the taps to
-    t-2d, t-d, t (the pad goes left).  Takes the layers as listed
-    in the module docstring or packed, and x with C or Cp columns: it reads
+    """(B, T, C) x, (B, T, 2C) or per-layer (B, T, L, 2C) cond -> (B, T, C) fp32
+    skip sum, in plain PyTorch (fp32 products of the operand-dtype values);
+    `causal` shifts the taps to t-2d, t-d, t (the pad goes left).  Takes the
+    layers as listed in the module docstring or packed, and x with C or Cp
+    columns: it reads
     the first C columns of x and of the weights' reduction dimension only, so
     padded and unpadded operands go through the very same arithmetic (the pad
     is zero by contract; the kernel multiplies it, the tests check it)."""
@@ -208,13 +213,16 @@ def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: Stac
         raise ValueError(f"wavenet_stack_plain: x has {x.shape[-1]} columns, cond implies C={C}")
     x = x[..., :C]
     dtype = x.dtype
-    cond32 = cond.float()
+    per_layer = cond.dim() == 4
+    if per_layer and cond.shape[2] != len(layers):
+        raise ValueError(f"wavenet_stack_plain: a per-layer cond of {cond.shape[2]} slabs for {len(layers)} layers")
+    cond32 = None if per_layer else cond.float()
     skip = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
-    for (wd, bd, wr, br), d in zip(layers, dils):
+    for i, ((wd, bd, wr, br), d) in enumerate(zip(layers, dils)):
         xp = F.pad(x.float(), (0, 0, 2 * d, 0) if causal else (0, 0, d, d))
         wd = wd[..., :C].float()
         y = (xp[:, :T] @ wd[:, 0].t() + xp[:, d : d + T] @ wd[:, 1].t() + xp[:, 2 * d : 2 * d + T] @ wd[:, 2].t()
-             + bd.float() + cond32)
+             + bd.float() + (cond[:, :, i].float() if per_layer else cond32))
         g = gate(activation, y[..., :C], y[..., C:]).to(dtype)
         rs = g.float() @ wr[..., :C].float().t() + br.float()
         if rs.shape[-1] == 2 * C:
@@ -226,16 +234,17 @@ def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: Stac
 
 
 def _kernel_cond(cond: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """cond (B, T, 2C) as the kernel reads it, and the distance Ch between its
-    halves.  The bf16 kernel fetches each half with TMA, whose boxes start on
-    16-byte boundaries: where C is not a multiple of 8 (VOICE's 340) the
-    halves are copied to columns 0 and Ch = C rounded up to 8, zeros between.
-    fp32, and bf16 at a multiple of 8 (SPEECH's 320), take cond as it is."""
-    B, T, C2 = cond.shape
-    C = C2 // 2
+    """cond (B, T, 2C) or per-layer (B, T, L, 2C) as the kernel reads it, and
+    the distance Ch between a slab's halves.  The bf16 kernel fetches each
+    half with TMA, whose boxes start on 16-byte boundaries: where C is not a
+    multiple of 8 (VOICE's 340) the halves are copied to columns 0 and Ch = C
+    rounded up to 8, zeros between.  fp32, and bf16 at a multiple of 8
+    (SPEECH's 320, WaveGlow's 256), take cond as it is (a copy only if its
+    rows are not contiguous)."""
+    lead, C = cond.shape[:-1], cond.shape[-1] // 2
     Ch = C if cond.dtype != torch.bfloat16 else -(-C // 8) * 8
     if Ch != C:
-        cond = F.pad(cond.reshape(B, T, 2, C), (0, Ch - C)).view(B, T, 2 * Ch)
+        cond = F.pad(cond.reshape(*lead, 2, C), (0, Ch - C)).view(*lead, 2 * Ch)
     return cond.contiguous(), Ch
 
 
@@ -291,8 +300,8 @@ def wavenet_layer(x_in: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b
 
 def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
                   dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
-    """(B, T, C) x and (B, T, 2C) cond in the operand dtype (fp32 or bf16),
-    weights as listed in the module docstring or packed by
+    """(B, T, C) x and (B, T, 2C) or per-layer (B, T, L, 2C) cond in the operand
+    dtype (fp32 or bf16), weights as listed in the module docstring or packed by
     `pack_stack_weights` (a list is packed first) -> (B, T, C) fp32 skip
     sum; `causal` selects the taps t-2d, t-d, t in place of t-d, t, t+d.
     Calls the op `mbexwn::wavenet_stack`: on CUDA tensors the kernel: x is
@@ -349,7 +358,9 @@ def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
                               ((n, 2 * C, 3, Cp), (n, 2 * C), (n, 2 * C, Cp), (n, 2 * C))):
         _check_operand("wavenet_stack", f"{name} (the stacked kernel layout: pack_stack_weights)", t, shape,
                        x.dtype, x.device)
-    _check_operand("wavenet_stack", "cond", cond, (B, T, 2 * C), x.dtype, x.device, contiguous=False)
+    per_layer = cond.dim() == 4
+    _check_operand("wavenet_stack", "cond", cond, (B, T, n, 2 * C) if per_layer else (B, T, 2 * C), x.dtype, x.device,
+                   contiguous=False)
     skip = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
         return skip
@@ -362,6 +373,6 @@ def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
     count = kernel_lib.library().mbexwn_wavenet_stack(
         _KERNEL_DTYPES[x.dtype], n, bufs[0].data_ptr(), bufs[1].data_ptr(), cond.data_ptr(), *ptrs,
         (ctypes.c_int * n)(*[int(d) for d in dils]), flags, None if maps is None else maps.data_ptr(),
-        skip.data_ptr(), B, T, C, Cp, Ch, int(causal), torch.cuda.current_stream(x.device).cuda_stream)
+        skip.data_ptr(), B, T, C, Cp, Ch, int(per_layer), int(causal), torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(count, "wavenet_layer")
     return skip

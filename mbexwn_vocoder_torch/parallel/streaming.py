@@ -159,6 +159,10 @@ class StreamingSynthesizer:
         data rows; everything else runs on its first row (`device` is then
         not read).  Each row's replica is placed on the row's model devices,
         as the JAX package constrains only the chunk batch, over "data"."""
+        if not getattr(model, "streamable", True):
+            raise ValueError(f"StreamingSynthesizer: a {type(model).__name__} model has no chunked form (it is "
+                             "non-causal and carries no state from chunk to chunk); synthesise it whole with "
+                             "MELInverter or serving.PipelinedSynthesizer")
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)

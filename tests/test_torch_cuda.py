@@ -40,7 +40,13 @@ route of the WaveNet stack: the branches the kernel does not take (gates
 glu/gfu/gsu, channel groups, kernel size 5) synthesise on the card as on
 the CPU without a K1 launch; tensor parallelism over a model axis of the
 one card equals the unsharded model; the int8 products at the registry
-widths are exact and the int8 mode equals the CPU's.
+widths are exact and the int8 mode equals the CPU's.  Per-layer
+conditioning (WaveGlow's WN: C=256, 8 layers, dilations 2^i): K1 with a
+(B, T, L, 2C) cond against the plain version at batch 1 and 8 of a
+1024-frame bucket (bf16 2e-2, fp32 1e-4); a per-layer cond whose slabs are
+all equal gives the shared call's output bit for bit (C = 256, 320, 340);
+WaveGlow at its published widths synthesises with 96 K1 launches, its
+fp32 synthesis within 1e-4 of the plain reference's on the card.
 """
 import re
 
@@ -819,3 +825,61 @@ def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
     assert {k: tensor.counts[k] - before[k] for k in before} == {"reduce_add": 8, "max_reduce": 8}
     rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
     assert counts == {"wavenet_layer": 0, "oscillator": 1} and rel <= 2e-2, (counts, rel)
+
+
+WAVEGLOW_DILS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _per_layer_case(C, B, T, dils, dtype, device, seed=0):
+    x, _, weights = _case(C, B, T, dils, dtype, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    cond = (torch.randn(B, T, len(dils), 2 * C, generator=g) * 0.2).to(device, dtype)
+    return x, cond, weights
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", [1, 8])
+def test_k1_per_layer_cond_at_waveglow_shapes(card, B, dtype, tol):
+    """A WaveGlow WN's stack (C=256, 8 layers) on a 1024-frame bucket: 32,768
+    rows an utterance, a cond slab a layer read in place."""
+    x, cond, weights = _per_layer_case(256, B, 32768, WAVEGLOW_DILS, dtype, card)
+    before = kernel_lib.launches["wavenet_layer"]
+    with exact_fp32():
+        got = wavenet_stack(x, cond, weights, WAVEGLOW_DILS)
+        ref = wavenet_stack_plain(x, cond, weights, WAVEGLOW_DILS)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before == 8
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert torch.isfinite(got).all() and rel <= tol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,dils", [(256, 1000, WAVEGLOW_DILS), (320, 391, (1, 64, 16, 4)),
+                                      (340, 257, (32, 2, 64))])
+def test_k1_equal_slabs_equal_the_shared_cond(card, C, T, dils, dtype):
+    x, cond, weights = _per_layer_case(C, 2, T, dils, dtype, card, seed=5)
+    shared = cond[:, :, 0].contiguous()
+    same = shared[:, :, None].expand_as(cond).contiguous()
+    assert torch.equal(wavenet_stack(x, same, weights, dils), wavenet_stack(x, shared, weights, dils))
+
+
+def test_waveglow_on_the_card(card, tmp_path, monkeypatch):
+    """The published widths (12 flows x 8-layer WN at C=256), seeded weights:
+    every WN on K1, 96 launches a synthesis; fp32 within 1e-4 of the plain
+    reference on the card."""
+    import chip_smoke
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from tests.waveglow_reference import Reference, write_model_dir
+
+    config = chip_smoke.waveglow_config()
+    path = write_model_dir(config, tmp_path / "waveglow")
+    mel = chip_smoke.make_mel(40, 80, 5)
+    ref = Reference(config, path, card).synth(torch.from_numpy(mel).to(card)).cpu().numpy()[0]
+    monkeypatch.setenv("MBEXWN_WN_DTYPE", "")
+    inv = MELInverter(str(path), device=card, length_buckets=(40,))
+    kernel_lib.reset_launch_counts()
+    y = inv.synth_from_mel(mel)
+    assert [wn.route() for wn in inv.model.WN] == ["k1"] * 12
+    assert kernel_lib.launches["wavenet_layer"] == 96
+    rel = float(np.sqrt(np.mean((y - ref) ** 2) / np.mean(ref ** 2)))
+    assert rel <= 1e-4, rel

@@ -293,15 +293,16 @@ def test_pp_subnet_training_only_builds_the_f0_subnet_alone():
 
 def test_unported_wavenet_branches_raise():
     """Per-layer conditioning and kernel size 5 were refused before they
-    were ported; they now build and synthesise (on the layer loop), and
-    so does a model with channel groups (tests/test_torch_wavenet_branches.py
-    holds them against JAX).  An even kernel size is refused, as in JAX."""
+    were ported; they now build and synthesise (per-layer conditioning on
+    K1's route, kernel size 5 on the layer loop), and so does a model with
+    channel groups (tests/test_torch_wavenet_branches.py holds them against
+    JAX).  An even kernel size is refused, as in JAX."""
     base = dict(n_channels=8, n_out_channels=4, cond_conv_upsampling=2, cond_lin_upsampling=2)
-    for kw, T_mel in ((dict(cond_conv_upsampling=None), 16), (dict(kernel_size=5), 4)):
+    for kw, T_mel, route in ((dict(cond_conv_upsampling=None), 16, "k1"), (dict(kernel_size=5), 4, "layers")):
         net = WaveNetAE(3, 5, **{**base, **kw})
         with torch.no_grad():
             y = net(torch.randn(1, 16, 3), torch.randn(1, T_mel, 5))
-        assert net.route() == "layers" and y.shape == (1, 16, 4) and bool(y.isfinite().all())
+        assert net.route() == route and y.shape == (1, 16, 4) and bool(y.isfinite().all())
     with pytest.raises(ValueError, match="odd"):
         WaveNetAE(3, 5, **{**base, "kernel_size": 4})
     hp = copy.deepcopy(_speech_hparams())

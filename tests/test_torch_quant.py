@@ -201,14 +201,15 @@ def test_int8_weights_are_cached_and_refuse_grad(monkeypatch):
 
 def test_causal_stack_is_not_quantized(monkeypatch):
     """As in JAX, the mode quantizes SAME stacks only: a CAUSAL stack keeps
-    its route and its output."""
+    its route (K1's: one group, per-layer conditioning, k=3, gtu) and its
+    output."""
     _, _, tnet, audio, mel = _jax_and_port_wavenet(padding="CAUSAL")
     monkeypatch.delenv("MBEXWN_WN_QUANT", raising=False)
     with torch.no_grad():
         y = tnet(torch.from_numpy(audio), torch.from_numpy(mel))
         monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
         before = quant.int_mm_calls
-        assert tnet.route() == "layers"
+        assert tnet.route() == "k1"
         assert torch.equal(tnet(torch.from_numpy(audio), torch.from_numpy(mel)), y)
         assert quant.int_mm_calls == before
 

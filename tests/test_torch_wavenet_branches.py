@@ -100,8 +100,8 @@ def test_branch_matches_jax(branch, no_kernel_build):
     jnet, params, tnet = _pair(branch)
     audio, mel = _inputs(_kw(branch), 1)
     ref = np.asarray(jnet(params, (jnp.asarray(audio), jnp.asarray(mel))))
-    # pre-cond layers before a shared slab leave the stack to the kernel (its plain version here)
-    assert tnet.route() == ("k1" if branch == "pre-cond-shared" else "layers")
+    # one group, k=3 and gtu leave the stack to the kernel (its plain version here), whatever the conditioning
+    assert tnet.route() == ("k1" if branch in ("pre-cond-shared", "per-layer", "pre-cond-per-layer") else "layers")
     with torch.no_grad():
         got = tnet(torch.from_numpy(audio), torch.from_numpy(mel)).numpy()
         tnet.differentiable = True
@@ -112,14 +112,19 @@ def test_branch_matches_jax(branch, no_kernel_build):
 
 
 def test_only_the_kernel_configuration_takes_the_kernel(monkeypatch):
-    """The JAX package's rule: one group, shared upsampled conditioning,
-    k=3, gtu and no tp axis take the kernel (SAME or CAUSAL); the int8 mode
-    takes a SAME k=3 stack ahead of it; the rest run the layer loop."""
+    """The JAX package's rule widened to per-layer conditioning: one group,
+    conditioning (shared upsampled or per layer), k=3, gtu and no tp axis
+    take the kernel (SAME or CAUSAL), and such a stack can be frozen; the
+    int8 mode takes a SAME k=3 stack ahead of it; the rest run the layer
+    loop."""
     monkeypatch.delenv("MBEXWN_WN_QUANT", raising=False)
     base = dict(n_channels=8, n_out_channels=4, cond_conv_upsampling=1)
     assert WaveNetAE(3, 5, **base).route() == "k1"
     assert WaveNetAE(3, 5, padding="CAUSAL", **base).route() == "k1"
-    for kw in (dict(n_ch_groups=2), dict(cond_conv_upsampling=None), dict(kernel_size=5), dict(activation="glu"),
+    per_layer = WaveNetAE(3, 5, **{**base, "cond_conv_upsampling": None})
+    assert per_layer.route() == "k1"
+    assert per_layer.freeze_stack_(torch.float32).route() == "k1"
+    for kw in (dict(n_ch_groups=2), dict(kernel_size=5), dict(activation="glu"),
                dict(tp_axis="model"), dict(disable_conditioning=True)):
         net = WaveNetAE(3, 5, **{**base, **kw})
         assert net.route() == "layers", kw
