@@ -9,11 +9,13 @@ prints no result line:
   2. K1 (wavenet_layer) against its plain PyTorch version on the card, with
      the registry weights of SPEECH (C=320) and VOICE (C=340), at both shapes
      the main path gives it at 512 mel frames: WaveNet block 0 (12,800 rows)
-     and block 1 (25,600 rows).  fp32 with TF32 off, rel-RMS <= 1e-4
-     (summation order only); bf16, rel-RMS <= 2e-2 (bf16 rounding of x and
-     of the gated activation at other points).  Then a batched, ragged case
-     in bf16: VOICE block 0's inputs stretched to T = 12,837 (not a multiple
-     of the 128-row tile) and stacked with their time reversal to B = 2;
+     and block 1 (25,600 rows), with the cond as the main path hands it to
+     K1: at the frame rate, with its upsampling factor U = 25.  fp32 with
+     TF32 off, rel-RMS <= 1e-4 (summation order only); bf16, rel-RMS <= 2e-2
+     (bf16 rounding of x and of the gated activation at other points).  Then
+     a batched, ragged case in bf16: VOICE block 0's inputs two frames longer,
+     T = 12,850 (not a multiple of the 128-row tile), and stacked with their
+     time reversal to B = 2;
   3. K2, the whole oscillator stage (F0 -> phase -> lookup -> cross-fade) in
      one launch, against its plain version on the card: (a) SPEECH's tables,
      B=1, T=76,800, F0 sweeping 40-600 Hz; (b) B=3, T=12,345 (no multiple of
@@ -317,7 +319,8 @@ def stack_inputs(model, mel: np.ndarray, block_index: int, dtype, dev):
     """The real inputs of WaveNet block `block_index`'s stack in `model` (a
     PaNWaveNet) for a (B, T, C) log-mel at its bucket length, with the noise
     the model draws (a generator seeded 0): (x, cond, weights, dilations, the
-    F0 that enters the oscillator)."""
+    F0 that enters the oscillator, U), cond and U as the block hands them to
+    K1: the frame-rate cond and its upsampling factor (`WaveNetAE.forward`)."""
     import torch
     from mbexwn_vocoder_torch.ops.precision import exact_fp32
 
@@ -333,8 +336,8 @@ def stack_inputs(model, mel: np.ndarray, block_index: int, dtype, dev):
             x = getattr(blk, name)(x, mell)
         wn = getattr(blk, blk.block_names[block_index]).wavenet
         started = wn.start(x.to(dtype))
-        cond = wn.cond_linup(wn.cond(mell.to(dtype))).contiguous()
-        return started, cond, wn.stack_weights(dtype), wn.dilations, f0
+        cond = wn.conditioning(mell.to(dtype), frame_rate=True).contiguous()
+        return started, cond, wn.stack_weights(dtype), wn.dilations, f0, wn.cond_upsampling()
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -519,9 +522,10 @@ def phase_serving(inverter, check, dev):
         outputs[mode] = serve(mode)
         counts = dict(kernel_lib.launches)
         groups = len(requests) if ps is None else ps.groups
-        check(counts == {"wavenet_layer": n_layers * groups, "oscillator": groups},
+        check(counts == {"wavenet_layer": n_layers * groups, "oscillator": groups,
+                         "wavenet_cond_upsampled": 2 * groups},
               f"{mode}: launches {counts} in {groups} dispatch groups (expected per group wavenet_layer="
-              f"{n_layers}, oscillator=1)")
+              f"{n_layers}, oscillator=1, wavenet_cond_upsampled=2)")
         check(all(y.shape == (m.shape[1] * inv.hop_size,) and np.isfinite(y).all()
                   for y, m in zip(outputs[mode], requests)), f"{mode}: every request finite and of its length")
         with warnings.catch_warnings(record=True) as caught:
@@ -617,10 +621,10 @@ def phase_serving(inverter, check, dev):
         for requests, T_pad in cases:
             xb = np.concatenate([edge_pad(m, T_pad) for m in requests])
             for bi in range(len(blk_x.block_names)):
-                x, cond, weights, dils, f0 = stack_inputs(inv_x.model, xb, bi, dtype, dev)
+                x, cond, weights, dils, f0, U = stack_inputs(inv_x.model, xb, bi, dtype, dev)
                 with torch.inference_mode(), exact_fp32():
-                    g = wavenet_stack(x, cond, weights, dils).cpu().numpy()
-                    r = wavenet_stack_plain(x, cond, weights, dils).cpu().numpy()
+                    g = wavenet_stack(x, cond, weights, dils, cond_upsampling=U).cpu().numpy()
+                    r = wavenet_stack_plain(x, cond, weights, dils, cond_upsampling=U).cpu().numpy()
                 err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
                 if dtype == torch.bfloat16:
                     k1_max_abs = max(k1_max_abs, max_abs)
@@ -693,11 +697,11 @@ def recording_k1(store: dict):
 
     real = wn_module.wavenet_stack
 
-    def recording(x, cond, weights, dils, activation="gtu", causal=False):
+    def recording(x, cond, weights, dils, activation="gtu", causal=False, cond_upsampling=1):
         key = (tuple(x.shape), str(x.dtype)[6:], bool(causal))
         if key not in store:
-            store[key] = (x.clone(), cond.clone(), weights, tuple(dils), activation)
-        return real(x, cond, weights, dils, activation, causal=causal)
+            store[key] = (x.clone(), cond.clone(), weights, tuple(dils), activation, cond_upsampling)
+        return real(x, cond, weights, dils, activation, causal=causal, cond_upsampling=cond_upsampling)
 
     wn_module.wavenet_stack = recording
     try:
@@ -716,10 +720,10 @@ def hold_k1(store: dict, plain, check, what: str):
     from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack
 
     rows, bad = [], []
-    for (shape, dtype, causal), (x, cond, weights, dils, activation) in sorted(store.items()):
+    for (shape, dtype, causal), (x, cond, weights, dils, activation, U) in sorted(store.items()):
         with torch.inference_mode(), exact_fp32():
-            g = wavenet_stack(x, cond, weights, dils, activation, causal=causal).cpu().numpy()
-            r = plain(x, cond, weights, dils, activation, causal).cpu().numpy()
+            g = wavenet_stack(x, cond, weights, dils, activation, causal=causal, cond_upsampling=U).cpu().numpy()
+            r = plain(x, cond, weights, dils, activation, causal, U).cpu().numpy()
         err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
         rows.append({"B": shape[0], "rows": shape[1], "C": shape[2], "dtype": dtype, "causal": causal,
                      "rel_rms": err, "max_abs": max_abs})
@@ -774,10 +778,10 @@ def phase_streaming(inverter, check, dev):
              for dtype in (torch.float32, torch.bfloat16)] + [(voice_c32, "VOICE", N_FRAMES, 0, torch.bfloat16)]
     for model, name, frames, bi, dtype in cases:
         check(getattr(model.block, model.block.block_names[bi]).wavenet.causal, f"{name} block {bi} is causal")
-        x, cond, weights, dils, _ = stack_inputs(model, make_mel(frames, 80, SEED + 30), bi, dtype, dev)
+        x, cond, weights, dils, _, U = stack_inputs(model, make_mel(frames, 80, SEED + 30), bi, dtype, dev)
         with torch.inference_mode(), exact_fp32():
-            g = ws.wavenet_stack(x, cond, weights, dils, causal=True).cpu().numpy()
-            r = ws.wavenet_stack_plain(x, cond, weights, dils, causal=True).cpu().numpy()
+            g = ws.wavenet_stack(x, cond, weights, dils, causal=True, cond_upsampling=U).cpu().numpy()
+            r = ws.wavenet_stack_plain(x, cond, weights, dils, causal=True, cond_upsampling=U).cpu().numpy()
         err, max_abs = rel_rms(g, r), float(np.max(np.abs(g - r)))
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         if dtype == torch.bfloat16:
@@ -828,10 +832,10 @@ def phase_streaming(inverter, check, dev):
                     y = getattr(ss, mode)(mel_long)
             counts = dict(kernel_lib.launches)
             n = chunk_programs(ss, mode)
-            check(counts == {"wavenet_layer": n_layers * n, "oscillator": n} and np.isfinite(y).all()
-                  and y.shape == (1, LONG_FRAMES * hop),
+            check(counts == {"wavenet_layer": n_layers * n, "oscillator": n, "wavenet_cond_upsampled": 2 * n}
+                  and np.isfinite(y).all() and y.shape == (1, LONG_FRAMES * hop),
                   f"{mode} {what}: finite audio of {LONG_FRAMES * hop} samples; launches {counts} for {n} chunk "
-                  f"programs (expected wavenet_layer {n_layers}, oscillator 1 each)")
+                  f"programs (expected wavenet_layer {n_layers}, oscillator 1, wavenet_cond_upsampled 2 each)")
             return y, counts
 
         for wn_dtype, label, tol in (("", "fp32", 2e-3), (None, "bf16", 2e-2)):
@@ -922,7 +926,7 @@ def phase_streaming(inverter, check, dev):
         walls = {mode: [] for mode in modes}
         for mode in modes:
             getattr(ss, mode)(mel_long)  # warm pass
-        long_launches = {"wavenet_layer": 0, "oscillator": 0}
+        long_launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
         for mode in modes:  # the long-form path as a user runs it: one counted pass per mode
             _, counts = counted(ss, mode, "shipped bf16")
             numbers["long_form"][mode]["launches"] = counts
@@ -981,7 +985,7 @@ def phase_streaming(inverter, check, dev):
         check(len(ss.programs - warmed) <= 1, f"after warm() ({len(warmed)} shapes) stream() ran "
                                               f"{len(ss.programs - warmed)} other chunk shape(s) (<= 1)")
 
-        live_launches = {"wavenet_layer": 0, "oscillator": 0}
+        live_launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
         for c in LIVE_CHUNKS:
             ss = StreamingSynthesizer(live16, chunk_frames=c, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
                                       device=dev)
@@ -1014,9 +1018,11 @@ def phase_streaming(inverter, check, dev):
             eager = len(latencies) - replayed
             row["replayed"] = replayed
             check(replayed == len(latencies) - 1 and
-                  counts == {"wavenet_layer": n_layers * eager, "oscillator": eager},
+                  counts == {"wavenet_layer": n_layers * eager, "oscillator": eager,
+                             "wavenet_cond_upsampled": 2 * eager},
                   f"live chunk {c} bf16: {len(latencies)} chunks, {replayed} replayed a graph (expected all but "
-                  f"the tail), launches {counts} (expected per eager chunk wavenet_layer={n_layers}, oscillator=1)")
+                  f"the tail), launches {counts} (expected per eager chunk wavenet_layer={n_layers}, oscillator=1, "
+                  f"wavenet_cond_upsampled=2)")
             # one steady chunk as stream() emits it (upload, chunk program, readback) under the profiler
             span = mel[:, : LIVE_HALO + c + LIVE_HALO_RIGHT]
             carry = torch.zeros((1,), dtype=torch.float64, device=dev)
@@ -1199,7 +1205,7 @@ def phase_training(check, dev):
         y = y.float().cpu().numpy()[0]
     numbers["trained_synthesis_launches"] = counts
     check(y.shape == (N_FRAMES * blk.spect_hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
           f"(d) the trained model after fold_(), on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
           f"samples), launches {counts} (24 K1 + 1 K2)")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1215,7 +1221,7 @@ def phase_training(check, dev):
     counts = dict(kernel_lib.launches)
     numbers["reloaded_synthesis_launches"] = counts
     check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
           f"(d) the trained model folded, saved (save_params) and loaded by MELInverter on the card: "
           f"{N_FRAMES}-frame synthesis finite ({y.shape[0]} samples), launches {counts} (24 K1 + 1 K2)")
     return numbers
@@ -1248,16 +1254,16 @@ def hold_export_kernels(out: str, check, dev, what: str):
     y = inv.synth_from_mel(mel)
     counts = dict(kernel_lib.launches)
     check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1},
+          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
           f"{what} the export loaded by MELInverter on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
           f"samples), launches {counts} (24 K1 + 1 K2)")
     k1_err = {}
     for block_index in range(len(inv.model.block.block_names)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            x, cond, weights, dils, f0 = stack_inputs(inv.model, mel, block_index, dtype, dev)
+            x, cond, weights, dils, f0, U = stack_inputs(inv.model, mel, block_index, dtype, dev)
             with torch.inference_mode(), exact_fp32():
-                got = wavenet_stack(x, cond, weights, dils).float().cpu().numpy()
-                ref = wavenet_stack_plain(x, cond, weights, dils).float().cpu().numpy()
+                got = wavenet_stack(x, cond, weights, dils, cond_upsampling=U).float().cpu().numpy()
+                ref = wavenet_stack_plain(x, cond, weights, dils, cond_upsampling=U).float().cpu().numpy()
             err = rel_rms(got, ref)
             k1_err[f"block{block_index} {str(dtype)[6:]}"] = {"rel_rms": err,
                                                               "max_abs": float(np.max(np.abs(got - ref)))}
@@ -1655,7 +1661,7 @@ def phase_parallel(inverter, check, dev, serving, streaming, training, cli_run):
     from mbexwn_vocoder_torch.training.synthetic import make_corpus
 
     numbers = {"cards": torch.cuda.device_count()}
-    launches = {"wavenet_layer": 0, "oscillator": 0}
+    launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
     torch.cuda.empty_cache()
 
     # (a) two gloo ranks on one card, the tiny case in fp64
@@ -1954,7 +1960,7 @@ def phase_export(inverter, check, dev, synth_ms: float):
     check(not got["imported_model_modules"],
           f"(a) the loading process ({child_s:.1f} s) imported none of the port's models, nn, config, mel_inverter "
           f"({got['imported_model_modules']})")
-    launches = {"wavenet_layer": 0, "oscillator": 0}
+    launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
     for name, wn_dtype, B in EXPORT_CASES:
         g, tol = got[name], (2e-2 if wn_dtype is None else 1e-5)
         err = rel_rms(outs[name], refs[name])
@@ -1964,7 +1970,7 @@ def phase_export(inverter, check, dev, synth_ms: float):
                              meta=g["meta"])
         for k in launches:
             launches[k] += g["launches"][k]
-        check(g["launches"] == {"wavenet_layer": 24, "oscillator": 1},
+        check(g["launches"] == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
               f"(a) {name}: one call of the loaded artifact launches {g['launches']} (24 K1 + 1 K2)")
         check(outs[name].shape == refs[name].shape and np.isfinite(outs[name]).all() and err <= tol,
               f"(a) {name}: the artifact against {'MELInverter.synth_from_mel' if B == 1 else 'BatchSynthesizer'} "
@@ -2090,7 +2096,7 @@ def phase_observability(inverter, check, dev, synth_ms: float):
 
     inv = inverter("SPEECH", None)
     mel = make_mel(N_FRAMES, 80, SEED)
-    numbers, launches = {}, {"wavenet_layer": 0, "oscillator": 0}
+    numbers, launches = {}, {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
 
     def counted(what, fn):
         torch.cuda.synchronize()
@@ -2100,7 +2106,8 @@ def phase_observability(inverter, check, dev, synth_ms: float):
         counts = dict(kernel_lib.launches)
         for k in launches:
             launches[k] += counts[k]
-        check(counts == {"wavenet_layer": 24, "oscillator": 1}, f"(c) {what}: launches {counts} (24 K1 + 1 K2)")
+        check(counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
+              f"(c) {what}: launches {counts} (24 K1 + 1 K2)")
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2294,7 +2301,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
     from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh
 
-    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0}}
+    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}}
 
     def add_launches(counts):
         for k in numbers["launches"]:
@@ -2325,7 +2332,8 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
         k1_expected = 24 if not edit else 0
         routes = sorted({getattr(blk, n).wavenet.route() for n in blk.block_names})
         row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, routes=routes)
-        check(np.isfinite(y).all() and err <= 1e-3 and counts == {"wavenet_layer": k1_expected, "oscillator": 1},
+        check(np.isfinite(y).all() and err <= 1e-3 and counts == {"wavenet_layer": k1_expected, "oscillator": 1,
+                                                                      "wavenet_cond_upsampled": k1_expected // 12},
               f"(a) SPEECH {name}, random init, fp32 {ROUTE_CPU_FRAMES} frames: card vs CPU rel-RMS {err:.3e} "
               f"(<= 1e-3); route {routes}; launches {counts} (K1 {k1_expected})")
         model16 = branch_model(edit, None, dev)
@@ -2364,7 +2372,8 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
         finite = bool(torch.isfinite(net16(a_full, m_full)).all())
     row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, route=net.route(), bf16_ms_cuda_events=ms,
                rows=rows_full)
-    check(err <= 1e-3 and finite and counts == {"wavenet_layer": net.n_layers, "oscillator": 0},
+    check(err <= 1e-3 and finite
+          and counts == {"wavenet_layer": net.n_layers, "oscillator": 0, "wavenet_cond_upsampled": 0},
           f"(a) standalone WaveNetAE C=320 with per-layer conditioning ({net.cond.filters} cond channels), fp32 "
           f"{rows_cpu} rows: card vs CPU rel-RMS {err:.3e} (<= 1e-3); route {net.route()}; launches {counts}; "
           f"bf16 {rows_full} rows (block 0 of a {N_FRAMES}-frame synthesis): {ms:.2f} ms (CUDA events)")
@@ -2395,7 +2404,8 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
             err = max(rel_rms(y, r) for y, r in zip(got, ref))
             n_layers = sum(wn.n_layers for wn in stacks)
             check(all(np.isfinite(y).all() for y in got) and err <= tol
-                  and counts == {"wavenet_layer": 0, "oscillator": 1} and reduces == [2] * n_layers
+                  and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
+                  and reduces == [2] * n_layers
                   and all(wn.tp_devices == (dev, dev) for wn in stacks),
                   f"(b) tensor parallel {label}, BatchSynthesizer batch {TP_BATCH}, {N_FRAMES} frames, channels "
                   f"split over cuda:0 twice: rel-RMS against the same model unsharded {err:.3e} (<= {tol:g}); "
@@ -2520,7 +2530,8 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
                 "ms_host_bf16": float(np.median(walls["bf16"])), "ms_host_int8_passes": walls["int8"],
                 "ms_host_bf16_passes": walls["bf16"]}
             check(y8.shape == y16.shape and np.isfinite(y8).all() and err_cpu <= 2e-2 and err_bf16 > 1e-3
-                  and n_mm == 2 * 12 * 2 and counts == {"wavenet_layer": 0, "oscillator": 1},
+                  and n_mm == 2 * 12 * 2
+                  and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0},
                   f"(c) int8 SPEECH batch {B}, {N_FRAMES} frames: each of its {len(layer_errs)} int8 layers against "
                   f"the CPU's on the same inputs, worst rel-RMS {err_cpu:.3e} (<= 2e-2); the synthesis vs card bf16 "
                   f"{err_bf16:.3e} (> 1e-3); torch._int_mm calls {n_mm} "
@@ -2581,7 +2592,8 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
                                 "launches": g["launches"], "int_mm_nodes": targets.count("aten._int_mm.default"),
                                 "rel_rms_vs_direct_int8": err, "rel_rms_vs_bf16": err_bf16, "bit_equal": bit_equal,
                                 "ms_cuda_events": g["ms_cuda_events"], "meta_wn_quant": g["meta"].get("wn_quant")}
-    check(not got["imported_model_modules"] and g["launches"] == {"wavenet_layer": 0, "oscillator": 1}
+    check(not got["imported_model_modules"]
+          and g["launches"] == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
           and targets.count("aten._int_mm.default") == 48 and g["meta"].get("wn_quant") == "int8"
           and (bit_equal or (err < 1e-2 and err < 0.1 * err_bf16)),
           f"(d) int8 artifact, batch 1 (export {export_s:.1f} s, {len(blob)} bytes, "
@@ -2701,7 +2713,7 @@ def phase_branches(check, dev, synth_ms: float):
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
     from mbexwn_vocoder_torch.training.parity import card_against_cpu
 
-    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0}}
+    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}}
 
     def add_launches(counts):
         for k in numbers["launches"]:
@@ -2734,7 +2746,8 @@ def phase_branches(check, dev, synth_ms: float):
         add_launches(counts)
         y = y.cpu().numpy()
         err = rel_rms(y, y_cpu)
-        expected = {"wavenet_layer": 24, "oscillator": 0 if name == "use_sinusoid_as_fun" else 1}
+        expected = {"wavenet_layer": 24, "oscillator": 0 if name == "use_sinusoid_as_fun" else 1,
+                    "wavenet_cond_upsampled": 2}
         row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts,
                    routes=sorted({getattr(blk, n).wavenet.route() for n in blk.block_names}))
         check(y.shape == y_cpu.shape and np.isfinite(y).all() and err <= 1e-4 and counts == expected,
@@ -2790,7 +2803,7 @@ def phase_branches(check, dev, synth_ms: float):
                 torch.cuda.synchronize()
             counts = dict(kernel_lib.launches)
             add_launches(counts)
-            check(counts == {"wavenet_layer": 0, "oscillator": 1} and held[1] is None
+            check(counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and held[1] is None
                   and bool(torch.isfinite(held[0]).all()),
                   f"(b) oscillate_with_pulse_gains ({'average' if avg else 'hold'}, return_gain, a None entry), "
                   f"{f0.shape[1]} samples: launches {counts} (one K2 for the pulse and its phase)")
@@ -2869,7 +2882,7 @@ def phase_branches(check, dev, synth_ms: float):
                                               "collectives": collectives, "chunk_groups": n_groups,
                                               "launches_per_device": {str(dev): counts}}
             check(got.shape == ref.shape and np.isfinite(got).all() and err <= tol
-                  and counts == {"wavenet_layer": 0, "oscillator": n_groups}
+                  and counts == {"wavenet_layer": 0, "oscillator": n_groups, "wavenet_cond_upsampled": 0}
                   and collectives == {"reduce_add": n_groups * n_layers, "max_reduce": 0}
                   and all(wn.tp_devices == (dev, dev) for wn in stacks),
                   f"(c) streaming synth_batched {label}, {LONG_FORM_FRAMES} frames (chunk {LONG_FORM_CHUNK}, halo "
@@ -2926,7 +2939,7 @@ def phase_branches(check, dev, synth_ms: float):
                               "ms_cuda_events": ms}
         check(len(layer_errs) == n_layers and max(layer_errs) <= 2e-3 and np.isfinite(y_tp).all()
               and n_mm == 2 * 2 * n_layers and collectives == {"reduce_add": n_layers, "max_reduce": n_layers}
-              and counts == {"wavenet_layer": 0, "oscillator": 1},
+              and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0},
               f"(d) int8 under tensor parallelism, SPEECH shipped bf16 batch 1, {N_FRAMES} frames, cuda:0 twice: "
               f"each of its {len(layer_errs)} sharded int8 layers against the unsharded int8 layer on the same "
               f"inputs, worst rel-RMS {max(layer_errs):.3e} (<= 2e-3); the whole synthesis against unsharded int8 "
@@ -3002,7 +3015,8 @@ def phase_waveglow(check, dev):
             out[f"{name}_rel_rms_vs_reference"], out[f"{name}_launches"] = err, counts
             n_wn = sum(wn.n_layers for wn in inv.model.WN)
             routes = sorted({wn.route() for wn in inv.model.WN})
-            check(routes == ["k1"] and counts == {"wavenet_layer": n_wn, "oscillator": 0} and np.isfinite(y).all()
+            check(routes == ["k1"] and counts == {"wavenet_layer": n_wn, "oscillator": 0, "wavenet_cond_upsampled": 0}
+                  and np.isfinite(y).all()
                   and (err <= 1e-4 if name == "fp32" else err <= 0.05),
                   f"(a) WaveGlow {name} 64 frames: routes {routes}, launches {counts} (expected {n_wn}), rel-RMS "
                   f"{err:.3e} against the fp32 reference on the card (<= {1e-4 if name == 'fp32' else 0.05:g})")
@@ -3151,36 +3165,37 @@ def main() -> int:
         return inverters[key]
 
     # ---- 2. K1 vs plain
-    print("[2] K1 wavenet_layer vs plain (blocks 0 and 1, 512 frames)", flush=True)
+    print("[2] K1 wavenet_layer vs plain (blocks 0 and 1, 512 frames, the frame-rate cond)", flush=True)
     k1_err = {}
     for model_id in ("SPEECH", "VOICE"):
         inv = inverter(model_id, "")
         for block_index in range(len(inv.model.block.block_names)):
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                x, cond, weights, dils, _ = stack_inputs(inv.model, mel, block_index, dtype, dev)
+                x, cond, weights, dils, _, U = stack_inputs(inv.model, mel, block_index, dtype, dev)
                 with torch.inference_mode(), exact_fp32():
-                    got = wavenet_stack(x, cond, weights, dils)
-                    ref = wavenet_stack_plain(x, cond, weights, dils)
+                    got = wavenet_stack(x, cond, weights, dils, cond_upsampling=U)
+                    ref = wavenet_stack_plain(x, cond, weights, dils, cond_upsampling=U)
                     torch.cuda.synchronize()
                 g, r = got.cpu().numpy(), ref.cpu().numpy()
                 err = rel_rms(g, r)
                 max_abs = k1_err[(model_id, block_index, dtype)] = float(np.max(np.abs(g - r)))
                 check(np.isfinite(g).all() and err <= tol,
-                      f"K1 {model_id} block {block_index} C={x.shape[-1]} rows={x.shape[1]} {str(dtype)[6:]}: "
+                      f"K1 {model_id} block {block_index} C={x.shape[-1]} rows={x.shape[1]} U={U} {str(dtype)[6:]}: "
                       f"rel-RMS {err:.3e} (<= {tol:g}), max abs {max_abs:.3e}")
     inv = inverter("VOICE", "")
-    x, cond, weights, dils, _ = stack_inputs(inv.model, mel, 0, torch.bfloat16, dev)
+    x, cond, weights, dils, _, U = stack_inputs(inv.model, mel, 0, torch.bfloat16, dev)
     with torch.inference_mode(), exact_fp32():
-        x2 = torch.cat([x, x[:, :37]], dim=1)
-        c2 = torch.cat([cond, cond[:, :37]], dim=1)
+        # two frames more (rows not a multiple of K1's 128-row tile), and a second utterance
+        x2 = torch.cat([x, x[:, :2 * U]], dim=1)
+        c2 = torch.cat([cond, cond[:, :2]], dim=1)
         x2, c2 = torch.cat([x2, x2.flip(1)], dim=0).contiguous(), torch.cat([c2, c2.flip(1)], dim=0).contiguous()
-        got = wavenet_stack(x2, c2, weights, dils)
-        ref = wavenet_stack_plain(x2, c2, weights, dils)
+        got = wavenet_stack(x2, c2, weights, dils, cond_upsampling=U)
+        ref = wavenet_stack_plain(x2, c2, weights, dils, cond_upsampling=U)
         torch.cuda.synchronize()
     g, r = got.cpu().numpy(), ref.cpu().numpy()
     err = rel_rms(g, r)
     check(np.isfinite(g).all() and err <= 2e-2,
-          f"K1 VOICE block 0 batched and ragged, B={x2.shape[0]} T={x2.shape[1]} C={x2.shape[2]} bfloat16: "
+          f"K1 VOICE block 0 batched and ragged, B={x2.shape[0]} T={x2.shape[1]} C={x2.shape[2]} U={U} bfloat16: "
           f"rel-RMS {err:.3e} (<= 0.02), max abs {float(np.max(np.abs(g - r))):.3e}")
     # the main path runs bf16: its largest error at any of its shapes
     k1_max_abs = max(e for (_, _, dtype), e in k1_err.items() if dtype == torch.bfloat16)
@@ -3237,8 +3252,9 @@ def main() -> int:
         n_layers = sum(getattr(shipped.model.block, n).wavenet.n_layers for n in shipped.model.block.block_names)
         check(y16.shape == (N_FRAMES * shipped.hop_size,) and bool(np.isfinite(y16).all()),
               f"{model_id} bf16: {y16.shape[0]} finite samples")
-        check(counts == {"wavenet_layer": n_layers, "oscillator": 1},
-              f"{model_id} bf16 launches {counts} (expected wavenet_layer={n_layers}, oscillator=1)")
+        check(counts == {"wavenet_layer": n_layers, "oscillator": 1, "wavenet_cond_upsampled": 2},
+              f"{model_id} bf16 launches {counts} (expected wavenet_layer={n_layers}, oscillator=1, "
+              f"wavenet_cond_upsampled=2)")
         if model_id == "SPEECH":
             main_launches = counts
 
@@ -3248,17 +3264,17 @@ def main() -> int:
     blk = inv.model.block
     k1_ms = k1_plain_ms = k1_flop = k1_bytes = 0.0
     for bi in range(len(blk.block_names)):
-        x, cond, weights, dils, _ = stack_inputs(inv.model, mel, bi, torch.bfloat16, dev)
+        x, cond, weights, dils, _, U = stack_inputs(inv.model, mel, bi, torch.bfloat16, dev)
         B, T, C = x.shape
         with torch.inference_mode(), exact_fp32():
-            ms = cuda_time_ms(lambda: wavenet_stack(x, cond, weights, dils), iters=10)
-            pms = cuda_time_ms(lambda: wavenet_stack_plain(x, cond, weights, dils), iters=5)
+            ms = cuda_time_ms(lambda: wavenet_stack(x, cond, weights, dils, cond_upsampling=U), iters=10)
+            pms = cuda_time_ms(lambda: wavenet_stack_plain(x, cond, weights, dils, cond_upsampling=U), iters=5)
         flop, nbytes = k1_work(B, T, C, len(dils))
         k1_ms += ms
         k1_plain_ms += pms
         k1_flop += flop
         k1_bytes += nbytes
-        print(f"  K1 block {bi}: rows {T} C {C} kernel {ms:.3f} ms plain {pms:.3f} ms "
+        print(f"  K1 block {bi}: rows {T} C {C} U {U} kernel {ms:.3f} ms plain {pms:.3f} ms "
               f"({flop / ms / 1e9:.1f} TFLOP/s)", flush=True)
     k1_bound = 1e3 * max(k1_flop / H100_BF16_FLOPS, k1_bytes / H100_BYTES_PER_S)
     k1_bound_by = "operations" if k1_flop / H100_BF16_FLOPS >= k1_bytes / H100_BYTES_PER_S else "bytes"

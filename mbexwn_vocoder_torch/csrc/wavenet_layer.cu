@@ -21,6 +21,33 @@
 // from column i x 2 Ch): the fp32 kernel's cond_ld and the bf16 kernel's cond
 // tensor map, encoded per layer.
 //
+// A shared cond may come at the frame rate, with its linear upsampling factor
+// U > 1 (cond_upsampling): cond is then (B, T/U + 1, 2C), the cond conv's
+// output with its last frame repeated, as ops/interp.py's upsampler reads it,
+// and row t takes lerp(cond[t/U], cond[t/U + 1], t % U) with the upsampler's
+// weights, which the kernel computes as PyTorch does on the card (lerp_weights).
+// Each product and the sum are rounded to the operand type, with no FMA
+// contraction (fp32: __fmul_rn, __fadd_rn; bf16: mul.rn / add.rn.bf16x2,
+// which round as PyTorch's fp32 opmath does, see lerp_bf16x2), as PyTorch's
+// elementwise kernels round them, so a row's value is the full-rate slab's
+// bit for bit and the kernel's output is the output it gives on the slab
+// (U = 1).  The full-rate slab is
+// never written: at batch 8 of a 1024-frame bucket it was 0.26 GB (2 kHz)
+// and 0.52 GB (4 kHz) at C = 320, made in three elementwise passes and read
+// by every layer.  The bf16 kernel's producer thread loads the 3 + 126/U
+// frame rows that cover a tile (8 at U = 25) where it loaded the tile's 128
+// cond rows, into the stage's x slot, and goes on issuing loads; the
+// producer warpgroup's other three warps expand them into the stage's cond
+// slot and mark the stage filled, so the consumers read the very tile they
+// read at U = 1.  At batch 8 of a 1024-frame bucket on the H100 a stack
+// call then takes 3-5 % less time than on the full-rate slab, and the
+// slab's three passes are gone.  (Expanded by the loading thread's whole
+// warpgroup it took 2-4 % less: the loading thread waited for each box.
+// Interpolated by the consumers as they start their accumulators, the
+// added consumer code slowed the U = 1 path by 7-18 %.  Unpacked to fp32
+// for the arithmetic, the expansion made the call 1-8 % slower than on
+// the slab at C = 320.)  The fp32 kernel interpolates where it reads cond.
+//
 // Operand layout.  The reduction dimension is padded with zeros to Cp, a
 // multiple of 64 (320 stays 320, 340 becomes 384): x and x' are (B, T, Cp),
 // w_dil is (2C, 3, Cp) and w_rs (2C or C, Cp), "N-major" (each output
@@ -117,6 +144,24 @@ constexpr int kDepth = 32;  // reduction depth per shared-memory stage (fp32 pat
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// ops/interp.py's upsampler weights for offset j of a frame interval,
+// w1 = arange(U) / U and w0 = 1 - w1 in the operand type, as PyTorch computes
+// them on the card: it divides a tensor by a scalar by multiplying with the
+// scalar's fp32 reciprocal, and rounds each result to the operand type.
+template <bool kBf16>
+__device__ __forceinline__ void lerp_weights(int j, int U, float& w0, float& w1) {
+  w1 = __fmul_rn(static_cast<float>(j), __frcp_rn(static_cast<float>(U)));
+  if (kBf16) w1 = __bfloat162float(__float2bfloat16_rn(w1));
+  w0 = __fsub_rn(1.0f, w1);
+  if (kBf16) w0 = __bfloat162float(__float2bfloat16_rn(w0));
+}
+
+// The linear upsampler's value between two frames with weights (w0, w1),
+// rounded as PyTorch rounds it in fp32: each product, then the sum.
+__device__ __forceinline__ float lerp_f32(float lo, float hi, float w0, float w1) {
+  return __fadd_rn(__fmul_rn(lo, w0), __fmul_rn(hi, w1));
+}
+
 // ---------------------------------------------------------------- fp32 FMA
 
 constexpr int kLdA = kRows + 4;     // x stage, transposed [k][row]
@@ -144,7 +189,8 @@ template <bool kSkipOnly>
 __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
     const float* __restrict__ x_in, const float* __restrict__ cond, const float* __restrict__ w_dil,
     const float* __restrict__ b_dil, const float* __restrict__ w_rs, const float* __restrict__ b_rs,
-    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int cond_ld, int d, int tap0) {
+    float* __restrict__ x_out, float* __restrict__ skip, int T_len, int C, int Cp, int cond_ld, int d, int tap0,
+    int U) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);  // [kDepth][kLdA]
   float* Bs = As + kDepth * kLdA;              // [kDepth][kLdB]
@@ -192,9 +238,15 @@ __global__ void __launch_bounds__(kThreads) wavenet_layer_f32(
         if (j >= C) continue;
         float ya = acc[i][q] + b_dil[j];
         float ys = acc[i][2 + q] + b_dil[C + j];
-        if (t < T_len) {
+        if (t < T_len && U == 1) {
           ya += cond[(row_base + t) * cond_ld + j];
           ys += cond[(row_base + t) * cond_ld + C + j];
+        } else if (t < T_len) {  // frame-rate cond: T_len / U + 1 rows an utterance
+          const float* lo = cond + (static_cast<long long>(b) * (T_len / U + 1) + t / U) * cond_ld;
+          float w0, w1;
+          lerp_weights<false>(t % U, U, w0, w1);
+          ya += lerp_f32(lo[j], lo[cond_ld + j], w0, w1);
+          ys += lerp_f32(lo[C + j], lo[cond_ld + C + j], w0, w1);
         }
         Gs[j * kLdA + r] = tanhf(ya) * sigmoidf(ys);
       }
@@ -254,11 +306,18 @@ constexpr int kConsumerWarps = 8;
 template <int P>
 __host__ __device__ constexpr int stage_bytes() { return kXTileBytes + 2 * P * kRowBytes; }
 
-// 1 KB of slack to align the tiles to the swizzle period, then gated tile, ring, barriers
+// 1 KB of slack to align the tiles to the swizzle period, then gated tile, ring, barriers (two a
+// stage and the frame-rate cond's two)
 template <int P>
 size_t bf16_smem_bytes(int Cp, int n_ring) {
-  return 1024 + static_cast<size_t>(Cp / kStageK) * kXTileBytes + n_ring * (stage_bytes<P>() + 2 * sizeof(uint64_t));
+  return 1024 + static_cast<size_t>(Cp / kStageK) * kXTileBytes + n_ring * (stage_bytes<P>() + 2 * sizeof(uint64_t)) +
+         2 * sizeof(uint64_t);
 }
+
+// Rows of a cond box: a tile's 128, or at U > 1 the frames that rows t0..t0+127 interpolate
+// between, t/U - t0/U and one more, at most 3 + 126/U (8 at U = 25; 66 at U = 2, which still
+// fits a stage's 16 KB x slot at P = 112).
+__host__ __device__ constexpr int cond_box_rows(int U) { return U == 1 ? kTileRows : 3 + (kTileRows - 2) / U; }
 
 // as many stages as fit beside the gated tile; fewer than 2 is refused
 template <int P>
@@ -293,8 +352,8 @@ struct LayerArgs {
   const bf16* b_dil;
   const bf16* b_rs;
   // Ch: columns between the two halves of cond; tap0: the first tap's row offset in dilations, -1
-  // (SAME) or -2 (causal)
-  int T_len, C, Cp, Ch, d, tap0, n_ring;
+  // (SAME) or -2 (causal); U: cond's upsampling factor (1: cond is at the row rate)
+  int T_len, C, Cp, Ch, d, tap0, n_ring, U;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
@@ -373,6 +432,43 @@ __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// Two bf16 columns of the linear upsampler's value between two frames, rounded
+// as PyTorch's bf16 elementwise kernels round it: each product to bf16 (the
+// fp32 product of two bf16 values is exact, so one rounding, as here), then
+// the sum, which PyTorch rounds to fp32 and then to bf16.  That double
+// rounding is the single rounding of the bf16 add: two bf16 values whose
+// exponents differ by up to 15 sum exactly in fp32, and beyond that the
+// smaller is far below half a bf16 ulp of the larger either way.  The .rn
+// forms are never contracted into an fma.  w0, w1: a weight in both halves.
+__device__ __forceinline__ uint32_t lerp_bf16x2(uint32_t lo, uint32_t hi, uint32_t w0, uint32_t w1) {
+  uint32_t s, u, y;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(s) : "r"(lo), "r"(w0));
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(u) : "r"(hi), "r"(w1));
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(y) : "r"(s), "r"(u));
+  return y;
+}
+__device__ __forceinline__ uint32_t bf16x2_of(float w) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w, w);
+  uint32_t v;
+  memcpy(&v, &h, sizeof(v));
+  return v;
+}
+// Row r of a chunk's plain 128 x P cond tile from the frame rows of its box
+// (P bf16 a row): lerp(frames[f], frames[f + 1]) with the row's weights.
+template <int P>
+__device__ __forceinline__ void expand_cond_row(const unsigned char* frames, unsigned char* tile, int r, int f,
+                                                uint32_t w0, uint32_t w1) {
+  const uint4* lo = reinterpret_cast<const uint4*>(frames + f * (2 * P));
+  const uint4* hi = reinterpret_cast<const uint4*>(frames + (f + 1) * (2 * P));
+  uint4* out = reinterpret_cast<uint4*>(tile + r * (2 * P));
+#pragma unroll 2
+  for (int v = 0; v < P / 8; ++v) {
+    const uint4 p = lo[v], q = hi[v];
+    out[v] = make_uint4(lerp_bf16x2(p.x, q.x, w0, w1), lerp_bf16x2(p.y, q.y, w0, w1), lerp_bf16x2(p.z, q.z, w0, w1),
+                        lerp_bf16x2(p.w, q.w, w0, w1));
+  }
+}
+
 // shared -> global tile store, and the same as an element-wise add into global memory
 // (fp32 by the map's type); both complete through the issuing thread's bulk groups
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
@@ -421,6 +517,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1) wavenet_layer_bf16(const __gr
   const int n_ring = a.n_ring;
   const uint32_t full_s = ring_s + n_ring * kStageBytes;  // n_ring "stage filled" barriers, then n_ring "stage free"
   const uint32_t empty_s = full_s + n_ring * 8;
+  // U > 1: frame-rate cond box j (j = 2 x chunk + half) has landed, on barrier j % 2
+  const uint32_t frames_s = empty_s + n_ring * 8;
 
   const int C = a.C;
   const int b = blockIdx.y;
@@ -433,6 +531,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1) wavenet_layer_bf16(const __gr
       mbar_init(full_s + 8 * s, 1);
       mbar_init(empty_s + 8 * s, kConsumerWarps);
     }
+    mbar_init(frames_s, 1);
+    mbar_init(frames_s + 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -440,14 +540,52 @@ __global__ void __launch_bounds__(kBf16Threads, 1) wavenet_layer_bf16(const __gr
   if (wg == 2) {
     // ---------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
-      int stage = 0;
+    // Thread 256 issues the loads.  At U > 1 warps 1-3 make each cond tile
+    // from its frame rows (thread e: tile rows e and e + 96), so the loading
+    // thread never waits for them.
+    const int pr = threadIdx.x - 256;
+    if (pr >= 32 && a.U > 1) {
+      const int U = a.U, e = pr - 32;
+      int f[2];  // a row's first frame within the box, and its weights
+      uint32_t w0[2], w1[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + e + 96 * h;
+        f[h] = t / U - t0 / U;
+        float v0, v1;
+        lerp_weights<true>(t % U, U, v0, v1);
+        w0[h] = bf16x2_of(v0);
+        w1[h] = bf16x2_of(v1);
+      }
+      int stage = 0, j = 0;
+      for (int c0 = 0; c0 < n_chunks * P; c0 += P) {
+        for (int half = 0; half < 2; ++half, ++j) {
+          mbar_wait(frames_s + 8 * (j & 1), (j >> 1) & 1);
+          unsigned char* st = ring + stage * kStageBytes;
+          expand_cond_row<P>(st, st + kXTileBytes, e, f[0], w0[0], w1[0]);
+          if (e < 32) expand_cond_row<P>(st, st + kXTileBytes, e + 96, f[1], w0[1], w1[1]);
+          // TMA writes the stage next: order these writes before it, then hand the tile over
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile("bar.sync 4, 96;\n" ::: "memory");
+          if (e == 0) mbar_arrive(full_s + 8 * stage);
+          if (++stage == n_ring) stage = 0;
+        }
+        stage = (stage + 3 * n_kb) % n_ring;
+      }
+    } else if (pr == 0) {
+      int stage = 0, j = 0;
       uint32_t phase = 0;
       for (int c0 = 0; c0 < n_chunks * P; c0 += P) {
-        for (int half = 0; half < 2; ++half) {  // cond of the chunk's tanh columns, then of its sigmoid columns
+        for (int half = 0; half < 2; ++half, ++j) {  // cond of the chunk's tanh columns, then of its sigmoid columns
           mbar_wait(empty_s + 8 * stage, phase ^ 1);
-          mbar_expect_tx(full_s + 8 * stage, kInitBytes);
-          tma_load_3d(ring_s + stage * kStageBytes + kXTileBytes, &map_cond, full_s + 8 * stage, half * a.Ch + c0, t0, b);
+          const uint32_t dst = ring_s + stage * kStageBytes;
+          if (a.U == 1) {
+            mbar_expect_tx(full_s + 8 * stage, kInitBytes);
+            tma_load_3d(dst + kXTileBytes, &map_cond, full_s + 8 * stage, half * a.Ch + c0, t0, b);
+          } else {  // the frame rows into the stage's x slot, which a cond stage does not use
+            mbar_expect_tx(frames_s + 8 * (j & 1), cond_box_rows(a.U) * P * 2);
+            tma_load_3d(dst, &map_cond, frames_s + 8 * (j & 1), half * a.Ch + c0, t0 / a.U, b);
+          }
           if (++stage == n_ring) { stage = 0; phase ^= 1; }
         }
         for (int tap = 0; tap < 3; ++tap) {
@@ -764,18 +902,20 @@ int encode_buf_maps(BufMaps* m, const void* x, int B, int T_len, int C, int Cp) 
   return encode_rows_map(&m->o, x, B, T_len, C, Cp, P, 64, false);
 }
 
-// The maps a stack's layers share: cond in plain 128 x P boxes (a layer's
-// slab: 2 Ch columns of rows cond_ld apart; per-layer cond re-encodes it for
+// The maps a stack's layers share: cond in plain P-column boxes of
+// cond_box_rows(U) rows (a layer's slab: 2 Ch columns of rows cond_ld apart,
+// T_len / U + 1 rows an utterance at U > 1; per-layer cond re-encodes it for
 // each layer), and the fp32 skip sum in 64 x P/2 boxes for the reduce-add.
 struct SharedMaps {
   CUtensorMap cond, skip;
 };
-int encode_cond_map(CUtensorMap* map, const void* cond, int B, int T_len, int C, int Cp, int Ch, int cond_ld) {
-  return encode_rows_map(map, cond, B, T_len, 2 * Ch, cond_ld, pairs_per_chunk(C, Cp), kTileRows, false);
+int encode_cond_map(CUtensorMap* map, const void* cond, int B, int T_len, int C, int Cp, int Ch, int cond_ld, int U) {
+  return encode_rows_map(map, cond, B, U == 1 ? T_len : T_len / U + 1, 2 * Ch, cond_ld, pairs_per_chunk(C, Cp),
+                         cond_box_rows(U), false);
 }
 int encode_shared_maps(SharedMaps* m, const void* cond, const void* skip, int B, int T_len, int C, int Cp, int Ch,
-                       int cond_ld) {
-  if (int e = encode_cond_map(&m->cond, cond, B, T_len, C, Cp, Ch, cond_ld)) return e;
+                       int cond_ld, int U) {
+  if (int e = encode_cond_map(&m->cond, cond, B, T_len, C, Cp, Ch, cond_ld, U)) return e;
   return encode_rows_map(&m->skip, skip, B, T_len, C, C, pairs_per_chunk(C, Cp) / 2, 64, false, true);
 }
 
@@ -811,10 +951,11 @@ struct Layer {
 
 // dtype: 0 = fp32 operands (FMA), 1 = bf16 operands (tensor cores); fp32
 // accumulation in both.  The maps (bf16 only) describe x_in, x_out, cond and skip;
-// cond (fp32 only) is the layer's slab, its rows cond_ld elements apart.
+// cond (fp32 only) is the layer's slab, its rows cond_ld elements apart.  U > 1:
+// cond is at the frame rate.
 int launch_layer(int dtype, const Layer& l, const void* x_in, const void* cond, void* x_out, void* skip,
                  const BufMaps* in, const BufMaps* out, const SharedMaps* sh, int B, int T_len, int C, int Cp, int Ch,
-                 int cond_ld, cudaStream_t s) {
+                 int cond_ld, int U, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid((T_len + kRows - 1) / kRows, B);
     const size_t smem = sizeof(float) * (kDepth * kLdA + kDepth * kLdB + static_cast<size_t>(C) * kLdA);
@@ -824,11 +965,11 @@ int launch_layer(int dtype, const Layer& l, const void* x_in, const void* cond, 
     kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(x_in), static_cast<const float*>(cond), static_cast<const float*>(l.w_dil),
         static_cast<const float*>(l.b_dil), static_cast<const float*>(l.w_rs), static_cast<const float*>(l.b_rs),
-        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, cond_ld, l.d, l.tap0);
+        static_cast<float*>(x_out), static_cast<float*>(skip), T_len, C, Cp, cond_ld, l.d, l.tap0, U);
     return cuda_fail(cudaGetLastError());
   }
-  const LayerArgs args = {static_cast<const bf16*>(l.b_dil), static_cast<const bf16*>(l.b_rs), T_len, C, Cp, Ch, l.d,
-                          l.tap0, 0};
+  const LayerArgs args = {static_cast<const bf16*>(l.b_dil), static_cast<const bf16*>(l.b_rs), T_len, C, Cp, Ch,
+                          l.d, l.tap0, 0, U};
   if (pairs_per_chunk(C, Cp) == 88)
     return l.skip_only ? launch_bf16<88, true>(*in, *out, *sh, l.wmaps, args, B, s)
                        : launch_bf16<88, false>(*in, *out, *sh, l.wmaps, args, B, s);
@@ -875,10 +1016,10 @@ extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* con
     if (int e = encode_weight_maps(wmaps, w_dil, w_rs, C, Cp, skip_only ? C : 2 * C)) return e;
     if (int e = encode_buf_maps(&in, x_in, B, T_len, C, Cp)) return e;
     if (int e = encode_buf_maps(&out, x_out, B, T_len, C, Cp)) return e;
-    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, 2 * Ch)) return e;
+    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, 2 * Ch, 1)) return e;
   }
   const Layer l = {w_dil, b_dil, w_rs, b_rs, wmaps, d, skip_only, causal ? -2 : -1};
-  const int e = launch_layer(dtype, l, x_in, cond, x_out, skip, &in, &out, &sh, B, T_len, C, Cp, Ch, 2 * Ch,
+  const int e = launch_layer(dtype, l, x_in, cond, x_out, skip, &in, &out, &sh, B, T_len, C, Cp, Ch, 2 * Ch, 1,
                              static_cast<cudaStream_t>(stream));
   return e ? e : 1;
 }
@@ -887,7 +1028,9 @@ extern "C" int mbexwn_wavenet_layer(int dtype, const void* x_in, const void* con
 // x_bufs[(i + 1) % 2]; the caller has put x into x_bufs[0] and zeros into
 // skip and into the pad columns of both buffers.  cond is (B, T, 2 Ch) shared
 // by every layer (per_layer_cond = 0) or (B, T, n_layers, 2 Ch), layer i's
-// slab at column i x 2 Ch of each row (per_layer_cond = 1).  The per-layer arrays hold
+// slab at column i x 2 Ch of each row (per_layer_cond = 1); a shared cond may
+// be at the frame rate, (B, T / U + 1, 2 Ch) with U = cond_upsampling > 1 (see
+// the note at the top).  The per-layer arrays hold
 // n_layers device pointers (weight_maps: n_layers x 2 tensor maps in host
 // memory from mbexwn_wavenet_weight_maps, bf16 only).  causal: every
 // layer's taps at t-2d, t-d, t.  Enqueues on `stream`, allocates and
@@ -896,9 +1039,11 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
                                     const void* const* w_dil, const void* const* b_dil, const void* const* w_rs,
                                     const void* const* b_rs, const int* dils, const int* skip_only,
                                     const void* weight_maps, void* skip, int B, int T_len, int C, int Cp, int Ch,
-                                    int per_layer_cond, int causal, void* stream) {
+                                    int per_layer_cond, int causal, int cond_upsampling, void* stream) {
+  const int U = cond_upsampling;
   if (bad_shape(dtype, B, T_len, C, Cp, Ch) || n_layers < 0 || (causal != 0 && causal != 1) ||
-      (per_layer_cond != 0 && per_layer_cond != 1))
+      (per_layer_cond != 0 && per_layer_cond != 1) || U < 1 ||
+      (U > 1 && (per_layer_cond || T_len % U != 0)))
     return cuda_fail(cudaErrorInvalidValue);
   const int cond_ld = (per_layer_cond ? n_layers : 1) * 2 * Ch;  // elements between two rows of cond
   void* bufs[2] = {x_buf0, x_buf1};
@@ -908,7 +1053,7 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
   if (dtype == 1) {
     for (int i = 0; i < 2; ++i)
       if (int e = encode_buf_maps(&maps[i], bufs[i], B, T_len, C, Cp)) return e;
-    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, cond_ld)) return e;
+    if (int e = encode_shared_maps(&sh, cond, skip, B, T_len, C, Cp, Ch, cond_ld, U)) return e;
   }
   const size_t elem = dtype == 1 ? sizeof(bf16) : sizeof(float);
   for (int i = 0; i < n_layers; ++i) {
@@ -916,11 +1061,11 @@ extern "C" int mbexwn_wavenet_stack(int dtype, int n_layers, void* x_buf0, void*
     if (dtype == 1) {
       memcpy(wmaps, static_cast<const unsigned char*>(weight_maps) + i * sizeof(wmaps), sizeof(wmaps));
       if (per_layer_cond && i > 0)
-        if (int e = encode_cond_map(&sh.cond, cond_i, B, T_len, C, Cp, Ch, cond_ld)) return e;
+        if (int e = encode_cond_map(&sh.cond, cond_i, B, T_len, C, Cp, Ch, cond_ld, 1)) return e;
     }
     const Layer l = {w_dil[i], b_dil[i], w_rs[i], b_rs[i], wmaps, dils[i], skip_only[i], causal ? -2 : -1};
     if (int e = launch_layer(dtype, l, bufs[i % 2], cond_i, bufs[(i + 1) % 2], skip, &maps[i % 2], &maps[(i + 1) % 2], &sh,
-                             B, T_len, C, Cp, Ch, cond_ld, static_cast<cudaStream_t>(stream)))
+                             B, T_len, C, Cp, Ch, cond_ld, U, static_cast<cudaStream_t>(stream)))
       return e;
   }
   return n_layers;

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv1d, equalized_lr_kernel, weight_norm_kernel
-from ..ops.interp import linear_interp_output_length, linear_interp_upsample
+from ..ops.interp import linear_interp_output_length, linear_interp_upsample, pad_end
 from ..ops.padding import pad1d
 
 
@@ -209,6 +209,10 @@ class LinInterpLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear_interp_upsample(x, self.upsampling_factor, self.num_pad_end, self.drop_last)
+
+    def frames(self, x: torch.Tensor) -> torch.Tensor:
+        """The frames `forward` interpolates between: x with its end pad."""
+        return pad_end(x, self.num_pad_end)
 
 
 class Pad1d(nn.Module):

@@ -14,7 +14,11 @@ fallback:
   JAX package's layer loop takes those), kernel size 3, the gtu gate, no
   tensor-parallel axis and no int8 mode; SAME or CAUSAL taps alike.  This
   is the route of every registry model and of WaveGlow's WNs
-  (models/waveglow.py).  It has no backward pass (nor has the JAX
+  (models/waveglow.py).  A shared cond whose linear upsampling factor U is
+  above 1 reaches it at the frame rate (`conditioning(frame_rate=True)`,
+  the cond conv's output and its end pad) with U, and K1 interpolates each
+  row's value on chip; every other route, and a per-layer cond, take the
+  full-rate slab.  It has no backward pass (nor has the JAX
   package's Pallas stack): `stack_weights` raises when grad mode is on and
   a weight requires grad, and the kernel raises on CUDA tensors that
   require grad;
@@ -323,9 +327,18 @@ class WaveNetAE(nn.Module):
 
     # ---------------------------------------------------------------- forward
 
-    def conditioning(self, spect: torch.Tensor) -> Optional[torch.Tensor]:
+    def cond_upsampling(self) -> int:
+        """The factor U by which K1 upsamples the cond it is given: the
+        shared cond's linear upsampling factor on the "k1" route, else 1."""
+        if self.cond_linup is None or self.route() != "k1":
+            return 1
+        return self.cond_linup.upsampling_factor
+
+    def conditioning(self, spect: torch.Tensor, frame_rate: bool = False) -> Optional[torch.Tensor]:
         """The cond slab(s): (B, T, 2C) shared, (B, T, 2C * n_layers) per
-        layer, or None without conditioning."""
+        layer, or None without conditioning; with `frame_rate`, a shared
+        cond's frames before its linear upsampling (`LinInterpLayer.frames`:
+        (B, T / U + 1, 2C))."""
         if self.cond is None:
             return None
         c = spect
@@ -336,7 +349,9 @@ class WaveNetAE(nn.Module):
             bias = self.cond.bias
             return F.linear(c, self.cond.kernel()[:, :, 0].to(c.dtype), None if bias is None else bias.to(c.dtype))
         c = self.cond(c)
-        return c if self.cond_linup is None else self.cond_linup(c)
+        if self.cond_linup is None:
+            return c
+        return self.cond_linup.frames(c) if frame_rate else self.cond_linup(c)
 
     def forward(self, audio: torch.Tensor, spect: torch.Tensor) -> torch.Tensor:
         in_dtype = audio.dtype
@@ -344,15 +359,16 @@ class WaveNetAE(nn.Module):
             audio = audio.to(self.compute_dtype)
             spect = spect.to(self.compute_dtype)
         started = self.start(audio)
-        cond = self.conditioning(spect)
-        if cond is not None and cond.shape[1] != started.shape[1]:
-            raise RuntimeError(f"conditioning length {cond.shape[1]} != stack length {started.shape[1]}")
-        route = self.route()
+        route, U = self.route(), self.cond_upsampling()
+        cond = self.conditioning(spect, frame_rate=U > 1)
+        if cond is not None and (cond.shape[1] if U == 1 else (cond.shape[1] - 1) * U) != started.shape[1]:
+            raise RuntimeError(f"conditioning length {cond.shape[1]} (upsampled by {U} in K1) != stack length "
+                               f"{started.shape[1]}")
         if route == "k1":
             if not self.shared_cond:  # one slab a layer: K1 reads layer i's at column i * 2C of each row
                 cond = cond.unflatten(-1, (self.n_layers, 2 * self.n_channels))
             skip = wavenet_stack(started, cond, self.stack_weights(started.dtype), self.dilations, self.activation,
-                                 causal=self.causal).to(started.dtype)
+                                 causal=self.causal, cond_upsampling=U).to(started.dtype)
         else:
             skip = self._layers(started, cond, quantized=route == "int8")
         return self.end(skip).to(in_dtype)

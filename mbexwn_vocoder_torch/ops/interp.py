@@ -9,9 +9,15 @@ from __future__ import annotations
 import torch
 
 
-def linear_interp_upsample(x: torch.Tensor, factor: int, num_pad_end: int = 0, drop_last: bool = False) -> torch.Tensor:
+def pad_end(x: torch.Tensor, num_pad_end: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T + num_pad_end, C): the last frame repeated."""
     if num_pad_end > 0:
         x = torch.cat([x, x[:, -1:].expand(-1, num_pad_end, -1)], dim=1)
+    return x
+
+
+def linear_interp_upsample(x: torch.Tensor, factor: int, num_pad_end: int = 0, drop_last: bool = False) -> torch.Tensor:
+    x = pad_end(x, num_pad_end)
     B, T, C = x.shape
     if factor == 1:
         return x

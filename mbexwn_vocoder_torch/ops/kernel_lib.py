@@ -32,8 +32,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launch counts per kernel, read and reset by callers such as chip_smoke.py
-launches = {"wavenet_layer": 0, "oscillator": 0}
+# launch counts per kernel, read and reset by callers such as chip_smoke.py;
+# "wavenet_cond_upsampled" counts the stack calls whose K1 launches made the
+# cond from a frame-rate slab (ops/wavenet_stack.py)
+launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +46,9 @@ _SIGNATURES = {
     "mbexwn_wavenet_layer": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # dtype, n_layers, x_buf0, x_buf1, cond, per-layer pointer arrays w_dil, b_dil,
     # w_rs, b_rs, int arrays dilations and skip_only, weight tensor maps (host,
-    # bf16 only), skip, B, T, C, Cp, Ch, per-layer cond, causal, stream
-    "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bf16 only), skip, B, T, C, Cp, Ch, per-layer cond, causal, cond's upsampling
+    # factor, stream
+    "mbexwn_wavenet_stack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # out (host, 2 x 128 bytes), w_dil, w_rs, C, Cp, rows of w_rs
     "mbexwn_wavenet_weight_maps": [_P, _P, _P, _I, _I, _I],
     # f0, tables, phase_offset (or null), out, phase out (or null), chunk scratch,

@@ -8,7 +8,13 @@ with a skip-only last layer (W_rs is C -> C).  cond_i is one slab shared by
 every layer, cond (B, T, 2C), or layer i's own, cond[:, :, i] of a per-layer
 cond (B, T, L, 2C): a per-layer cond conv's channels-last output viewed with
 a layer axis (WaveGlow's WN), which the kernel reads in place, each layer's
-rows L x 2C apart.
+rows L x 2C apart.  A shared cond may come at the frame rate with its
+linear upsampling factor U > 1 (`cond_upsampling`): (B, T/U + 1, 2C), the
+frames `ops.interp.linear_interp_upsample(cond, U, drop_last=True)` takes
+to the row rate (the cond conv's output with its last frame repeated,
+`interp.pad_end`).  The kernel then makes each row's cond value on chip,
+bit-equal to the upsampler's, and no full-rate slab is written; the plain
+version calls the upsampler itself.
 
 Counterpart of the JAX package's ops/pallas_wavenet.py
 (`fused_wavenet_stack`).  `wavenet_stack` is the entry point: on a CUDA
@@ -56,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernel_lib
+from .interp import linear_interp_upsample
 
 LayerWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -196,11 +203,23 @@ def gate(activation: str, half_act: torch.Tensor, half_sigmoid: torch.Tensor) ->
     return half_act * torch.sigmoid(half_sigmoid)
 
 
+def _check_cond_upsampling(fn: str, cond: torch.Tensor, T: int, U: int) -> None:
+    """A frame-rate cond (U > 1) is a shared (B, T/U + 1, 2C) slab."""
+    if U > 1 and (cond.dim() != 3 or T % U or cond.shape[1] != T // U + 1):
+        raise ValueError(f"{fn}: a cond upsampled by {U} must be a shared (B, {T} / {U} + 1, 2C) slab, got "
+                         f"{tuple(cond.shape)} for {T} rows")
+    if U < 1:
+        raise ValueError(f"{fn}: cond_upsampling must be >= 1, got {U}")
+
+
 def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
-                        dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
+                        dils: Sequence[int], activation: str = "gtu", causal: bool = False,
+                        cond_upsampling: int = 1) -> torch.Tensor:
     """(B, T, C) x, (B, T, 2C) or per-layer (B, T, L, 2C) cond -> (B, T, C) fp32
     skip sum, in plain PyTorch (fp32 products of the operand-dtype values);
-    `causal` shifts the taps to t-2d, t-d, t (the pad goes left).  Takes the
+    `causal` shifts the taps to t-2d, t-d, t (the pad goes left); a frame-rate
+    cond (`cond_upsampling` U > 1, module docstring) is first taken to the row
+    rate by `linear_interp_upsample`.  Takes the
     layers as listed in the module docstring or packed, and x with C or Cp
     columns: it reads
     the first C columns of x and of the weights' reduction dimension only, so
@@ -208,6 +227,9 @@ def wavenet_stack_plain(x: torch.Tensor, cond: torch.Tensor, layer_weights: Stac
     is zero by contract; the kernel multiplies it, the tests check it)."""
     layers = layer_weights.layers if isinstance(layer_weights, PackedStackWeights) else layer_weights
     B, T, _ = x.shape
+    _check_cond_upsampling("wavenet_stack_plain", cond, T, cond_upsampling)
+    if cond_upsampling > 1:
+        cond = linear_interp_upsample(cond, cond_upsampling, drop_last=True)
     C = cond.shape[-1] // 2
     if x.shape[-1] < C:
         raise ValueError(f"wavenet_stack_plain: x has {x.shape[-1]} columns, cond implies C={C}")
@@ -299,11 +321,14 @@ def wavenet_layer(x_in: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b
 
 
 def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeights,
-                  dils: Sequence[int], activation: str = "gtu", causal: bool = False) -> torch.Tensor:
+                  dils: Sequence[int], activation: str = "gtu", causal: bool = False,
+                  cond_upsampling: int = 1) -> torch.Tensor:
     """(B, T, C) x and (B, T, 2C) or per-layer (B, T, L, 2C) cond in the operand
     dtype (fp32 or bf16), weights as listed in the module docstring or packed by
     `pack_stack_weights` (a list is packed first) -> (B, T, C) fp32 skip
-    sum; `causal` selects the taps t-2d, t-d, t in place of t-d, t, t+d.
+    sum; `causal` selects the taps t-2d, t-d, t in place of t-d, t, t+d;
+    `cond_upsampling` U > 1 takes a shared cond at the frame rate,
+    (B, T/U + 1, 2C), interpolated to the rows as the module docstring says.
     Calls the op `mbexwn::wavenet_stack`: on CUDA tensors the kernel: x is
     copied once into a zero-padded (B, T, Cp) buffer, the layers ping-pong
     between that and a second one, and one host call enqueues them all.
@@ -313,30 +338,32 @@ def wavenet_stack(x: torch.Tensor, cond: torch.Tensor, layer_weights: StackWeigh
         raise RuntimeError(f"wavenet_stack: unsupported device {x.device}")
     p = layer_weights if isinstance(layer_weights, PackedStackWeights) else pack_stack_weights(layer_weights)
     return torch.ops.mbexwn.wavenet_stack(x, cond, p.w_dil, p.b_dil, p.w_rs, p.b_rs, [int(d) for d in dils],
-                                          list(p.skip_only), activation, bool(causal))
+                                          list(p.skip_only), activation, bool(causal), int(cond_upsampling))
 
 
 @torch.library.custom_op("mbexwn::wavenet_stack", mutates_args=(), device_types="cpu")
 def _wavenet_stack_op(x: torch.Tensor, cond: torch.Tensor, w_dil: torch.Tensor, b_dil: torch.Tensor,
                       w_rs: torch.Tensor, b_rs: torch.Tensor, dilations: List[int], skip_only: List[bool],
-                      activation: str, causal: bool) -> torch.Tensor:
+                      activation: str, causal: bool, cond_upsampling: int = 1) -> torch.Tensor:
     """The op on CPU tensors: the plain version."""
     layers = _layer_views(w_dil, b_dil, w_rs, b_rs, skip_only, cond.shape[-1] // 2)
-    return wavenet_stack_plain(x, cond, layers, dilations, activation, causal)
+    return wavenet_stack_plain(x, cond, layers, dilations, activation, causal, cond_upsampling)
 
 
 @_wavenet_stack_op.register_kernel("cuda")
-def _wavenet_stack_op_cuda(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal):
+def _wavenet_stack_op_cuda(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal,
+                           cond_upsampling=1):
     """The op on CUDA tensors: the kernel, under the tensors' device."""
     if activation != "gtu":
         raise NotImplementedError(f"the CUDA kernel computes the gtu gate only, not {activation}; a stack "
                                   f"with another gate runs the layer loop (nn/wavenet.py WaveNetAE.route)")
     with kernel_lib.on_device(x.device):
-        return _wavenet_stack_cuda(x, cond, (w_dil, b_dil, w_rs, b_rs), dilations, skip_only, causal)
+        return _wavenet_stack_cuda(x, cond, (w_dil, b_dil, w_rs, b_rs), dilations, skip_only, causal,
+                                   cond_upsampling)
 
 
 @_wavenet_stack_op.register_fake
-def _(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal):
+def _(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causal, cond_upsampling=1):
     C = cond.shape[-1] // 2
     return x.new_empty((x.shape[0], x.shape[1], C), dtype=torch.float32)
 
@@ -344,7 +371,7 @@ def _(x, cond, w_dil, b_dil, w_rs, b_rs, dilations, skip_only, activation, causa
 kernel_lib.no_backward(_wavenet_stack_op, "wavenet_layer")
 
 
-def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
+def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal, U=1):
     """The op on CUDA tensors, under their device: the stacked weights in
     the kernel layout (`PackedStackWeights`)."""
     B, T, C = x.shape
@@ -359,7 +386,9 @@ def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
         _check_operand("wavenet_stack", f"{name} (the stacked kernel layout: pack_stack_weights)", t, shape,
                        x.dtype, x.device)
     per_layer = cond.dim() == 4
-    _check_operand("wavenet_stack", "cond", cond, (B, T, n, 2 * C) if per_layer else (B, T, 2 * C), x.dtype, x.device,
+    _check_cond_upsampling("wavenet_stack", cond, T, U)
+    _check_operand("wavenet_stack", "cond", cond,
+                   (B, T, n, 2 * C) if per_layer else (B, T // U + 1 if U > 1 else T, 2 * C), x.dtype, x.device,
                    contiguous=False)
     skip = torch.zeros((B, T, C), dtype=torch.float32, device=x.device)
     if B == 0 or T == 0:
@@ -373,6 +402,8 @@ def _wavenet_stack_cuda(x, cond, stacked, dils, skip_only, causal):
     count = kernel_lib.library().mbexwn_wavenet_stack(
         _KERNEL_DTYPES[x.dtype], n, bufs[0].data_ptr(), bufs[1].data_ptr(), cond.data_ptr(), *ptrs,
         (ctypes.c_int * n)(*[int(d) for d in dils]), flags, None if maps is None else maps.data_ptr(),
-        skip.data_ptr(), B, T, C, Cp, Ch, int(per_layer), int(causal), torch.cuda.current_stream(x.device).cuda_stream)
+        skip.data_ptr(), B, T, C, Cp, Ch, int(per_layer), int(causal), U,
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.launches["wavenet_layer"] += kernel_lib.launched(count, "wavenet_layer")
+    kernel_lib.launches["wavenet_cond_upsampled"] += int(U > 1)
     return skip

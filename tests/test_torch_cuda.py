@@ -46,7 +46,12 @@ conditioning (WaveGlow's WN: C=256, 8 layers, dilations 2^i): K1 with a
 1024-frame bucket (bf16 2e-2, fp32 1e-4); a per-layer cond whose slabs are
 all equal gives the shared call's output bit for bit (C = 256, 320, 340);
 WaveGlow at its published widths synthesises with 96 K1 launches, its
-fp32 synthesis within 1e-4 of the plain reference's on the card.
+fp32 synthesis within 1e-4 of the plain reference's on the card.  A shared
+cond at the frame rate (U = 25, C = 256, 320, 340, batch 8, 1024 frames and
+an odd count, SAME and causal, fp32 and bf16): K1 gives its output on the
+upsampler's full-rate slab bit for bit, and a SPEECH synthesis (two such
+calls) gives the audio of the same synthesis with the interpolation outside
+K1 bit for bit.
 """
 import re
 
@@ -54,7 +59,9 @@ import numpy as np
 import pytest
 import torch
 
+from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.ops import kernel_lib
+from mbexwn_vocoder_torch.ops.interp import linear_interp_upsample, pad_end
 from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
 from mbexwn_vocoder_torch.ops.precision import exact_fp32
 from mbexwn_vocoder_torch.ops.wavenet_stack import (pack_stack_weights, wavenet_layer, wavenet_stack,
@@ -559,7 +566,8 @@ def test_trained_model_folds_back_onto_the_kernels(card):
         kernel_lib.reset_launch_counts()
         y = model.infer(mel, mel.shape[1] * blk.spect_hop_size)
         counts = dict(kernel_lib.launches)
-    assert counts == {"wavenet_layer": n_layers, "oscillator": 1}, counts
+    n_up = sum(getattr(blk, name).wavenet.cond_upsampling() > 1 for name in blk.block_names)
+    assert n_up == 2 and counts == {"wavenet_layer": n_layers, "oscillator": 1, "wavenet_cond_upsampled": n_up}, counts
     assert torch.isfinite(y).all()
 
 
@@ -591,7 +599,8 @@ def test_train_cli_on_the_card(card, tmp_path, monkeypatch):
     mel = np.random.RandomState(0).randn(1, 64, 80).astype(np.float32) * 0.5 - 4
     kernel_lib.reset_launch_counts()
     y = inv.synth_from_mel(mel)
-    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1} and np.isfinite(y).all()
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2}
+    assert np.isfinite(y).all()
 
 
 def test_gan_step_on_the_card_matches_the_cpu(card):
@@ -648,7 +657,7 @@ def test_export_round_trip_on_the_card(card, tmp_path):
     kernel_lib.reset_launch_counts()
     y = call(mel)
     torch.cuda.synchronize()
-    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1}
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2}
     noise = torch.randn((2, model.block.wn_input_length(16), 1), generator=torch.Generator(device=card).manual_seed(0),
                         device=card)
     with torch.inference_mode():
@@ -724,7 +733,7 @@ def test_branches_synthesise_on_the_card(card, monkeypatch, pp_mod):
     model_cpu, model = _routes_model(card, monkeypatch, **pp_mod)
     got, ref, counts = _synth_both(model_cpu, model, card)
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1} and rel <= 1e-5, (counts, rel)
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and rel <= 1e-5, (counts, rel)
 
 
 def test_tensor_parallel_on_the_card(card, monkeypatch):
@@ -742,7 +751,8 @@ def test_tensor_parallel_on_the_card(card, monkeypatch):
     monkeypatch.setattr(tensor.comm, "reduce_add", lambda *a, **k: calls.append(1) or real(*a, **k))
     got, _, counts = _synth_both(model_cpu, replica, card)
     rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1} and len(calls) == 2 * 4 and rel <= 1e-5, (counts, rel)
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}, counts
+    assert len(calls) == 2 * 4 and rel <= 1e-5, rel
     assert all(getattr(replica.block, n).wavenet.tp_devices == (torch.device("cuda", 0),) * 2
                for n in replica.block.block_names)
 
@@ -779,7 +789,8 @@ def test_int8_mode_on_the_card(card, monkeypatch):
     monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
     before = quant.int_mm_calls
     got, ref, counts = _synth_both(model_cpu, model, card)
-    assert counts_fp == {"wavenet_layer": 8, "oscillator": 1} and counts == {"wavenet_layer": 0, "oscillator": 1}
+    assert counts_fp == {"wavenet_layer": 8, "oscillator": 1, "wavenet_cond_upsampled": 2}
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
     assert quant.int_mm_calls - before == 2 * (2 * 2 * 4)  # the CPU's and the card's synthesis
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
     rel_fp = float(torch.sqrt(torch.mean((got - got_fp) ** 2) / torch.mean(got_fp ** 2)))
@@ -804,7 +815,7 @@ def test_model_branches_on_the_kernels(card, monkeypatch, config, pp_mod, k2):
     model_cpu, model = _routes_model(card, monkeypatch, config=config, **pp_mod)
     got, ref, counts = _synth_both(model_cpu, model, card)
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
-    assert counts == {"wavenet_layer": 8, "oscillator": k2} and rel <= 1e-4, (counts, rel)
+    assert counts == {"wavenet_layer": 8, "oscillator": k2, "wavenet_cond_upsampled": 2} and rel <= 1e-4, (counts, rel)
 
 
 def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
@@ -824,7 +835,7 @@ def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
     assert quant.int_mm_calls - n_mm == 2 * 4 * 2 + 2 * 4 * 4  # the CPU's unsharded, the card's sharded
     assert {k: tensor.counts[k] - before[k] for k in before} == {"reduce_add": 8, "max_reduce": 8}
     rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1} and rel <= 2e-2, (counts, rel)
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and rel <= 2e-2, (counts, rel)
 
 
 WAVEGLOW_DILS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -880,6 +891,54 @@ def test_waveglow_on_the_card(card, tmp_path, monkeypatch):
     kernel_lib.reset_launch_counts()
     y = inv.synth_from_mel(mel)
     assert [wn.route() for wn in inv.model.WN] == ["k1"] * 12
-    assert kernel_lib.launches["wavenet_layer"] == 96
+    assert kernel_lib.launches["wavenet_layer"] == 96 and kernel_lib.launches["wavenet_cond_upsampled"] == 0
     rel = float(np.sqrt(np.mean((y - ref) ** 2) / np.mean(ref ** 2)))
     assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("frames", [1024, 37])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [256, 320, 340])
+def test_k1_frame_rate_cond_equals_the_upsampled_slab(card, C, dtype, causal, frames):
+    """K1 on a shared cond at the frame rate with U = 25, (8, frames + 1, 2C)
+    with the last frame repeated, against K1 on `linear_interp_upsample`'s
+    full-rate slab (U = 1): bit for bit, one stack call counted as upsampled."""
+    U, B, dils = 25, 8, (1, 64, 16)
+    x, _, weights = _case(C, B, frames * U, dils, dtype, card)
+    g = torch.Generator().manual_seed(9)
+    low = pad_end((torch.randn(B, frames, 2 * C, generator=g) * 0.2).to(card, dtype), 1)
+    before = dict(kernel_lib.launches)
+    with exact_fp32():
+        got = wavenet_stack(x, low, weights, dils, causal=causal, cond_upsampling=U)
+        ref = wavenet_stack(x, linear_interp_upsample(low, U, drop_last=True), weights, dils, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["wavenet_layer"] - before["wavenet_layer"] == 2 * len(dils)
+    assert kernel_lib.launches["wavenet_cond_upsampled"] - before["wavenet_cond_upsampled"] == 1
+    assert torch.isfinite(got).all() and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["", None])
+def test_speech_synthesis_interpolates_its_conds_in_k1(card, monkeypatch, dtype):
+    """A SPEECH synthesis (fp32, and the shipped bf16) hands K1 both blocks'
+    conds at the frame rate (the counter reads 2) and gives the audio of the
+    same synthesis with the interpolation outside K1 (the full-rate slab,
+    U = 1) bit for bit."""
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        if dtype is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, dtype)
+    inv = MELInverter("SPEECH")
+    mel = _mel(300, 31)
+    noise = _noise_rows(inv, [300], card)[0]
+    kernel_lib.reset_launch_counts()
+    y = inv.synth_from_mel(mel, noise=noise)
+    assert kernel_lib.launches["wavenet_cond_upsampled"] == 2 and kernel_lib.launches["wavenet_layer"] == 24
+    monkeypatch.setattr(WaveNetAE, "cond_upsampling", lambda self: 1)
+    kernel_lib.reset_launch_counts()
+    y_slab = inv.synth_from_mel(mel, noise=noise)
+    assert kernel_lib.launches["wavenet_cond_upsampled"] == 0 and kernel_lib.launches["wavenet_layer"] == 24
+    assert np.isfinite(y).all() and np.array_equal(y, y_slab)

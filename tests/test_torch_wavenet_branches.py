@@ -9,7 +9,11 @@ seed, at tiny width (C=16, 3 layers), fp32, bound 1e-5 rel-RMS:
   differentiable one;
 - the init: the JAX tree (keys and shapes) and its scales;
 - a tiny model with `n_ch_groups: 2` end to end against JAX `infer`
-  (the whole-synthesis budget, 1e-3 rel-RMS).
+  (the whole-synthesis budget, 1e-3 rel-RMS);
+- the kernel's frame-rate cond: the stack on a shared cond at the frame
+  rate with its factor U equals, bit for bit, the stack on the upsampler's
+  full-rate slab; the module's kernel route on it equals its layer loop at
+  the registry's widths; and a SPEECH synthesis hands it two such calls.
 Only a stack with one group, shared upsampled conditioning, k=3 and the
 gtu gate takes the kernel; every other one runs the layer loop, and a CPU
 run never builds or launches a kernel.
@@ -31,10 +35,14 @@ from mbexwn_vocoder_torch.compat.params_io import flatten, params_from_jax, para
 from mbexwn_vocoder_torch.config import read_config
 from mbexwn_vocoder_torch.models import create_model
 from mbexwn_vocoder_torch.nn.layers import Conv1DWeightNorm
+from mbexwn_vocoder_torch.mel_inverter import MELInverter
+from mbexwn_vocoder_torch.nn import wavenet as wavenet_module
 from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.ops import kernel_lib
+from mbexwn_vocoder_torch.ops.interp import linear_interp_upsample, pad_end
+from mbexwn_vocoder_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
 
-from tests.test_torch_model import rel_rms
+from tests.test_torch_model import make_mel, rel_rms
 
 torch.set_num_threads(2)
 B, T_MEL, N_MEL, C_IN = 2, 12, 10, 7
@@ -229,3 +237,95 @@ def test_groups2_model_matches_jax_infer(no_kernel_build):
     with torch.no_grad():
         got = model.eval().infer(torch.from_numpy(mel), synth_length=16 * 300).numpy()
     assert got.shape == ref.shape and rel_rms(got, ref) <= 1e-3, rel_rms(got, ref)
+
+
+# ---------------------------------------------------------------- frame-rate cond
+
+
+def _seeded_(net, seed):
+    """Every parameter of `net` drawn from a seeded normal (the placeholders' zero biases included)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * (0.5 / np.sqrt(max(p[0].numel(), 1)) if p.dim() > 1 else 0.1))
+    return net
+
+
+def _counting_stack_calls(monkeypatch):
+    """The factor U of every stack call the modules make (nn/wavenet.py's `wavenet_stack`)."""
+    seen = []
+
+    def counting(*args, cond_upsampling=1, **kw):
+        seen.append(cond_upsampling)
+        return wavenet_stack(*args, cond_upsampling=cond_upsampling, **kw)
+
+    monkeypatch.setattr(wavenet_module, "wavenet_stack", counting)
+    return seen
+
+
+@pytest.mark.parametrize("U", [1, 25])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frame_rate_cond_equals_the_upsampled_slab(dtype, causal, U, no_kernel_build):
+    """A shared cond given at the frame rate with its factor U (the cond
+    conv's output and its end pad, as the kernel route hands it over) gives,
+    through `wavenet_stack_plain` and through the op, the output of the same
+    call on `linear_interp_upsample`'s full-rate slab, bit for bit (U = 1: the
+    slab is the frames themselves)."""
+    C, frames, dils = 12, 7, (1, 2, 4)
+    g = torch.Generator().manual_seed(5)
+    low = pad_end((torch.randn(B, frames, 2 * C, generator=g) * 0.3).to(dtype), 1)
+    slab = linear_interp_upsample(low, U, drop_last=True)
+    T = slab.shape[1]
+    assert T == (frames * U if U > 1 else frames + 1)
+    x = (torch.randn(B, T, C, generator=g) * 0.3).to(dtype)
+    weights = [tuple((torch.randn(*shape, generator=g) * scale).to(dtype) for shape, scale in
+                     (((2 * C, 3, C), 0.15), ((2 * C,), 0.05), ((n, C), 0.25), ((n,), 0.05)))
+               for n in (2 * C, 2 * C, C)]
+    for fn in (wavenet_stack_plain, wavenet_stack):
+        got = fn(x, low, weights, dils, causal=causal, cond_upsampling=U)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fn(x, slab, weights, dils, causal=causal)), fn.__name__
+
+
+@pytest.mark.parametrize("C", [320, 340])
+def test_kernel_route_on_the_frame_rate_cond_equals_the_layer_loop(C, monkeypatch, no_kernel_build):
+    """A registry-width stack (the sub-pixel cond conv, then x25 linear
+    upsampling): its kernel route hands the stack the frame-rate cond and
+    U = 25, and gives its layer loop's output on the full-rate slab within
+    this file's fp32 budget."""
+    net = _seeded_(WaveNetAE(C_IN, N_MEL, n_channels=C, n_layers=3, kernel_size=3, n_out_channels=6,
+                             cond_kernel_size=3, cond_conv_upsampling=2, cond_lin_upsampling=25, name="wn"), 4).eval()
+    assert net.route() == "k1" and net.cond_upsampling() == 25
+    rng = np.random.RandomState(6)
+    T_mel = 5
+    audio = torch.from_numpy(rng.randn(B, T_mel * 50, C_IN).astype(np.float32) * 0.4)
+    mel = torch.from_numpy(rng.randn(B, T_mel, N_MEL).astype(np.float32) * 0.4)
+    seen = _counting_stack_calls(monkeypatch)
+    with torch.no_grad():
+        y_k1 = net(audio, mel).numpy()
+        net.differentiable = True
+        assert net.cond_upsampling() == 1
+        y_layers = net(audio, mel).numpy()
+    assert seen == [25]
+    assert np.isfinite(y_k1).all() and rel_rms(y_k1, y_layers) <= 1e-5, rel_rms(y_k1, y_layers)
+
+
+def test_a_speech_synthesis_upsamples_two_conds_in_the_stack(monkeypatch, no_kernel_build):
+    """`kernel_lib.launches["wavenet_cond_upsampled"]` counts the stack calls
+    whose kernel makes its cond from the frame rate: a SPEECH synthesis makes
+    two (its blocks, U = 25), a WaveGlow-style WN (a per-layer cond) none.  A
+    CPU run launches nothing, so the counter stays where it was
+    (`no_kernel_build`) and the calls are read where the modules make them."""
+    seen = _counting_stack_calls(monkeypatch)
+    port = MELInverter("SPEECH", device="cpu", length_buckets=(16,))
+    with torch.no_grad():
+        y = port.synth_from_mel(make_mel(0, 16))
+    assert np.isfinite(y).all() and seen == [25, 25]
+    seen.clear()
+    wn = WaveNetAE(C_IN, N_MEL, n_channels=16, n_layers=3, kernel_size=3, n_out_channels=6, cond_kernel_size=1,
+                   cond_conv_upsampling=None, name="wn").eval()
+    assert wn.route() == "k1" and wn.cond_upsampling() == 1
+    with torch.no_grad():
+        wn(torch.randn(B, 40, C_IN), torch.randn(B, 40, N_MEL))
+    assert seen == [1]

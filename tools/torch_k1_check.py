@@ -12,13 +12,20 @@ width) in bf16 (rel-RMS <= 2e-2) and fp32 (<= 1e-5), with one conditioning
 slab shared by every layer and with a slab a layer (B, T, L, 2C) up to
 WaveGlow's WN (C=256, 8 layers, dilations 2^i) at batch 1 and 8 of a
 1024-frame bucket (32,768 rows an utterance); a per-layer cond whose slabs
-are all equal gives the shared call's output bit for bit.  Then it times
-the bf16 stack at the registry's two widths and two row counts of a
-512-frame synthesis, and WaveGlow's WN at batch 1 and 512 frames.
+are all equal gives the shared call's output bit for bit.  A shared cond at
+the frame rate with the registry's upsampling factor (U = 25; SAME and
+causal, up to the offline groups' blocks: batch 8 of a 1024-frame bucket)
+gives the output of the same call on `linear_interp_upsample`'s full-rate
+slab bit for bit.  Then it times the bf16 stack at the registry's two
+widths and two row counts of a 512-frame synthesis, the offline groups'
+blocks with the frame-rate cond against the full-rate slab (K1 alone, and
+with the interpolation that makes the slab), and WaveGlow's WN at batch 1
+and 512 frames.
 
 `--digest` prints a SHA-256 of the shared-cond outputs at SPEECH's and
-VOICE's shapes (bf16 and fp32), to hold two trees' kernels bit-equal;
-`--root DIR` runs the package of another checkout (a parent's).
+VOICE's shapes (bf16 and fp32; U = 1, then the frame-rate cases where the
+package takes them), to hold two trees' kernels bit-equal; `--root DIR`
+runs the package of another checkout (a parent's).
 chip_smoke.py stays the full proof on the registry's weights; this takes
 about a minute.  Needs no JAX.
 """
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import sys
 from pathlib import Path
 
@@ -41,6 +49,14 @@ CASES = [(64, 1, 128, (1,)), (64, 1, 128, (1, 2)), (320, 1, 256, (1, 2, 4)), (8,
 PER_LAYER_CASES = [(8, 2, 100, (1, 2, 64)), (68, 3, 257, (1, 16, 4)), (256, 1, 300, WAVEGLOW_DILS),
                    (256, 1, 32768, WAVEGLOW_DILS), (256, 8, 32768, WAVEGLOW_DILS)]
 DIGEST_CASES = [(320, 1, 12800), (320, 1, 25600), (340, 1, 12800), (340, 2, 12837)]
+U = 25  # the registry models' cond_lin_upsampling
+# (C, B, frames, dilations, causal) with a frame-rate cond: rows = frames x U
+UPSAMPLED_CASES = [(8, 2, 4, (1, 2, 64, 128), False), (68, 3, 11, (1, 16, 4), True), (256, 2, 37, (1, 2, 4), False),
+                   (320, 1, 512, REGISTRY_DILS, False), (340, 2, 513, REGISTRY_DILS, True),
+                   (320, 8, 1024, REGISTRY_DILS, False), (320, 8, 2048, REGISTRY_DILS, False),
+                   (340, 8, 1024, REGISTRY_DILS, False), (340, 8, 2048, REGISTRY_DILS, False)]
+# the offline groups' blocks: (C, B, frames) of block 0 (2 kHz) and block 1 (4 kHz)
+OFFLINE_BLOCKS = [(320, 8, 1024), (320, 8, 2048), (340, 8, 1024), (340, 8, 2048)]
 
 
 def make_case(C, B, T, dils, dtype, device, seed=0, per_layer=False):
@@ -56,6 +72,13 @@ def make_case(C, B, T, dils, dtype, device, seed=0, per_layer=False):
             torch.randn(2 * C, 3, C, generator=g) * scale, torch.randn(2 * C, generator=g) * 0.05,
             torch.randn(out, C, generator=g) * scale, torch.randn(out, generator=g) * 0.05)))
     return x, cond, weights
+
+
+def make_frames(C, B, frames, dtype, device, seed=0):
+    """A frame-rate cond as the model hands K1 one: (B, frames + 1, 2C), the last frame repeated."""
+    g = torch.Generator().manual_seed(seed + 1000)
+    cond = (torch.randn(B, frames, 2 * C, generator=g) * 0.2).to(device, dtype)
+    return torch.cat([cond, cond[:, -1:]], dim=1)
 
 
 def cuda_time_ms(fn, iters=10, warmup=2):
@@ -86,6 +109,61 @@ def digests(ws, device) -> None:
                 y = ws.wavenet_stack(x, cond, weights, REGISTRY_DILS)
             h = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
             print(f"digest {str(dtype)[6:]} C={C} B={B} T={T}: {h}", flush=True)
+    if not ws.upsampled:
+        print("digest: this package's K1 takes no frame-rate cond", flush=True)
+        return
+    for dtype in (torch.bfloat16, torch.float32):
+        for C, B, frames, dils, causal in UPSAMPLED_CASES:
+            if dtype == torch.float32 and B * frames * U > 30000:
+                continue
+            x, _, weights = make_case(C, B, frames * U, dils, dtype, device, seed=7)
+            with ws.exact_fp32():
+                y = ws.wavenet_stack(x, make_frames(C, B, frames, dtype, device, seed=7), weights, dils,
+                                     causal=causal, cond_upsampling=U)
+            h = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+            print(f"digest {str(dtype)[6:]} C={C} B={B} frames={frames} U={U}{' causal' if causal else ''}: {h}",
+                  flush=True)
+
+
+def check_upsampled(ws, device) -> int:
+    """K1 on a frame-rate cond against K1 on the upsampler's slab (bit for bit) and the plain version."""
+    failed = 0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        for C, B, frames, dils, causal in UPSAMPLED_CASES:
+            if dtype == torch.float32 and B * frames * U > 30000:
+                continue
+            x, _, weights = make_case(C, B, frames * U, dils, dtype, device)
+            low = make_frames(C, B, frames, dtype, device)
+            with ws.exact_fp32():
+                got = ws.wavenet_stack(x, low, weights, dils, causal=causal, cond_upsampling=U)
+                slab = ws.interp(low, U, drop_last=True)
+                same = torch.equal(got, ws.wavenet_stack(x, slab, weights, dils, causal=causal))
+                rel = rel_rms(got, ws.plain(x, low, weights, dils, causal=causal, cond_upsampling=U)) \
+                    if B * frames <= 4096 else float("nan")
+            ok = same and bool(torch.isfinite(got).all()) and not rel > tol
+            failed += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} {str(dtype)[6:]} C={C} B={B} frames={frames} U={U} "
+                  f"{'causal' if causal else 'SAME'}: {'bit-equal to' if same else 'DIFFERS from'} the "
+                  f"full-rate slab's call; rel-RMS to plain {rel:.3e}", flush=True)
+            del x, low, weights, got, slab
+    return failed
+
+
+def time_upsampled(ws, device) -> None:
+    """Device ms a stack call at the offline groups' block shapes: K1 on the frame-rate cond, K1 on the
+    full-rate slab, and the interpolation that makes the slab."""
+    for C, B, frames in OFFLINE_BLOCKS:
+        x, _, weights = make_case(C, B, frames * U, REGISTRY_DILS, torch.bfloat16, device)
+        packed = ws.pack(weights)
+        low = make_frames(C, B, frames, torch.bfloat16, device)
+        slab = ws.interp(low, U, drop_last=True)
+        full_ms = cuda_time_ms(lambda: ws.wavenet_stack(x, slab, packed, REGISTRY_DILS))
+        interp_ms = cuda_time_ms(lambda: ws.interp(low, U, drop_last=True))
+        low_ms = cuda_time_ms(lambda: ws.wavenet_stack(x, low, packed, REGISTRY_DILS, cond_upsampling=U)) \
+            if ws.upsampled else float("nan")
+        print(f"bf16 C={C} B={B} rows={frames * U}: K1 frame-rate cond {low_ms:.3f} ms, K1 full-rate slab "
+              f"{full_ms:.3f} ms + interpolation {interp_ms:.3f} ms", flush=True)
+        del x, weights, packed, low, slab
 
 
 def main() -> int:
@@ -95,10 +173,12 @@ def main() -> int:
     ap.add_argument("--digest", action="store_true", help="only the shared-cond outputs' digests")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).absolute()))
-    from mbexwn_vocoder_torch.ops import kernel_lib, precision, wavenet_stack as ws_mod
+    from mbexwn_vocoder_torch.ops import interp, kernel_lib, precision, wavenet_stack as ws_mod
 
     ws = argparse.Namespace(wavenet_stack=ws_mod.wavenet_stack, plain=ws_mod.wavenet_stack_plain,
-                            pack=ws_mod.pack_stack_weights, exact_fp32=precision.exact_fp32)
+                            pack=ws_mod.pack_stack_weights, exact_fp32=precision.exact_fp32,
+                            interp=interp.linear_interp_upsample,
+                            upsampled="cond_upsampling" in inspect.signature(ws_mod.wavenet_stack).parameters)
     if not torch.cuda.is_available():
         print("torch_k1_check: FAIL no CUDA device", file=sys.stderr)
         return 2
@@ -134,6 +214,8 @@ def main() -> int:
                       f"{'per-layer' if per_layer else 'shared'} cond: rel-RMS {rel:.3e}, max abs "
                       f"{float((got - ref).abs().max()):.3e}", flush=True)
                 del x, cond, weights, got, ref
+    if ws.upsampled:
+        failed += check_upsampled(ws, device)
     for C in (320, 340):
         total = 0.0
         for T in (12800, 25600):
@@ -144,6 +226,7 @@ def main() -> int:
             total += ms
             print(f"bf16 C={C} rows={T}: {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s)", flush=True)
         print(f"bf16 C={C}: K1 per 512-frame synthesis {total:.3f} ms")
+    time_upsampled(ws, device)
     for B, T in ((1, 16384), (8, 32768)):
         x, cond, weights = make_case(256, B, T, WAVEGLOW_DILS, torch.bfloat16, device, per_layer=True)
         packed = ws.pack(weights)
