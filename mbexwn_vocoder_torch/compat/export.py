@@ -100,10 +100,7 @@ def export_synthesis(model, T_mel: int, batch_size: int = 1, platforms: Optional
     for name in names:
         device = resolve_device(name)
         program = _serving_copy(model, device)
-        noise = None
-        if program.block.pp_mod_subnet_noise_channel_sigma:
-            noise = torch.randn((batch_size, program.block.wn_input_length(T_mel), 1),
-                                generator=torch.Generator(device=device).manual_seed(0), device=device)
+        noise = program.noise(batch_size, T_mel, device)
         mel = torch.zeros((batch_size, T_mel, mel_channels), device=device)
         with torch.no_grad(), exact_fp32():
             exported = torch.export.export(_Synthesis(program, noise, T_mel * hop), (mel,), strict=False)

@@ -22,12 +22,9 @@ from scipy.interpolate import interp1d
 
 from . import get_config_file
 from .analysis import compute_mel_spectrogram_internal
-from .compat.params_io import flatten, load_params, params_from_jax
-from .config import read_config
 from .dsp.db import log_to_db
 from .dsp.resample import resample
-from .models.factory import create_model
-from .ops.conv import fold_weight_norm
+from .models.factory import load_model
 from .platform import resolve_device
 
 _DEF_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
@@ -193,20 +190,12 @@ class MELInverter:
     # -------------------------------------------------------------- loading
 
     def load_model(self, model_id_or_path, verbose=False):
-        config_file = get_config_file(model_id_or_path)
-        self.config_file = config_file
-        model_dir = os.path.dirname(config_file)
-        hparams = read_config(config_file)
-        self.preprocess_config = hparams["preprocess_config"]
-        model, _ = create_model(hparams, hparams["training_config"], self.preprocess_config, quiet=not verbose)
-        weights_npz = os.path.join(model_dir, "weights.npz")
-        if not os.path.exists(weights_npz):
-            raise FileNotFoundError(f"no weights.npz in {model_dir}")
+        self.config_file = get_config_file(model_id_or_path)
         if verbose:
-            print(f"restore from {weights_npz}", file=sys.stderr)
-        state = params_from_jax(flatten(fold_weight_norm(load_params(weights_npz))))
-        getattr(model, "block", model).load_state_dict(state, strict=True)  # PaNWaveNet's weights are its block's
-        self.model = model.eval().to(self.device)
+            print(f"restore from {os.path.join(os.path.dirname(self.config_file), 'weights.npz')}", file=sys.stderr)
+        model, hparams = load_model(model_id_or_path, quiet=not verbose)
+        self.preprocess_config = hparams["preprocess_config"]
+        self.model = model.to(self.device)
 
         self.mel_channels = self.preprocess_config["mel_channels"]
         self.hop_size = self.preprocess_config["hop_size"]

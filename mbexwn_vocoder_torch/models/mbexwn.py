@@ -459,9 +459,8 @@ class MBExWN(nn.Module):
     @staticmethod
     def draw_noise(shape, dtype: torch.dtype, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The noise channel's draw when no noise is given: N(0, 1) of `shape`
-        from `generator`, or from a new generator on `device` seeded 0.  A
-        caller that holds the noise of a shape (streaming's captured chunk
-        programs) draws it here, so it is bit-equal to the draw it stands for."""
+        from `generator`, or from a new generator on `device` seeded 0
+        (`PaNWaveNet.noise` draws it for callers that hold the noise)."""
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         return torch.randn(shape, generator=generator, dtype=dtype, device=device)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..compat.params_io import params_from_jax
 from ..dsp.mel import mel_filter, mel_frequencies
 from ..dsp.windows import get_stft_window
 from ..observability import MODEL_NORMMEL, span
@@ -143,6 +144,8 @@ class NormMelComponents(nn.Module):
 class PaNWaveNet(nn.Module):
     """Top-level model: mel -> waveform.  Its weights are those of `block`."""
 
+    streamable = True  # causal or haloed chunks with the oscillator's phase carried (parallel/streaming.py)
+
     def __init__(self, model_config: Dict, training_config: Dict, preprocess_config: Dict, quiet: bool = True,
                  name: str = "myWaveGlow", **_):
         super().__init__()
@@ -194,6 +197,17 @@ class PaNWaveNet(nn.Module):
         self.block.fold_()
         return self
 
+    def load_jax_params(self, flat: Dict) -> None:
+        """Load flat JAX-layout params of the current form into the block.  With
+        the noise channel off, block 0's folded start kernel drops the noise's
+        input column if it has one: the shipped model with its noise at zero."""
+        blk = self.block
+        start = f"{blk.block_names[0]}/wavenet/start/kernel"
+        if (not blk.pp_mod_subnet_noise_channel_sigma and start in flat
+                and flat[start].shape[1] == blk.wn_in_channels + 1):
+            flat = {**flat, start: flat[start][:, :-1]}
+        blk.load_state_dict(params_from_jax(flat), strict=True)
+
     def set_differentiable(self, on: bool = True) -> None:
         """The training route (True: per-layer WaveNet, plain oscillator) or
         the kernels' (False, the default)."""
@@ -207,6 +221,27 @@ class PaNWaveNet(nn.Module):
         """The shape of `infer`'s `noise` (the noise channel) for a mel of T_mel frames."""
         return batch, self.block.wn_input_length(T_mel), 1
 
+    def noise(self, batch: int, T_mel: int, device) -> Optional[torch.Tensor]:
+        """The noise channel `infer` draws for a (batch, T_mel) mel handed none,
+        for callers that hold or split it (None with the channel off)."""
+        if not self.block.pp_mod_subnet_noise_channel_sigma:
+            return None
+        return MBExWN.draw_noise(self.noise_shape(batch, T_mel), torch.float32, device)
+
+    def prepare_mel(self, spect: torch.Tensor, synth_length: int = 0):
+        """The mel (B, T, C) as the model sees it for `synth_length` samples
+        (T * hop by default), extended by its last frame where short and
+        RMS-normalised where the model normalises -> (mel, the upsampled RMS
+        (B, synth_length, 1) or None)."""
+        synth_length = synth_length or spect.shape[1] * self.spect_hop_size
+        if spect.shape[1] * self.spect_hop_size < synth_length:
+            spect = torch.cat((spect, spect[:, -1:]), dim=1)
+        if self.norm_mel_components is None:
+            return spect, None
+        with span(MODEL_NORMMEL):
+            _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
+        return spect, upsampled_rms
+
     @exact_fp32()
     def infer(self, spect: torch.Tensor, synth_length: int = 0, F0: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
@@ -217,12 +252,7 @@ class PaNWaveNet(nn.Module):
         block's control signals (`MBExWN.forward`'s return_PP) cut to
         synth_length; `return_components` puts the sound in a list."""
         synth_length = synth_length if synth_length else self.segment_length
-        if spect.shape[1] * self.spect_hop_size < synth_length:
-            spect = torch.cat((spect, spect[:, -1:]), dim=1)
-        upsampled_rms = None
-        if self.norm_mel_components is not None:
-            with span(MODEL_NORMMEL):
-                _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(None, spect, synth_length)
+        spect, upsampled_rms = self.prepare_mel(spect, synth_length)
         out = self.block(spect, F0=F0, noise=noise, generator=generator, phase_offset=phase_offset,
                          return_PP=return_F0)
         signal, PP = out if return_F0 else (out, None)
@@ -244,13 +274,8 @@ class PaNWaveNet(nn.Module):
         None).  A given F0 sets synth_length to its length;
         `transposition_factor` scales the F0."""
         synth_length = synth_length if F0 is None else F0.shape[1]
-        if synth_length and spect.shape[1] * self.spect_hop_size < synth_length:
-            spect = torch.cat((spect, spect[:, -1:]), dim=1)
-        upsampled_rms = None
-        if self.norm_mel_components is not None:
-            with span(MODEL_NORMMEL):
-                _, spect, upsampled_rms = self.norm_mel_components.normalize_inputs_by_rms(
-                    None, spect, synth_length or spect.shape[1] * self.spect_hop_size)
+        spect, upsampled_rms = self.prepare_mel(spect, synth_length)
+        if upsampled_rms is not None:
             upsampled_rms = upsampled_rms[:, :, 0]
         if F0 is None:
             F0 = self.block.generate_f0(spect)

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..compat.params_io import params_from_jax
 from ..nn.wavenet import WaveNetAE
 from ..observability import MODEL_WAVENET, WAVEGLOW_COUPLING, WAVEGLOW_UPSAMPLE, span
 from ..ops.precision import exact_fp32
@@ -128,6 +129,10 @@ class WaveGlow(nn.Module):
                                      compute_dtype=self.wn_compute_dtype, name=f"WN{k}"))
         self.n_remaining_channels = n_remaining
         self.flow_spans = [f"{MODEL_WAVENET}flow{k}" for k in range(self.n_flows)]  # each WN's span name
+
+    def load_jax_params(self, flat: Dict) -> None:
+        """Load flat JAX-layout params (`compat.params_io.flatten`) into the model."""
+        self.load_state_dict(params_from_jax(flat), strict=True)
 
     def early_flows(self) -> List[int]:
         """The flows after which an early z is prepended, in synthesis order."""

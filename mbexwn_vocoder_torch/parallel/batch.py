@@ -82,15 +82,10 @@ class BatchSynthesizer:
         """The noise rows of utterances n_before .. n_before + n_rows of a
         bucket of n_in_bucket, on the mesh's first device: row i of the draw
         of its run of 8 (`PipelinedSynthesizer`'s groups)."""
-        blk = self.model.block
-        if not blk.pp_mod_subnet_noise_channel_sigma:
+        rows = [self.model.noise(min(CHUNK, n_in_bucket - run * CHUNK), T_pad, self.device)
+                for run in range(n_before // CHUNK, -(-(n_before + n_rows) // CHUNK))]
+        if rows[0] is None:
             return None
-        L = blk.wn_input_length(T_pad)
-        rows = []
-        for run in range(n_before // CHUNK, -(-(n_before + n_rows) // CHUNK)):
-            size = min(CHUNK, n_in_bucket - run * CHUNK)
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            rows.append(torch.randn((size, L, 1), generator=gen, dtype=torch.float32, device=self.device))
         return torch.cat(rows)[n_before % CHUNK: n_before % CHUNK + n_rows]
 
     def _synth_group(self, group: List[np.ndarray], T_pad: int, n_before: int, n_in_bucket: int) -> np.ndarray:

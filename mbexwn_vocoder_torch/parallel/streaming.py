@@ -9,10 +9,11 @@ geometry, edge conventions and outputs:
   audio outside [t0, t1) is dropped;
 - the oscillator phase is a prefix sum over the whole utterance.  The phase
   at a chunk's left edge (the carry) is accumulated in fp64 mod 1 from each
-  chunk's interior phase increments and handed to the chunk as fp32; inside
-  the chunk the offset is mod(carry - left-halo increment, 1) in fp32, from
-  the span's own F0, and goes to the oscillator kernel as its
-  `phase_offset`.  The increments are the oscillator's own, F0 times the
+  chunk's interior phase increments; the chunk's offset is mod(carry -
+  left-halo increment, 1) in fp64 from the span's own F0, cast to fp32 once,
+  and goes to the oscillator kernel as its `phase_offset`.  Every mode
+  computes both with one pair of helpers (`_phase_offset`, `_phase_carry`).
+  The increments are the oscillator's own, F0 times the
   fp32 reciprocal of its rate (`ops.oscillator.phase_velocity`): summing
   F0 / rate instead (the JAX package's carry) misses the oscillator's
   integral by the reciprocal's rounding, 1.07e-8 of it at 12 kHz, which
@@ -96,28 +97,14 @@ from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..nn.wavenet import WaveNetAE
-from ..observability import MODEL_NORMMEL, STREAM_ENQUEUE, STREAM_READBACK, STREAM_REPLAY, span
+from ..observability import STREAM_ENQUEUE, STREAM_READBACK, STREAM_REPLAY, span
 from ..ops.oscillator import phase_velocity
 from ..ops.padding import pad1d
 from ..ops.precision import exact_fp32
 from ..platform import resolve_device
 from .mesh import Mesh, replicate, shard_bounds
-
-
-def _mod1_sum(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
-    """Stable sum mod 1 over axis 1 of a (B, T) tensor of phase increments:
-    block-wise partial sums taken mod 1 before the final reduction keep every
-    intermediate small, where one fp32 sum of tens of thousands of
-    increments would lose the fraction."""
-    B, T = x.shape
-    pad = (-T) % block
-    if pad:
-        x = F.pad(x, (0, pad))
-    partial = torch.remainder(x.reshape(B, -1, block).sum(dim=2), 1.0)
-    return torch.remainder(partial.sum(dim=1), 1.0)
 
 
 def _phase_increment(f0: torch.Tensor, rate: float) -> torch.Tensor:
@@ -126,9 +113,16 @@ def _phase_increment(f0: torch.Tensor, rate: float) -> torch.Tensor:
     return phase_velocity(f0, rate).double().sum(dim=1)
 
 
-def _edge_pad_time(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """(B, T) -> (B, lo + T + hi), repeating the first and last sample."""
-    return pad1d(x[:, :, None], lo, hi, "EDGE")[:, :, 0]
+def _phase_offset(carry: torch.Tensor, f0_left: torch.Tensor, rate: float) -> torch.Tensor:
+    """A chunk's `phase_offset` (B,) fp32: the carry (B,) fp64, the phase
+    (mod 1) just before its first interior sample, less what the oscillator
+    integrates over its left halo's F0 (B, n), mod 1 in fp64."""
+    return torch.remainder(carry - _phase_increment(f0_left, rate), 1.0).float()
+
+
+def _phase_carry(carry: torch.Tensor, f0_inner: torch.Tensor, rate: float) -> torch.Tensor:
+    """The carry (B,) fp64 past a chunk's interior F0 (B, n)."""
+    return torch.remainder(carry + _phase_increment(f0_inner, rate), 1.0)
 
 
 @dataclass
@@ -159,17 +153,13 @@ class StreamingSynthesizer:
         data rows; everything else runs on its first row (`device` is then
         not read).  Each row's replica is placed on the row's model devices,
         as the JAX package constrains only the chunk batch, over "data"."""
-        if not getattr(model, "streamable", True):
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.first
+        if not model.streamable:
             raise ValueError(f"StreamingSynthesizer: a {type(model).__name__} model has no chunked form (it is "
                              "non-causal and carries no state from chunk to chunk); synthesise it whole with "
                              "MELInverter or serving.PipelinedSynthesizer")
-        self.mesh = mesh
-        if mesh is None:
-            self.device = resolve_device(device)
-            self.replicas = {self.device: model.to(self.device)}
-        else:
-            self.device = mesh.first
-            self.replicas = replicate(model, mesh)
+        self.replicas = {self.device: model.to(self.device)} if mesh is None else replicate(model, mesh)
         self.model = self.replicas[self.device]
         self.chunk_frames = chunk_frames
         self.halo_frames = halo_frames
@@ -199,12 +189,8 @@ class StreamingSynthesizer:
     def _model_f0(self, mel: torch.Tensor) -> torch.Tensor:
         """The F0 contour the model synthesises `mel` (B, T, C) with: the F0
         net on the mel as the model sees it, RMS-normalised where it
-        normalises (as `PaNWaveNet.infer` does before the F0 net)."""
-        mel = mel.contiguous()
-        norm = self.model.norm_mel_components
-        if norm is not None:
-            with span(MODEL_NORMMEL):
-                _, mel, _ = norm.normalize_inputs_by_rms(None, mel, mel.shape[1] * self.hop)
+        normalises (`PaNWaveNet.prepare_mel`, as `infer` runs it)."""
+        mel, _ = self.model.prepare_mel(mel.contiguous())
         return self.model.block.generate_f0(mel)
 
     def _body(self, mel_span: torch.Tensor, f0: torch.Tensor, carry: torch.Tensor, left: int, inner: int,
@@ -214,13 +200,11 @@ class StreamingSynthesizer:
         the phase (mod 1) just before frame t0, and the noise (None: the
         model draws it) -> (audio of [t0, t1) (B, inner * hop), the carry at
         t1)."""
-        stp, hop = self.stp, self.hop
-        left_inc = phase_velocity(f0[:, : left * stp], self.osc_rate).sum(dim=1)
-        offset = torch.remainder(carry.float() - left_inc, 1.0)
+        stp, hop, rate = self.stp, self.hop, self.osc_rate
+        offset = _phase_offset(carry, f0[:, : left * stp], rate)
         y = self.model.infer(mel_span, synth_length=mel_span.shape[1] * hop, F0=f0, phase_offset=offset,
                              noise=noise)
-        carry = torch.remainder(carry + _phase_increment(f0[:, left * stp: (left + inner) * stp], self.osc_rate),
-                                1.0)
+        carry = _phase_carry(carry, f0[:, left * stp: (left + inner) * stp], rate)
         return y[:, left * hop: (left + inner) * hop], carry
 
     def _graph_key(self, mel_span: torch.Tensor, left: int, inner: int) -> tuple:
@@ -244,14 +228,6 @@ class StreamingSynthesizer:
             return None
         return self._graphs.get(self._graph_key(mel_span, left, inner))
 
-    def _held_noise(self, B: int, length: int) -> Optional[torch.Tensor]:
-        """The noise channel a chunk of B rows and `length` mel frames draws
-        (None with the channel off): the model's own seed-0 draw, made once."""
-        blk = self.model.block
-        if not blk.pp_mod_subnet_noise_channel_sigma:
-            return None
-        return blk.draw_noise((B, blk.wn_input_length(length), 1), torch.float32, self.device)
-
     @exact_fp32()
     @torch.inference_mode()
     def _capture(self, B: int, length: int, left: int, inner: int) -> None:
@@ -267,7 +243,7 @@ class StreamingSynthesizer:
             self._pool, self._capture_stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
         f0 = self._model_f0(mel)
         carry = torch.zeros((B,), dtype=torch.float64, device=dev)
-        noise = self._held_noise(B, length)
+        noise = self.model.noise(B, length, dev)
         side = self._capture_stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -341,25 +317,22 @@ class StreamingSynthesizer:
         for idx, (t0, t1, lo, hi) in enumerate(bounds):
             groups.setdefault((hi - lo, t0 - lo, t1 - t0), []).append(idx)
 
-        # the F0 of each group; a chunk's interior increments feed the carries,
-        # its left-halo increments (what the oscillator inside the chunk
-        # integrates before t0) the offset that cancels them
-        inputs, interior_inc, left_inc = {}, [None] * len(bounds), [None] * len(bounds)
+        # the F0 of each group, then each chunk's offset and the carry past it, in chunk order
+        inputs, f0_of = {}, [None] * len(bounds)
         for (span, left, inner), idxs in groups.items():
             mel_spans = self._to_device(np.stack([mell[:, bounds[i][2]: bounds[i][3]] for i in idxs], axis=0)
                                         .reshape(-1, span, C))
             self.programs.add(("f0", span))
             f0 = self._model_f0(mel_spans)
-            f0_rows = f0.reshape(len(idxs), B, -1)
-            for row, i in enumerate(idxs):
-                interior_inc[i] = _phase_increment(f0_rows[row, :, left * stp: (left + inner) * stp], self.osc_rate)
-                left_inc[i] = _phase_increment(f0_rows[row, :, : left * stp], self.osc_rate)
+            for i, f0_chunk in zip(idxs, f0.reshape(len(idxs), B, -1)):
+                f0_of[i] = f0_chunk
             inputs[(span, left, inner)] = (mel_spans, f0)
         carry = torch.zeros((B,), dtype=torch.float64, device=self.device)
         offsets = []
-        for inc_left, inc_interior in zip(left_inc, interior_inc):
-            offsets.append(torch.remainder(carry - inc_left, 1.0).float())
-            carry = torch.remainder(carry + inc_interior, 1.0)
+        for (t0, t1, lo, _), f0 in zip(bounds, f0_of):
+            left, inner = t0 - lo, t1 - t0
+            offsets.append(_phase_offset(carry, f0[:, : left * stp], self.osc_rate))
+            carry = _phase_carry(carry, f0[:, left * stp: (left + inner) * stp], self.osc_rate)
 
         out = torch.empty((B, T * hop), dtype=torch.float32, device=self.device)
         ys = {}
@@ -384,12 +357,7 @@ class StreamingSynthesizer:
         n = 1 if self.mesh is None else self.mesh.shape["data"]
         if n == 1 or mel_spans.shape[0] % n:
             return [self.model.infer(mel_spans, synth_length=synth_length, F0=f0, phase_offset=offsets)]
-        blk = self.model.block
-        noise = None
-        if blk.pp_mod_subnet_noise_channel_sigma:
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            noise = torch.randn((mel_spans.shape[0], blk.wn_input_length(mel_spans.shape[1]), 1), generator=gen,
-                                dtype=torch.float32, device=self.device)
+        noise = self.model.noise(mel_spans.shape[0], mel_spans.shape[1], self.device)
         shards = [(dev, [t[lo:hi].to(dev) for t in (mel_spans, f0, offsets)]
                    + [None if noise is None else noise[lo:hi].to(dev)])
                   for dev, (lo, hi) in zip(self.mesh.devices, shard_bounds(mel_spans.shape[0], n))]
@@ -410,31 +378,27 @@ class StreamingSynthesizer:
         boundary.  One full-length F0 pass fixes every chunk's start phase
         from the contour the one-shot program integrates, and every chunk
         synthesises against that contour (sliced), so its phase integral is
-        the one-shot phase."""
+        the one-shot phase.  Each chunk is the chunk program's body, its
+        interior the contour's next c frames."""
         B, T, _ = mell.shape
         c, h, hr = self.chunk_frames, self.halo_frames, self.halo_right
         if T <= c + h:
             return self._one_shot(mell)
-        stp, hop, rate = self.stp, self.hop, self.osc_rate
+        stp, hop = self.stp, self.hop
         n_chunks = -(-T // c)
         span = c + h + hr
         self.programs.add(("scan", n_chunks, B))
         mel_halo = self._to_device(np.pad(mell, ((0, 0), (h, n_chunks * c - T + hr), (0, 0)), mode="edge"))
         f0_full = self._model_f0(self._to_device(mell))
-        f0_full = _edge_pad_time(f0_full, 0, n_chunks * c * stp - f0_full.shape[1])
-        # each chunk's increment (fp64, mod 1), then an exclusive cumsum mod 1: each chunk's start
-        # phase.  (The JAX package sums fp32 blocks of up to ~256 cycles here, whose fp32 spacing is
-        # 3e-5 cycles.)
-        inc = torch.remainder(_phase_increment(f0_full.reshape(B * n_chunks, c * stp), rate), 1.0)
-        starts = F.pad(torch.remainder(torch.cumsum(inc.reshape(B, n_chunks), dim=1), 1.0), (1, 0))[:, :-1]
-        f0_haloed = _edge_pad_time(f0_full, h * stp, hr * stp)
+        f0_haloed = pad1d(f0_full[:, :, None], h * stp, (n_chunks * c + hr) * stp - f0_full.shape[1],
+                          "EDGE")[:, :, 0]
+        carry = torch.zeros((B,), dtype=torch.float64, device=self.device)
         out = torch.empty((B, n_chunks * c * hop), dtype=torch.float32, device=self.device)
         for i in range(n_chunks):
             mel_span = mel_halo[:, i * c: i * c + span].contiguous()
             f0_span = f0_haloed[:, i * c * stp: (i * c + span) * stp].contiguous()
-            offset = torch.remainder(starts[:, i] - _mod1_sum(phase_velocity(f0_span[:, : h * stp], rate)), 1.0).float()
-            y = self.model.infer(mel_span, synth_length=span * hop, F0=f0_span, phase_offset=offset)
-            out[:, i * c * hop: (i + 1) * c * hop] = y[:, h * hop: (h + c) * hop]
+            y, carry = self._body(mel_span, f0_span, carry, h, c)
+            out[:, i * c * hop: (i + 1) * c * hop] = y
         return out[:, : T * hop].cpu().numpy()
 
     # ------------------------------------------------------------------ live

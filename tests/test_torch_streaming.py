@@ -23,18 +23,15 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from mbexwn_vocoder_tpu.models import create_model as jax_create_model
 from mbexwn_vocoder_tpu.ops.conv import fold_weight_norm as jax_fold
 from mbexwn_vocoder_tpu.parallel import StreamingSynthesizer as JaxStreamingSynthesizer
-from mbexwn_vocoder_tpu.parallel.streaming import _mod1_sum as jax_mod1_sum
 
 from mbexwn_vocoder_torch.compat.params_io import flatten, params_from_jax
 from mbexwn_vocoder_torch.mel_inverter import MELInverter
 from mbexwn_vocoder_torch.models import create_model, create_registry_model
 from mbexwn_vocoder_torch.parallel import StreamingSynthesizer
-from mbexwn_vocoder_torch.parallel.streaming import _mod1_sum
 
 from tests.test_torch_causal import causal_small_hparams
 from tests.test_torch_model import make_mel, rel_rms
@@ -197,20 +194,20 @@ def noisy_model():
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_held_noise_is_the_models_own_draw(noisy_model, models, B):
-    """The noise a captured chunk holds equals, bit for bit, the seed-0 draw
-    `fold_pulse_channels` makes itself, at every ramp shape of the live
-    geometry; with the noise channel off there is none."""
+    """The noise a captured chunk holds (`model.noise`) equals, bit for bit,
+    the seed-0 draw `fold_pulse_channels` makes itself, at every ramp shape
+    of the live geometry; with the noise channel off there is none."""
     blk = noisy_model.block
     ss = StreamingSynthesizer(noisy_model, device="cpu", **LIVE)
     ss.warm(B)
     spans = sorted(span for span, _, _ in ss.programs)
     assert spans == [18, 34, 50]
     for span in spans:
-        held = ss._held_noise(B, span)
+        held = noisy_model.noise(B, span, ss.device)
         assert held.shape == (B, blk.wn_input_length(span), 1)
         pulse = blk.oscillate(torch.full((B, span * blk.spect_to_pulse_upsampling_factor), 140.0))
         assert torch.equal(blk.fold_pulse_channels(pulse, noise=held), blk.fold_pulse_channels(pulse))
-    assert StreamingSynthesizer(models[2], device="cpu", **LIVE)._held_noise(B, 50) is None
+    assert models[2].noise(B, 50, ss.device) is None
 
 
 def test_graph_engages_only_where_warm_captured(noisy_model, models, monkeypatch):
@@ -255,7 +252,8 @@ def test_graph_engages_only_where_warm_captured(noisy_model, models, monkeypatch
 def _chunks_before_graphs(model, mell, c, h, hr):
     """The chunk program as `stream` ran it before graphs, written out: per
     chunk the F0 net on the (normalised) span, the offset from the fp64
-    carry, one synthesis that draws its noise, the carry update."""
+    carry (fp64 mod 1, cast once), one synthesis that draws its noise, the
+    carry update."""
     blk = model.block
     stp, hop, rate = blk.spect_to_pulse_upsampling_factor, blk.spect_hop_size, blk.wavetable.sample_rate
     B, n, _ = mell.shape
@@ -269,7 +267,7 @@ def _chunks_before_graphs(model, mell, c, h, hr):
             span = torch.from_numpy(mell[:, lo:hi]).contiguous()
             _, normed, _ = model.norm_mel_components.normalize_inputs_by_rms(None, span, span.shape[1] * hop)
             f0 = blk.generate_f0(normed)
-            offset = torch.remainder(carry.float() - (f0[:, : left * stp] * (1.0 / rate)).sum(dim=1), 1.0)
+            offset = torch.remainder(carry - (f0[:, : left * stp] * (1.0 / rate)).double().sum(dim=1), 1.0).float()
             y = model.infer(span, synth_length=span.shape[1] * hop, F0=f0, phase_offset=offset)
             inc = (f0[:, left * stp: (left + inner) * stp] * (1.0 / rate)).double().sum(dim=1)
             carry = torch.remainder(carry + inc, 1.0)
@@ -380,13 +378,30 @@ def test_carry_follows_the_oscillator_phase():
     assert err_divided[-1] > 1e-4
 
 
-@pytest.mark.parametrize("T_inc", [1000, 2400, 4097])
-def test_mod1_sum_matches_jax(T_inc):
-    x = (np.random.RandomState(T_inc).rand(2, T_inc) * 0.05).astype(np.float32)
-    got = _mod1_sum(torch.from_numpy(x)).numpy()
-    ref = np.asarray(jax_mod1_sum(jnp.asarray(x)))
-    d = np.abs(got - ref)
-    assert np.max(np.minimum(d, 1.0 - d)) <= 1e-5
+@pytest.mark.parametrize("h, c, hr", [(32, 16, 2), (16, 32, 16), (40, 64, 40)])
+def test_stream_offset_is_the_live_checks_fp64_arithmetic(noisy_model, monkeypatch, h, c, hr):
+    """The phase_offset `stream` hands the model for each chunk equals, bit
+    for bit, the offset the live benchmark's check computes from the same
+    F0 in fp64 (benchmark/runners/live.py): the carry and the left-halo sum
+    of the oscillator's own increments in fp64, mod 1, cast to fp32 once."""
+    blk = noisy_model.block
+    stp, rate = blk.spect_to_pulse_upsampling_factor, blk.wavetable.sample_rate
+    seen = []
+    real = noisy_model.infer
+    monkeypatch.setattr(noisy_model, "infer",
+                        lambda *a, **kw: seen.append((kw["F0"].clone(), kw["phase_offset"].clone())) or real(*a, **kw))
+    mell = _mel(22, frames=h + 3 * c + 5)
+    ss = StreamingSynthesizer(noisy_model, chunk_frames=c, halo_frames=h, halo_right=hr, device="cpu")
+    n_chunks = len(list(ss.stream(mell[:, i: i + 4] for i in range(0, mell.shape[1], 4))))
+    assert len(seen) == n_chunks == len(ss._bounds(mell.shape[1]))
+    inv_rate = torch.tensor(1.0 / rate, dtype=torch.float32)
+    carry = 0.0
+    for k, (f0, offset) in enumerate(seen):
+        left = min(h, k * c)
+        inc = (f0.cpu() * inv_rate).double()
+        expected = torch.tensor([(carry - float(inc[0, : left * stp].sum())) % 1.0])
+        assert offset.dtype == torch.float32 and torch.equal(offset, expected), k
+        carry = (carry + float(inc[0, left * stp: (left + c) * stp].sum())) % 1.0
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,8 @@ from mbexwn_vocoder_tpu.ops.conv import fold_weight_norm as jax_fold
 from mbexwn_vocoder_torch import get_config_file, list_models
 from mbexwn_vocoder_torch.compat.params_io import flatten, load_params, params_from_jax
 from mbexwn_vocoder_torch.config import read_config
-from mbexwn_vocoder_torch.models import create_model
+from mbexwn_vocoder_torch.mel_inverter import MELInverter
+from mbexwn_vocoder_torch.models import create_model, create_registry_model
 from mbexwn_vocoder_torch.ops.conv import fold_weight_norm
 
 torch.set_num_threads(2)
@@ -75,6 +76,16 @@ def test_port_fold_matches_jax_fold(model_id):
             np.testing.assert_allclose(port[key], r, rtol=1e-6, atol=1e-9, err_msg=key)
         else:
             np.testing.assert_array_equal(port[key], r, err_msg=key)
+
+
+def test_inverter_and_registry_model_hold_the_same_weights():
+    """MELInverter's model and create_registry_model's, both from the one
+    loader (models.factory.load_model), hold bit-equal state dicts."""
+    got = MELInverter("SPEECH", device="cpu").model.state_dict()
+    ref = create_registry_model("SPEECH").state_dict()
+    assert got.keys() == ref.keys()
+    for name, value in ref.items():
+        assert got[name].dtype == value.dtype and torch.equal(got[name], value), name
 
 
 def test_distribution_copy_is_upcast(tmp_path):
