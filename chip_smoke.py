@@ -29,8 +29,13 @@ prints no result line:
      mode, the main path): finite, of the right length, and the launch
      counts, reset just before and read just after, show K1 and K2 ran;
   5. times (CUDA events): each kernel, its plain version and its bound at
-     the main path's shapes.  K2 and what it is held against are timed
-     device-paced (`device_time_ms`: the host enqueues every call while a
+     the main path's shapes.  K3 (the post net and the PQMF synthesis in one
+     launch, `phase_post_pqmf`; `--k3` runs [1] and it alone): on the
+     inputs a shipped SPEECH synthesis hands it (batch 1, 512 frames) and
+     at batch 8 x bucket 1024, against its plain version in true fp32
+     (rel-RMS <= 1e-6), device-paced beside its bound, the plain version
+     and the zero-stuffed fp32 cuDNN conv it replaces.  K2 and what it is
+     held against are timed device-paced (`device_time_ms`: the host enqueues every call while a
      spin kernel holds the card), beside the floor of an empty launch and of
      a cooperative launch that only crosses one grid barrier, and
      `library_ms`: F.grid_sample on precomputed coordinates, which computes
@@ -179,7 +184,7 @@ prints no result line:
      at batch 1 and 8, fp32 at batch 1): each artifact loaded and run in a
      fresh process (`chip_smoke.py --artifact-child DIR`) that imports none
      of the port's models, nn, config or mel_inverter: one call's launches
-     (24 K1 + 1 K2), the audio against `MELInverter.synth_from_mel` (batch
+     (24 K1, 1 K2, 1 K3), the audio against `MELInverter.synth_from_mel` (batch
      1) or `BatchSynthesizer` (batch 8) given the same noise rows (fp32
      <= 1e-5, bf16 <= 2e-2 rel-RMS; bit-equal printed), the call's ms by
      CUDA events and by the host clock with the copies beside [5]'s
@@ -283,6 +288,12 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12  # HBM3 peak
 N_FRAMES = 512
 SEED = 1234
+
+
+def kernel_counts(k1: int = 0, k2: int = 0, cond_upsampled: int = 0, k3: int = 0) -> dict:
+    """`kernel_lib.launches` as a path should leave it: K1 (wavenet_layer),
+    K2 (oscillator), K1 stack calls with a frame-rate cond, K3 (post_pqmf)."""
+    return {"wavenet_layer": k1, "oscillator": k2, "wavenet_cond_upsampled": cond_upsampled, "post_pqmf": k3}
 
 
 def rel_rms(a, b):
@@ -426,6 +437,86 @@ def device_busy(prof):
     return busy_us / 1e3, len(spans), by_name
 
 
+K3_SHAPES = ((1, N_FRAMES), (8, 1024))  # (batch, mel frames): [5]'s synthesis, an offline group's bucket
+
+
+def phase_post_pqmf(inv, check, dev):
+    """K3, the post net and the PQMF synthesis in one launch, at the main
+    path's shapes: [5]'s batch 1 x 512 frames (25,600 sub-band rows) on
+    the inputs a shipped SPEECH synthesis hands it, and batch 8 x bucket
+    1024 (51,200 rows a request) on seeded inputs of their scale.  Held
+    against `post_pqmf_plain` in true fp32 (rel-RMS <= 1e-6: the order of
+    fp32 sums only); timed device-paced beside its bound (x read once and
+    the audio written once at 3.35 TB/s, or its FMAs at 67 TFLOP/s fp32),
+    the plain version and `library_ms`, the one PyTorch call it replaces:
+    the zero-stuffed synthesis conv (cuDNN, fp32) on its stuffed, padded
+    input made beforehand.  At batch 1 x is 6.6 MB and stays in the 50 MB
+    L2 from launch to launch, as it does after the last WaveNet block;
+    at batch 8 it is 105 MB."""
+    import torch
+    import torch.nn.functional as F
+    from mbexwn_vocoder_torch.models import mbexwn
+    from mbexwn_vocoder_torch.ops import kernel_lib
+    from mbexwn_vocoder_torch.ops.post_pqmf import post_pqmf, post_pqmf_plain
+    from mbexwn_vocoder_torch.ops.precision import exact_fp32
+
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return post_pqmf(*args)
+
+    mbexwn.post_pqmf = recording
+    try:
+        kernel_lib.reset_launch_counts()
+        inv.synth_from_mel(make_mel(N_FRAMES, 80, SEED))
+        counts = dict(kernel_lib.launches)
+    finally:
+        mbexwn.post_pqmf = post_pqmf
+    check(len(calls) == 1 and counts["post_pqmf"] == 1,
+          f"K3: a SPEECH synthesis calls the stage {len(calls)} time(s) and launches K3 {counts['post_pqmf']} (1)")
+    x1, weight, bias, gain, mb_gain, filt, S, used = calls[0]
+    taps = filt.shape[-1] - 1
+    numbers = {}
+    for B, frames in K3_SHAPES:
+        T = frames * inv.hop_size // S
+        if (B, T) == tuple(x1.shape[:2]):
+            x = x1
+        else:
+            g = torch.Generator(device=dev).manual_seed(SEED + B)  # in the main path's layout, channel-major
+            x = (torch.randn((B, x1.shape[2], T), generator=g, device=dev) * float(x1.std())).transpose(1, 2)
+        args = (x, weight, bias, gain, mb_gain, filt, S, used)
+        with torch.inference_mode(), exact_fp32():
+            got = post_pqmf(*args)
+            ref = post_pqmf_plain(*args)
+            torch.cuda.synchronize()
+            err = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+            ms = device_time_ms(lambda: post_pqmf(*args), iters=100)
+            plain_ms = device_time_ms(lambda: post_pqmf_plain(*args), iters=20)
+            y = F.conv1d(x.transpose(1, 2), weight[:, :, None], bias).transpose(1, 2) * S
+            up = torch.zeros((B, used, T * S + taps), device=dev)
+            up[:, :, taps // 2: taps // 2 + T * S: S] = y[:, :, :used].transpose(1, 2)
+            library_ms = device_time_ms(lambda: F.conv1d(up, filt), iters=20)
+            lib_out = F.conv1d(up, filt)[:, 0]
+            library_rel = float(torch.sqrt(torch.mean((lib_out - ref) ** 2) / torch.mean(ref ** 2)))
+        rows = B * T
+        nbytes = 4.0 * rows * (x.shape[2] + S)
+        flop = 2.0 * rows * used * (x.shape[2] + taps + 1)
+        bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, flop / 67e12)
+        key = f"batch{B}_frames{frames}"
+        numbers[key] = {"rows": rows, "rel_rms_vs_plain": err, "ms": ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= flop / 67e12 else "operations",
+                        "plain_ms": plain_ms, "library_ms": library_ms, "library_rel_rms_vs_plain": library_rel,
+                        "x_bytes": 4 * x.numel(), "x_channel_major": not x.is_contiguous()}
+        check(bool(torch.isfinite(got).all()) and err <= 1e-6,
+              f"K3 batch {B} x {frames} frames ({rows} rows, Cin {x.shape[2]}, {used} of {S} bands, {taps} taps): "
+              f"rel-RMS vs plain {err:.3e} (<= 1e-6); device-paced: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({numbers[key]['bound_by']}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, {flop / 1e9:.3f} GFLOP at 67 "
+              f"TFLOP/s), plain {plain_ms:.4f} ms, library_ms {library_ms:.4f} (the zero-stuffed fp32 conv alone, "
+              f"{library_rel:.1e} from plain)")
+    return numbers
+
+
 def trace_synthesis(inv, mel, synth_ms: float, top: int = 8):
     """Profile one synthesis: device busy time, the idle share against the
     untraced synthesis time, and the kernels that take the most device time,
@@ -522,10 +613,9 @@ def phase_serving(inverter, check, dev):
         outputs[mode] = serve(mode)
         counts = dict(kernel_lib.launches)
         groups = len(requests) if ps is None else ps.groups
-        check(counts == {"wavenet_layer": n_layers * groups, "oscillator": groups,
-                         "wavenet_cond_upsampled": 2 * groups},
+        check(counts == kernel_counts(n_layers * groups, groups, 2 * groups, groups),
               f"{mode}: launches {counts} in {groups} dispatch groups (expected per group wavenet_layer="
-              f"{n_layers}, oscillator=1, wavenet_cond_upsampled=2)")
+              f"{n_layers}, oscillator=1, wavenet_cond_upsampled=2, post_pqmf=1)")
         check(all(y.shape == (m.shape[1] * inv.hop_size,) and np.isfinite(y).all()
                   for y, m in zip(outputs[mode], requests)), f"{mode}: every request finite and of its length")
         with warnings.catch_warnings(record=True) as caught:
@@ -832,10 +922,11 @@ def phase_streaming(inverter, check, dev):
                     y = getattr(ss, mode)(mel_long)
             counts = dict(kernel_lib.launches)
             n = chunk_programs(ss, mode)
-            check(counts == {"wavenet_layer": n_layers * n, "oscillator": n, "wavenet_cond_upsampled": 2 * n}
+            check(counts == kernel_counts(n_layers * n, n, 2 * n, n)
                   and np.isfinite(y).all() and y.shape == (1, LONG_FRAMES * hop),
                   f"{mode} {what}: finite audio of {LONG_FRAMES * hop} samples; launches {counts} for {n} chunk "
-                  f"programs (expected wavenet_layer {n_layers}, oscillator 1, wavenet_cond_upsampled 2 each)")
+                  f"programs (expected wavenet_layer {n_layers}, oscillator 1, wavenet_cond_upsampled 2, "
+                  f"post_pqmf 1 each)")
             return y, counts
 
         for wn_dtype, label, tol in (("", "fp32", 2e-3), (None, "bf16", 2e-2)):
@@ -926,7 +1017,7 @@ def phase_streaming(inverter, check, dev):
         walls = {mode: [] for mode in modes}
         for mode in modes:
             getattr(ss, mode)(mel_long)  # warm pass
-        long_launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+        long_launches = kernel_counts()
         for mode in modes:  # the long-form path as a user runs it: one counted pass per mode
             _, counts = counted(ss, mode, "shipped bf16")
             numbers["long_form"][mode]["launches"] = counts
@@ -985,7 +1076,7 @@ def phase_streaming(inverter, check, dev):
         check(len(ss.programs - warmed) <= 1, f"after warm() ({len(warmed)} shapes) stream() ran "
                                               f"{len(ss.programs - warmed)} other chunk shape(s) (<= 1)")
 
-        live_launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+        live_launches = kernel_counts()
         for c in LIVE_CHUNKS:
             ss = StreamingSynthesizer(live16, chunk_frames=c, halo_frames=LIVE_HALO, halo_right=LIVE_HALO_RIGHT,
                                       device=dev)
@@ -1018,11 +1109,10 @@ def phase_streaming(inverter, check, dev):
             eager = len(latencies) - replayed
             row["replayed"] = replayed
             check(replayed == len(latencies) - 1 and
-                  counts == {"wavenet_layer": n_layers * eager, "oscillator": eager,
-                             "wavenet_cond_upsampled": 2 * eager},
+                  counts == kernel_counts(n_layers * eager, eager, 2 * eager, eager),
                   f"live chunk {c} bf16: {len(latencies)} chunks, {replayed} replayed a graph (expected all but "
                   f"the tail), launches {counts} (expected per eager chunk wavenet_layer={n_layers}, oscillator=1, "
-                  f"wavenet_cond_upsampled=2)")
+                  f"wavenet_cond_upsampled=2, post_pqmf=1)")
             # one steady chunk as stream() emits it (upload, chunk program, readback) under the profiler
             span = mel[:, : LIVE_HALO + c + LIVE_HALO_RIGHT]
             carry = torch.zeros((1,), dtype=torch.float64, device=dev)
@@ -1205,9 +1295,9 @@ def phase_training(check, dev):
         y = y.float().cpu().numpy()[0]
     numbers["trained_synthesis_launches"] = counts
     check(y.shape == (N_FRAMES * blk.spect_hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
+          and counts == kernel_counts(24, 1, 2, 1),
           f"(d) the trained model after fold_(), on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
-          f"samples), launches {counts} (24 K1 + 1 K2)")
+          f"samples), launches {counts} (24 K1, 1 K2, 1 K3)")
     with tempfile.TemporaryDirectory() as tmp:
         save_params(os.path.join(tmp, "weights.npz"), params_to_jax(tr.model.block.state_dict()))
         with open(os.path.join(tmp, "config.yaml"), "w") as f:
@@ -1221,9 +1311,9 @@ def phase_training(check, dev):
     counts = dict(kernel_lib.launches)
     numbers["reloaded_synthesis_launches"] = counts
     check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
+          and counts == kernel_counts(24, 1, 2, 1),
           f"(d) the trained model folded, saved (save_params) and loaded by MELInverter on the card: "
-          f"{N_FRAMES}-frame synthesis finite ({y.shape[0]} samples), launches {counts} (24 K1 + 1 K2)")
+          f"{N_FRAMES}-frame synthesis finite ({y.shape[0]} samples), launches {counts} (24 K1, 1 K2, 1 K3)")
     return numbers
 
 
@@ -1254,9 +1344,9 @@ def hold_export_kernels(out: str, check, dev, what: str):
     y = inv.synth_from_mel(mel)
     counts = dict(kernel_lib.launches)
     check(y.shape == (N_FRAMES * inv.hop_size,) and bool(np.isfinite(y).all())
-          and counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
+          and counts == kernel_counts(24, 1, 2, 1),
           f"{what} the export loaded by MELInverter on the card: {N_FRAMES}-frame synthesis finite ({y.shape[0]} "
-          f"samples), launches {counts} (24 K1 + 1 K2)")
+          f"samples), launches {counts} (24 K1, 1 K2, 1 K3)")
     k1_err = {}
     for block_index in range(len(inv.model.block.block_names)):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -1558,9 +1648,11 @@ def launches_by_device(store: dict):
     device of its tensors: store[(kernel, device)] += launches."""
     from mbexwn_vocoder_torch.ops import kernel_lib
     from mbexwn_vocoder_torch.ops import oscillator as osc_module
+    from mbexwn_vocoder_torch.ops import post_pqmf as k3_module
     from mbexwn_vocoder_torch.ops import wavenet_stack as ws
 
-    real = {"wavenet_layer": (ws, "_wavenet_stack_cuda"), "oscillator": (osc_module, "_oscillate_cuda")}
+    real = {"wavenet_layer": (ws, "_wavenet_stack_cuda"), "oscillator": (osc_module, "_oscillate_cuda"),
+            "post_pqmf": (k3_module, "_post_pqmf_cuda")}
 
     def counting(name, fn):
         def wrapped(x, *args, **kwargs):
@@ -1661,7 +1753,7 @@ def phase_parallel(inverter, check, dev, serving, streaming, training, cli_run):
     from mbexwn_vocoder_torch.training.synthetic import make_corpus
 
     numbers = {"cards": torch.cuda.device_count()}
-    launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+    launches = kernel_counts()
     torch.cuda.empty_cache()
 
     # (a) two gloo ranks on one card, the tiny case in fp64
@@ -1960,7 +2052,7 @@ def phase_export(inverter, check, dev, synth_ms: float):
     check(not got["imported_model_modules"],
           f"(a) the loading process ({child_s:.1f} s) imported none of the port's models, nn, config, mel_inverter "
           f"({got['imported_model_modules']})")
-    launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+    launches = kernel_counts()
     for name, wn_dtype, B in EXPORT_CASES:
         g, tol = got[name], (2e-2 if wn_dtype is None else 1e-5)
         err = rel_rms(outs[name], refs[name])
@@ -1970,8 +2062,8 @@ def phase_export(inverter, check, dev, synth_ms: float):
                              meta=g["meta"])
         for k in launches:
             launches[k] += g["launches"][k]
-        check(g["launches"] == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
-              f"(a) {name}: one call of the loaded artifact launches {g['launches']} (24 K1 + 1 K2)")
+        check(g["launches"] == kernel_counts(24, 1, 2, 1),
+              f"(a) {name}: one call of the loaded artifact launches {g['launches']} (24 K1, 1 K2, 1 K3)")
         check(outs[name].shape == refs[name].shape and np.isfinite(outs[name]).all() and err <= tol,
               f"(a) {name}: the artifact against {'MELInverter.synth_from_mel' if B == 1 else 'BatchSynthesizer'} "
               f"with the same noise rows: rel-RMS {err:.3e} (<= {tol:g}), bit-equal "
@@ -2096,7 +2188,7 @@ def phase_observability(inverter, check, dev, synth_ms: float):
 
     inv = inverter("SPEECH", None)
     mel = make_mel(N_FRAMES, 80, SEED)
-    numbers, launches = {}, {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+    numbers, launches = {}, kernel_counts()
 
     def counted(what, fn):
         torch.cuda.synchronize()
@@ -2106,8 +2198,8 @@ def phase_observability(inverter, check, dev, synth_ms: float):
         counts = dict(kernel_lib.launches)
         for k in launches:
             launches[k] += counts[k]
-        check(counts == {"wavenet_layer": 24, "oscillator": 1, "wavenet_cond_upsampled": 2},
-              f"(c) {what}: launches {counts} (24 K1 + 1 K2)")
+        check(counts == kernel_counts(24, 1, 2, 1),
+              f"(c) {what}: launches {counts} (24 K1, 1 K2, 1 K3)")
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2301,7 +2393,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
     from mbexwn_vocoder_torch.parallel.batch import BatchSynthesizer
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh
 
-    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}}
+    numbers = {"branches": {}, "launches": kernel_counts()}
 
     def add_launches(counts):
         for k in numbers["launches"]:
@@ -2332,8 +2424,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
         k1_expected = 24 if not edit else 0
         routes = sorted({getattr(blk, n).wavenet.route() for n in blk.block_names})
         row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, routes=routes)
-        check(np.isfinite(y).all() and err <= 1e-3 and counts == {"wavenet_layer": k1_expected, "oscillator": 1,
-                                                                      "wavenet_cond_upsampled": k1_expected // 12},
+        check(np.isfinite(y).all() and err <= 1e-3 and counts == kernel_counts(k1_expected, 1, k1_expected // 12, 1),
               f"(a) SPEECH {name}, random init, fp32 {ROUTE_CPU_FRAMES} frames: card vs CPU rel-RMS {err:.3e} "
               f"(<= 1e-3); route {routes}; launches {counts} (K1 {k1_expected})")
         model16 = branch_model(edit, None, dev)
@@ -2373,7 +2464,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
     row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts, route=net.route(), bf16_ms_cuda_events=ms,
                rows=rows_full)
     check(err <= 1e-3 and finite
-          and counts == {"wavenet_layer": net.n_layers, "oscillator": 0, "wavenet_cond_upsampled": 0},
+          and counts == kernel_counts(net.n_layers),
           f"(a) standalone WaveNetAE C=320 with per-layer conditioning ({net.cond.filters} cond channels), fp32 "
           f"{rows_cpu} rows: card vs CPU rel-RMS {err:.3e} (<= 1e-3); route {net.route()}; launches {counts}; "
           f"bf16 {rows_full} rows (block 0 of a {N_FRAMES}-frame synthesis): {ms:.2f} ms (CUDA events)")
@@ -2404,7 +2495,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
             err = max(rel_rms(y, r) for y, r in zip(got, ref))
             n_layers = sum(wn.n_layers for wn in stacks)
             check(all(np.isfinite(y).all() for y in got) and err <= tol
-                  and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
+                  and counts == kernel_counts(0, 1, 0, 1)
                   and reduces == [2] * n_layers
                   and all(wn.tp_devices == (dev, dev) for wn in stacks),
                   f"(b) tensor parallel {label}, BatchSynthesizer batch {TP_BATCH}, {N_FRAMES} frames, channels "
@@ -2531,7 +2622,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
                 "ms_host_bf16_passes": walls["bf16"]}
             check(y8.shape == y16.shape and np.isfinite(y8).all() and err_cpu <= 2e-2 and err_bf16 > 1e-3
                   and n_mm == 2 * 12 * 2
-                  and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0},
+                  and counts == kernel_counts(0, 1, 0, 1),
                   f"(c) int8 SPEECH batch {B}, {N_FRAMES} frames: each of its {len(layer_errs)} int8 layers against "
                   f"the CPU's on the same inputs, worst rel-RMS {err_cpu:.3e} (<= 2e-2); the synthesis vs card bf16 "
                   f"{err_bf16:.3e} (> 1e-3); torch._int_mm calls {n_mm} "
@@ -2593,7 +2684,7 @@ def phase_routes(inverter, check, dev, synth_ms: float, serving):
                                 "rel_rms_vs_direct_int8": err, "rel_rms_vs_bf16": err_bf16, "bit_equal": bit_equal,
                                 "ms_cuda_events": g["ms_cuda_events"], "meta_wn_quant": g["meta"].get("wn_quant")}
     check(not got["imported_model_modules"]
-          and g["launches"] == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
+          and g["launches"] == kernel_counts(0, 1, 0, 1)
           and targets.count("aten._int_mm.default") == 48 and g["meta"].get("wn_quant") == "int8"
           and (bit_equal or (err < 1e-2 and err < 0.1 * err_bf16)),
           f"(d) int8 artifact, batch 1 (export {export_s:.1f} s, {len(blob)} bytes, "
@@ -2713,7 +2804,7 @@ def phase_branches(check, dev, synth_ms: float):
     from mbexwn_vocoder_torch.parallel.mesh import make_mesh, replicate
     from mbexwn_vocoder_torch.training.parity import card_against_cpu
 
-    numbers = {"branches": {}, "launches": {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}}
+    numbers = {"branches": {}, "launches": kernel_counts()}
 
     def add_launches(counts):
         for k in numbers["launches"]:
@@ -2746,8 +2837,8 @@ def phase_branches(check, dev, synth_ms: float):
         add_launches(counts)
         y = y.cpu().numpy()
         err = rel_rms(y, y_cpu)
-        expected = {"wavenet_layer": 24, "oscillator": 0 if name == "use_sinusoid_as_fun" else 1,
-                    "wavenet_cond_upsampled": 2}
+        expected = kernel_counts(24, 0 if name == "use_sinusoid_as_fun" else 1, 2,
+                                 0 if name == "no PQMF synthesis" else 1)
         row.update(fp32_card_vs_cpu_rel_rms=err, launches_fp32=counts,
                    routes=sorted({getattr(blk, n).wavenet.route() for n in blk.block_names}))
         check(y.shape == y_cpu.shape and np.isfinite(y).all() and err <= 1e-4 and counts == expected,
@@ -2803,7 +2894,7 @@ def phase_branches(check, dev, synth_ms: float):
                 torch.cuda.synchronize()
             counts = dict(kernel_lib.launches)
             add_launches(counts)
-            check(counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and held[1] is None
+            check(counts == kernel_counts(0, 1) and held[1] is None
                   and bool(torch.isfinite(held[0]).all()),
                   f"(b) oscillate_with_pulse_gains ({'average' if avg else 'hold'}, return_gain, a None entry), "
                   f"{f0.shape[1]} samples: launches {counts} (one K2 for the pulse and its phase)")
@@ -2882,7 +2973,7 @@ def phase_branches(check, dev, synth_ms: float):
                                               "collectives": collectives, "chunk_groups": n_groups,
                                               "launches_per_device": {str(dev): counts}}
             check(got.shape == ref.shape and np.isfinite(got).all() and err <= tol
-                  and counts == {"wavenet_layer": 0, "oscillator": n_groups, "wavenet_cond_upsampled": 0}
+                  and counts == kernel_counts(0, n_groups, 0, n_groups)
                   and collectives == {"reduce_add": n_groups * n_layers, "max_reduce": 0}
                   and all(wn.tp_devices == (dev, dev) for wn in stacks),
                   f"(c) streaming synth_batched {label}, {LONG_FORM_FRAMES} frames (chunk {LONG_FORM_CHUNK}, halo "
@@ -2939,7 +3030,7 @@ def phase_branches(check, dev, synth_ms: float):
                               "ms_cuda_events": ms}
         check(len(layer_errs) == n_layers and max(layer_errs) <= 2e-3 and np.isfinite(y_tp).all()
               and n_mm == 2 * 2 * n_layers and collectives == {"reduce_add": n_layers, "max_reduce": n_layers}
-              and counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0},
+              and counts == kernel_counts(0, 1, 0, 1),
               f"(d) int8 under tensor parallelism, SPEECH shipped bf16 batch 1, {N_FRAMES} frames, cuda:0 twice: "
               f"each of its {len(layer_errs)} sharded int8 layers against the unsharded int8 layer on the same "
               f"inputs, worst rel-RMS {max(layer_errs):.3e} (<= 2e-3); the whole synthesis against unsharded int8 "
@@ -3015,7 +3106,7 @@ def phase_waveglow(check, dev):
             out[f"{name}_rel_rms_vs_reference"], out[f"{name}_launches"] = err, counts
             n_wn = sum(wn.n_layers for wn in inv.model.WN)
             routes = sorted({wn.route() for wn in inv.model.WN})
-            check(routes == ["k1"] and counts == {"wavenet_layer": n_wn, "oscillator": 0, "wavenet_cond_upsampled": 0}
+            check(routes == ["k1"] and counts == kernel_counts(n_wn)
                   and np.isfinite(y).all()
                   and (err <= 1e-4 if name == "fp32" else err <= 0.05),
                   f"(a) WaveGlow {name} 64 frames: routes {routes}, launches {counts} (expected {n_wn}), rel-RMS "
@@ -3252,9 +3343,9 @@ def main() -> int:
         n_layers = sum(getattr(shipped.model.block, n).wavenet.n_layers for n in shipped.model.block.block_names)
         check(y16.shape == (N_FRAMES * shipped.hop_size,) and bool(np.isfinite(y16).all()),
               f"{model_id} bf16: {y16.shape[0]} finite samples")
-        check(counts == {"wavenet_layer": n_layers, "oscillator": 1, "wavenet_cond_upsampled": 2},
+        check(counts == kernel_counts(n_layers, 1, 2, 1),
               f"{model_id} bf16 launches {counts} (expected wavenet_layer={n_layers}, oscillator=1, "
-              f"wavenet_cond_upsampled=2)")
+              f"wavenet_cond_upsampled=2, post_pqmf=1)")
         if model_id == "SPEECH":
             main_launches = counts
 
@@ -3323,6 +3414,8 @@ def main() -> int:
     print(f"  K2 library_ms {library_ms:.5f}: one F.grid_sample (bilinear, zeros outside, align_corners) on "
           f"coordinates computed beforehand; it covers the lookup and cross-fade only, not the phase; "
           f"max abs {library_diff:.3e} from the kernel's audio", flush=True)
+
+    k3 = phase_post_pqmf(inv, check, dev)
 
     for _ in range(3):
         inv.synth_from_mel(mel)
@@ -3446,6 +3539,10 @@ def main() -> int:
          "replaces": "mbexwn_vocoder_tpu/ops/pallas_oscillator.py:49", "launches": launches["oscillator"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": library_ms},
+        {"name": "post_pqmf", "route": "cuda", "source": "mbexwn_vocoder_torch/csrc/post_pqmf.cu",
+         "replaces": None, "launches": launches["post_pqmf"],
+         "rel_rms_vs_plain": max(v["rel_rms_vs_plain"] for v in k3.values()), **k3[f"batch1_frames{N_FRAMES}"],
+         "batch8_bucket1024": k3["batch8_frames1024"]},
     ]
     print(f"summary: SPEECH bf16 batch 1 {N_FRAMES} frames: synthesis {synth_ms:.2f} ms = "
           f"{audio_s / (synth_ms / 1e3):.1f} audio-s/s, device idle share {idle:.3f}, {n_activities} device "
@@ -3471,6 +3568,26 @@ def main() -> int:
     return 0
 
 
+def main_post_pqmf() -> int:
+    """`chip_smoke.py --k3`: [1]'s build, then K3's entry of [5] alone."""
+    import torch
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.ops import kernel_lib
+
+    dev, failures = torch.device("cuda:0"), []
+    check = checker(failures)
+    kernel_lib.library()
+    for line in kernel_lib.build_info.get("log", "").splitlines():
+        if "post_pqmf" in line or "Used" in line or "spill" in line:
+            print("   ", line.strip())
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        os.environ.pop(var, None)
+    print("[5] K3 (post net + PQMF synthesis)", flush=True)
+    print("post_pqmf: " + json.dumps(phase_post_pqmf(MELInverter("SPEECH", device=dev), check, dev)), flush=True)
+    print(f"chip_smoke --k3: {'FAIL ' + str(failures) if failures else 'ok'}", flush=True)
+    return 1 if failures else 0
+
+
 def main_waveglow() -> int:
     """`chip_smoke.py --waveglow`: [1]'s build, then [15] alone."""
     import torch
@@ -3490,4 +3607,6 @@ if __name__ == "__main__":
         sys.exit(artifact_child(sys.argv[2]))
     if sys.argv[1:] == ["--waveglow"]:
         sys.exit(main_waveglow())
+    if sys.argv[1:] == ["--k3"]:
+        sys.exit(main_post_pqmf())
     sys.exit(main())

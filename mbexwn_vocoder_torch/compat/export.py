@@ -2,10 +2,10 @@
 
 Counterpart of the JAX package's compat/export.py.  A model is exported as
 a self-contained program -- parameters baked in -- that runs later with
-this package's two kernel ops alone: no model classes, no config system, no
+this package's kernel ops alone: no model classes, no config system, no
 weight files.  `load_exported` and `synth_from_artifact` import the op
-registrations (ops/wavenet_stack.py, ops/oscillator.py) and nothing of
-`models`, `nn`, `config` or `mel_inverter`.
+registrations (ops/wavenet_stack.py, ops/oscillator.py, ops/post_pqmf.py)
+and nothing of `models`, `nn`, `config` or `mel_inverter`.
 
 What is exported: `infer(mel, synth_length=T_mel*hop)` at a fixed
 (batch, T_mel), traced by `torch.export.export(strict=False)` under
@@ -13,9 +13,11 @@ What is exported: `infer(mel, synth_length=T_mel*hop)` at a fixed
 WaveNet stacks hold their weights in the form their route reads (packed in
 the kernel layout, or quantized in the int8 mode;
 `WaveNetAE.freeze_stack_`), so a call does not make them again.  Each
-stack is one `mbexwn::wavenet_stack` node and the oscillator one
-`mbexwn::oscillate` node; their CUDA implementations build the kernels'
-launch arguments from wherever the loaded weights lie.
+stack is one `mbexwn::wavenet_stack` node, the oscillator one
+`mbexwn::oscillate` node and, in a program for the card, the post net and
+PQMF synthesis one `mbexwn::post_pqmf` node (a CPU program holds the
+stage's plain ops); their CUDA implementations build the kernels' launch
+arguments from wherever the loaded weights lie.
 
 - Noise: a `torch.Generator` cannot be exported, so the program holds the
   draw the serving classes make, one (B, L, 1) standard normal from a
@@ -50,7 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import oscillator, wavenet_stack  # noqa: F401  (registers the mbexwn:: ops)
+from ..ops import oscillator, post_pqmf, wavenet_stack  # noqa: F401  (registers the mbexwn:: ops)
 from ..ops.precision import exact_fp32
 from ..ops.quant import wn_quant_mode
 from ..platform import resolve_device

@@ -24,8 +24,10 @@ or not, with the JAX package's parameter tree:
 - the fold to the WaveNet rate: a reshape, or a PQMF analysis
   (`pulse_channels_use_pqmf`), which decimates by its own subband count
   (`wn_fold_factor`);
-- after the post net, PQMF synthesis or a depth-to-time reshape
-  (`pp_mod_subnet_use_pqmf: false`);
+- after the post net, PQMF synthesis (the post net, the multiband gains and
+  the synthesis as one stage, `ops.post_pqmf`: K3 on a CUDA tensor, its
+  plain version on the CPU and on the training route) or a depth-to-time
+  reshape (`pp_mod_subnet_use_pqmf: false`);
 - the envelope: the cepstral STFT filter (with or without F0-adaptive
   cepstral windows, range limit, the cepstral-loss constraint, energy
   preservation, a zero-padded FFT), per-subband gains instead
@@ -34,7 +36,8 @@ or not, with the JAX package's parameter tree:
 `differentiable` (set by the trainer through `PaNWaveNet.set_differentiable`)
 selects the training route: the oscillator runs `oscillate_plain`, the port
 of the JAX package's XLA oscillator, with gradients to the F0 and to the
-wavetables, and the WaveNet stacks run layer by layer (nn/wavenet.py).
+wavetables, the WaveNet stacks run layer by layer (nn/wavenet.py), and the
+post net and PQMF synthesis run `post_pqmf_plain`.
 `remat_wavenet_blocks` recomputes each WaveNet block in the backward pass
 on that route (`torch.utils.checkpoint`) instead of keeping its
 activations.  The wavetables are a buffer in the folded (inference) form
@@ -64,7 +67,8 @@ from ..observability import (MODEL_ENVELOPE, MODEL_EXCITATION, MODEL_F0_NET, MOD
                              span)
 from ..ops.oscillator import (oscillate, oscillate_plain, oscillator_phase, pulse_sync_gain_avg as gain_avg,
                               pulse_sync_gain_hold as gain_hold, sinusoid_pulse, subharmonics)
-from ..ops.pqmf_ops import pqmf_analysis, pqmf_synthesis
+from ..ops.pqmf_ops import pqmf_analysis
+from ..ops.post_pqmf import post_pqmf, post_pqmf_plain
 from ..ops.precision import exact_fp32
 from ..ops.stft_ops import inverse_stft_window, istft, rdft, stft
 
@@ -487,14 +491,16 @@ class MBExWN(nn.Module):
                 else:
                     x = block(x, mel)
         with span(MODEL_POST_PQMF):
-            x = self.wn_post_net(x)
-            if mb_gain is not None:
-                x = x * mb_gain[:, : x.shape[1]]
+            post = self.wn_post_net
             if self.pqmf_synthesis_filter is None:
+                x = post(x)
+                if mb_gain is not None:
+                    x = x * mb_gain[:, : x.shape[1]]
                 return x.reshape(x.shape[0], x.shape[1] * x.shape[2])  # depth to time
-            mb = self.multi_band_config
-            return pqmf_synthesis(x, self.pqmf_synthesis_filter, mb["subbands"], mb["taps"],
-                                  mb.get("max_band"))[:, :, 0]
+            kernel, bias, gain = post.conv_args()
+            fn = post_pqmf_plain if self.differentiable else post_pqmf
+            return fn(x, kernel[:, :, 0], bias, gain, mb_gain, self.pqmf_synthesis_filter, self.mb_factor,
+                      self.pqmf_synthesis_filter.shape[1])
 
     def get_cepstral_windows(self, f0: torch.Tensor, smooth_stride: int) -> torch.Tensor:
         """F0-adaptive cepstral window per frame: smooth F0, pick the nearest

@@ -22,7 +22,7 @@ as the JAX package casts its params to the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -74,6 +74,14 @@ class Conv1DWeightNorm(nn.Module):
             return self.weight
         fold = equalized_lr_kernel if self.use_equalized_lr else weight_norm_kernel
         return fold(self.v, self.g)
+
+    def conv_args(self) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(kernel (OIW), bias or None, post gain (Cout,) or None): what the
+        conv applies, as `ops.conv.conv1d` takes it.  The post-gain form
+        keeps g apart from its kernel, every other form folds it in."""
+        if self.post_gain:
+            return self.weight, self.bias, self.g
+        return self.kernel(), self.bias, None
 
     def _set_form(self, kernel: torch.Tensor, trainable: bool, g: Optional[torch.Tensor] = None) -> None:
         """Hold `kernel` (OIW) in the folded form, or as (v, g) in the trainable
@@ -149,10 +157,8 @@ class Conv1DWeightNorm(nn.Module):
         return (in_len - k_eff) // self.strides + 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.post_gain:
-            y = self.g.to(x.dtype) * conv1d(x, self.weight, None, self.strides, self.dilation_rate, self.padding)
-            return y if self.bias is None else y + self.bias.to(x.dtype)
-        return conv1d(x, self.kernel(), self.bias, self.strides, self.dilation_rate, self.padding)
+        kernel, bias, gain = self.conv_args()
+        return conv1d(x, kernel, bias, self.strides, self.dilation_rate, self.padding, gain)
 
 
 class Conv1DUpDownSample(Conv1DWeightNorm):

@@ -49,11 +49,14 @@ def conv1d(
     stride: int = 1,
     dilation: int = 1,
     padding: str = "SAME",
+    gain: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Conv over (B, T, Cin) with an OIW weight (Cout, Cin, W) -> (B, T', Cout).
 
     The weight and bias are cast to x's dtype, as the JAX package casts its
     params to the compute dtype; accumulation is fp32 in both frameworks.
+    With a per-channel `gain` (Cout,), the equalized-LR post gain, the
+    result is gain * conv (+ bias), each step rounded in x's dtype.
     """
     width = weight.shape[-1]
     if padding == "SAME":
@@ -68,8 +71,12 @@ def conv1d(
     if lo or hi:
         xt = F.pad(xt, (lo, hi))
     b = None if bias is None else bias.to(x.dtype)
-    y = F.conv1d(xt, weight.to(x.dtype), b, stride=stride, dilation=dilation)
-    return y.transpose(1, 2)
+    y = F.conv1d(xt, weight.to(x.dtype), b if gain is None else None, stride=stride, dilation=dilation)
+    y = y.transpose(1, 2)
+    if gain is None:
+        return y
+    y = gain.to(x.dtype) * y
+    return y if b is None else y + b
 
 
 def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

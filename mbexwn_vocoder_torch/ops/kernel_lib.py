@@ -34,8 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launch counts per kernel, read and reset by callers such as chip_smoke.py;
 # "wavenet_cond_upsampled" counts the stack calls whose K1 launches made the
-# cond from a frame-rate slab (ops/wavenet_stack.py)
-launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0}
+# cond from a frame-rate slab (ops/wavenet_stack.py); "post_pqmf" counts K3
+launches = {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0, "post_pqmf": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,11 @@ _SIGNATURES = {
     # B, T, chunk size, n_wavetable, n_grid, fp32(1/sr), nominal_f0, min_tr,
     # max_tr, 1/log(grid_factor), stream
     "mbexwn_oscillate": [_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    # x, channel-major x, w, bias, gain (or null), multiband gain (or null) and its
+    # batch and row strides, synthesis filter, out, B, T, cin, S, used bands, taps,
+    # stream
+    "mbexwn_post_pqmf": [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P],
     # grid_sync, blocks, stream: an empty launch, the floor K2 is timed against
     "mbexwn_floor_launch": [_I, _I, _P],
 }

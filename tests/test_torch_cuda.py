@@ -13,7 +13,12 @@ or of the column chunks, and the two host entries against each other.  K2:
 ragged lengths, batch > 1, a phase offset, the phase it returns (bit-equal
 to the plain version's on the card and on the CPU), tables of other sizes
 (one past 48 KB of shared memory), more chunks than CTAs resident at once,
-and one launch per call.  Serving (SPEECH's registry weights, full width):
+and one launch per call.  K3 (the post net and the PQMF synthesis): an
+offline group's and a live span's shapes, batch > 1, tiles cut short, the
+gains, 8 and 10 input channels, a partial synthesis, 4 and 8 bands,
+against the plain version within 1e-6; a CUDA graph's replay bit-equal to
+the eager launch; a SPEECH synthesis launches it once, WaveGlow and the
+training route never.  Serving (SPEECH's registry weights, full width):
 the pipeline at batch 1 bit-equal to the blocking loop, a group's dispatch
 free of host-device synchronisation, a batch of 8 against single requests
 handed the same noise rows, and BatchSynthesizer at B = 8 in the 2048
@@ -63,6 +68,7 @@ from mbexwn_vocoder_torch.nn.wavenet import WaveNetAE
 from mbexwn_vocoder_torch.ops import kernel_lib
 from mbexwn_vocoder_torch.ops.interp import linear_interp_upsample, pad_end
 from mbexwn_vocoder_torch.ops.oscillator import oscillate, oscillate_plain
+from mbexwn_vocoder_torch.ops.post_pqmf import post_pqmf, post_pqmf_plain
 from mbexwn_vocoder_torch.ops.precision import exact_fp32
 from mbexwn_vocoder_torch.ops.wavenet_stack import (pack_stack_weights, wavenet_layer, wavenet_stack,
                                                      wavenet_stack_plain)
@@ -215,6 +221,95 @@ def test_k2_refuses_what_it_does_not_take(card):
         oscillate(f0.t().contiguous().t(), tables, *consts)
     with pytest.raises(ValueError, match="are not"):
         oscillate(f0, tables, *consts, phase_offset=torch.zeros(3, device=card))
+
+
+def _k3_case(B, T, cin, device, S=6, taps=94, cutoff=0.0945, max_band=None, bias=True, equalized_lr=False,
+             mb_gain=False, channel_major=False, seed=0):
+    """K3's arguments: x (B, T, cin) (channel_major: a view of a contiguous
+    (B, cin, T), as the WaveNet's end conv leaves it), a post net (S, cin)
+    with its bias and post gain or None, a multiband gain with 3 rows more
+    than T or None, and the PQMF synthesis bank of S bands and `taps` taps."""
+    from mbexwn_vocoder_torch.dsp.pqmf import pqmf_filters
+
+    g = torch.Generator().manual_seed(seed + B * T + cin)
+    x = 0.5 * torch.randn(B, T, cin, generator=g)
+    weight = torch.randn(S, cin, generator=g) / np.sqrt(cin)
+    b = 0.1 * torch.randn(S, generator=g) if bias else None
+    gain = 1.0 + 0.2 * torch.randn(S, generator=g) if equalized_lr else None
+    mb = torch.exp(0.3 * torch.randn(B, T + 3, S, generator=g)) if mb_gain else None
+    _, syn = pqmf_filters(S, taps, cutoff, 9.0, max_band)
+    filt = torch.from_numpy(np.ascontiguousarray(syn.transpose(2, 1, 0)))
+    if channel_major:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    return tuple(None if t is None else t.to(device) for t in (x, weight, b, gain, mb, filt)) + (S, filt.shape[1])
+
+
+@pytest.mark.parametrize("B,T,cin,kw", [
+    (8, 51_200, 64, dict(channel_major=True)),  # an offline group, batch 8 x bucket 1024, as the model lays x out
+    (1, 2_500, 64, dict(channel_major=True)),  # a live chunk's span: 50 frames
+    (8, 51_200, 64, {}),  # rows contiguous
+    (3, 2_501, 64, dict(mb_gain=True, equalized_lr=True, channel_major=True)),  # T % 4 != 0: 4-byte copies
+    (2, 1, 64, {}), (2, 7, 8, dict(bias=False)),  # shorter than a tile; the tiny configs' 8 channels
+    (2, 1000, 10, dict(mb_gain=True)),  # a row of 40 bytes: 4-byte copies
+    (2, 777, 64, dict(max_band=4, mb_gain=True)),
+    (1, 3_000, 64, dict(S=4, taps=62, cutoff=0.142)),  # 16 taps a phase, 4 bands
+    (1, 3_000, 64, dict(S=8, taps=62, cutoff=0.071)),  # 8 taps a phase, 8 bands
+], ids=["offline_group", "live_span", "offline_group_rows", "gains", "T1", "cin8_no_bias", "cin10", "max_band4",
+        "S4_taps62", "S8_taps62"])
+def test_k3_matches_plain(card, B, T, cin, kw):
+    """K3 against post_pqmf_plain on the card (true fp32): within 1e-6
+    rel-RMS (the order of fp32 sums only), one launch a call."""
+    args = _k3_case(B, T, cin, card, **kw)
+    before = kernel_lib.launches["post_pqmf"]
+    with exact_fp32():
+        got = post_pqmf(*args)
+        ref = post_pqmf_plain(*args)
+    torch.cuda.synchronize()
+    assert kernel_lib.launches["post_pqmf"] - before == 1
+    assert got.shape == ref.shape == (B, T * args[-2])
+    rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
+    assert torch.isfinite(got).all() and rel <= 1e-6, rel
+
+
+@pytest.mark.parametrize("B,T", [(1, 2_500), (8, 51_200)])
+def test_k3_in_a_cuda_graph_equals_its_eager_launch(card, B, T):
+    """K3 captured in a CUDA graph: each replay equals the eager launch on
+    the inputs then in its buffers, bit for bit."""
+    x, *rest = _k3_case(B, T, 64, card, mb_gain=True, channel_major=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = kernel_lib.launches["post_pqmf"]
+    with torch.cuda.graph(graph, stream=side):
+        out = post_pqmf(x, *rest)
+    assert kernel_lib.launches["post_pqmf"] - before == 1
+    g = torch.Generator().manual_seed(T)
+    for step in range(2):
+        if step:
+            x.copy_(0.5 * torch.randn(x.shape, generator=g))  # in place: the layout stays channel-major
+            rest[3].copy_(torch.exp(0.3 * torch.randn(rest[3].shape, generator=g)))
+        graph.replay()
+        want = post_pqmf(x, *rest)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_k3_refuses_what_it_does_not_take(card):
+    x, weight, bias, gain, mb, filt, S, used = _k3_case(1, 100, 64, card)
+    with pytest.raises(ValueError, match="8 used bands"):
+        post_pqmf(*_k3_case(1, 100, 64, card, S=10, taps=94, cutoff=0.05)[:6], 10, 10)
+    with pytest.raises(ValueError, match="taps a phase"):
+        post_pqmf(*_k3_case(1, 100, 64, card, S=2, taps=94, cutoff=0.25)[:6], 2, 2)
+    with pytest.raises(ValueError, match="float32"):
+        post_pqmf(x.bfloat16(), weight, bias, gain, mb, filt, S, used)
+    with pytest.raises(ValueError, match="on cuda"):
+        post_pqmf(x, weight.cpu(), bias, gain, mb, filt, S, used)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        post_pqmf(x, weight, bias, gain, mb, filt, S, used)
+    with torch.inference_mode():
+        post_pqmf(x, weight, bias, gain, mb, filt, S, used)
+    torch.cuda.synchronize()
 
 
 # ---- serving on the card: the registry's SPEECH at full width (fp32 unless a test says otherwise)
@@ -567,7 +662,8 @@ def test_trained_model_folds_back_onto_the_kernels(card):
         y = model.infer(mel, mel.shape[1] * blk.spect_hop_size)
         counts = dict(kernel_lib.launches)
     n_up = sum(getattr(blk, name).wavenet.cond_upsampling() > 1 for name in blk.block_names)
-    assert n_up == 2 and counts == {"wavenet_layer": n_layers, "oscillator": 1, "wavenet_cond_upsampled": n_up}, counts
+    assert n_up == 2 and counts == {"wavenet_layer": n_layers, "oscillator": 1, "wavenet_cond_upsampled": n_up,
+                                  "post_pqmf": 1}, counts
     assert torch.isfinite(y).all()
 
 
@@ -599,7 +695,8 @@ def test_train_cli_on_the_card(card, tmp_path, monkeypatch):
     mel = np.random.RandomState(0).randn(1, 64, 80).astype(np.float32) * 0.5 - 4
     kernel_lib.reset_launch_counts()
     y = inv.synth_from_mel(mel)
-    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2}
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2,
+                                         "post_pqmf": 1}
     assert np.isfinite(y).all()
 
 
@@ -657,7 +754,8 @@ def test_export_round_trip_on_the_card(card, tmp_path):
     kernel_lib.reset_launch_counts()
     y = call(mel)
     torch.cuda.synchronize()
-    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2}
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 4, "oscillator": 1, "wavenet_cond_upsampled": 2,
+                                         "post_pqmf": 1}
     noise = torch.randn((2, model.block.wn_input_length(16), 1), generator=torch.Generator(device=card).manual_seed(0),
                         device=card)
     with torch.inference_mode():
@@ -733,7 +831,8 @@ def test_branches_synthesise_on_the_card(card, monkeypatch, pp_mod):
     model_cpu, model = _routes_model(card, monkeypatch, **pp_mod)
     got, ref, counts = _synth_both(model_cpu, model, card)
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and rel <= 1e-5, (counts, rel)
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0,
+                      "post_pqmf": 1} and rel <= 1e-5, (counts, rel)
 
 
 def test_tensor_parallel_on_the_card(card, monkeypatch):
@@ -751,7 +850,7 @@ def test_tensor_parallel_on_the_card(card, monkeypatch):
     monkeypatch.setattr(tensor.comm, "reduce_add", lambda *a, **k: calls.append(1) or real(*a, **k))
     got, _, counts = _synth_both(model_cpu, replica, card)
     rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}, counts
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0, "post_pqmf": 1}, counts
     assert len(calls) == 2 * 4 and rel <= 1e-5, rel
     assert all(getattr(replica.block, n).wavenet.tp_devices == (torch.device("cuda", 0),) * 2
                for n in replica.block.block_names)
@@ -789,8 +888,8 @@ def test_int8_mode_on_the_card(card, monkeypatch):
     monkeypatch.setenv("MBEXWN_WN_QUANT", "int8")
     before = quant.int_mm_calls
     got, ref, counts = _synth_both(model_cpu, model, card)
-    assert counts_fp == {"wavenet_layer": 8, "oscillator": 1, "wavenet_cond_upsampled": 2}
-    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0}
+    assert counts_fp == {"wavenet_layer": 8, "oscillator": 1, "wavenet_cond_upsampled": 2, "post_pqmf": 1}
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0, "post_pqmf": 1}
     assert quant.int_mm_calls - before == 2 * (2 * 2 * 4)  # the CPU's and the card's synthesis
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
     rel_fp = float(torch.sqrt(torch.mean((got - got_fp) ** 2) / torch.mean(got_fp ** 2)))
@@ -815,7 +914,8 @@ def test_model_branches_on_the_kernels(card, monkeypatch, config, pp_mod, k2):
     model_cpu, model = _routes_model(card, monkeypatch, config=config, **pp_mod)
     got, ref, counts = _synth_both(model_cpu, model, card)
     rel = float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref ** 2)))
-    assert counts == {"wavenet_layer": 8, "oscillator": k2, "wavenet_cond_upsampled": 2} and rel <= 1e-4, (counts, rel)
+    assert counts == {"wavenet_layer": 8, "oscillator": k2, "wavenet_cond_upsampled": 2,
+                      "post_pqmf": 1} and rel <= 1e-4, (counts, rel)
 
 
 def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
@@ -835,7 +935,8 @@ def test_int8_under_tensor_parallelism_on_the_card(card, monkeypatch):
     assert quant.int_mm_calls - n_mm == 2 * 4 * 2 + 2 * 4 * 4  # the CPU's unsharded, the card's sharded
     assert {k: tensor.counts[k] - before[k] for k in before} == {"reduce_add": 8, "max_reduce": 8}
     rel = float(torch.sqrt(torch.mean((got - got_plain) ** 2) / torch.mean(got_plain ** 2)))
-    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0} and rel <= 2e-2, (counts, rel)
+    assert counts == {"wavenet_layer": 0, "oscillator": 1, "wavenet_cond_upsampled": 0,
+                      "post_pqmf": 1} and rel <= 2e-2, (counts, rel)
 
 
 WAVEGLOW_DILS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -892,6 +993,7 @@ def test_waveglow_on_the_card(card, tmp_path, monkeypatch):
     y = inv.synth_from_mel(mel)
     assert [wn.route() for wn in inv.model.WN] == ["k1"] * 12
     assert kernel_lib.launches["wavenet_layer"] == 96 and kernel_lib.launches["wavenet_cond_upsampled"] == 0
+    assert kernel_lib.launches["post_pqmf"] == 0  # no PQMF: K3 never runs
     rel = float(np.sqrt(np.mean((y - ref) ** 2) / np.mean(ref ** 2)))
     assert rel <= 1e-4, rel
 
@@ -942,3 +1044,52 @@ def test_speech_synthesis_interpolates_its_conds_in_k1(card, monkeypatch, dtype)
     y_slab = inv.synth_from_mel(mel, noise=noise)
     assert kernel_lib.launches["wavenet_cond_upsampled"] == 0 and kernel_lib.launches["wavenet_layer"] == 24
     assert np.isfinite(y).all() and np.array_equal(y, y_slab)
+
+
+def test_a_speech_synthesis_launches_k3_once(card, monkeypatch):
+    """The shipped SPEECH synthesis runs its post net and PQMF synthesis as
+    one K3 launch (`kernel_lib.launches["post_pqmf"]` reads 1), and its
+    audio is within 1e-5 rel-RMS of the same synthesis with the stage's
+    plain version (fp32 sums in another order, through the envelope's
+    STFT filter)."""
+    from mbexwn_vocoder_torch.mel_inverter import MELInverter
+    from mbexwn_vocoder_torch.models import mbexwn
+
+    for var in ("MBEXWN_WN_DTYPE", "MBEXWN_SUBNET_DTYPE"):
+        monkeypatch.delenv(var, raising=False)
+    inv = MELInverter("SPEECH")
+    mel = _mel(300, 32)
+    noise = _noise_rows(inv, [300], card)[0]
+    kernel_lib.reset_launch_counts()
+    y = inv.synth_from_mel(mel, noise=noise)
+    assert kernel_lib.launches["post_pqmf"] == 1
+    monkeypatch.setattr(mbexwn, "post_pqmf", post_pqmf_plain)
+    kernel_lib.reset_launch_counts()
+    y_plain = inv.synth_from_mel(mel, noise=noise)
+    assert kernel_lib.launches["post_pqmf"] == 0
+    assert np.isfinite(y).all() and _rel(y, y_plain) <= 1e-5, _rel(y, y_plain)
+
+
+def test_the_training_route_never_launches_k3(card):
+    """A model on the training route (`differentiable`) runs the post net and
+    the PQMF synthesis in plain PyTorch with grad on and off: a training step
+    and a no_grad forward of the generator, as the adversarial trainer's
+    discriminator step runs it, launch no K3, as they launch no K1 or K2."""
+    from mbexwn_vocoder_torch.models import create_model
+    from mbexwn_vocoder_torch.training.parity import tiny_batch, tiny_hparams
+    from mbexwn_vocoder_torch.training.trainer import Trainer
+
+    hp = tiny_hparams()
+    model, _ = create_model(hp, hp["training_config"], hp["preprocess_config"], trainable=True)
+    model.init(torch.Generator().manual_seed(0))
+    tr = Trainer(model, hp, device=card)
+    batch = tiny_batch()
+    kernel_lib.reset_launch_counts()
+    tr.train_step(batch)
+    b = tr._batch(batch)
+    with torch.no_grad():
+        signal, _, _ = tr.training_forward(b["audio"], b["mel"], b["F0"], 0, F0_ds=b["F0_ds"])
+    torch.cuda.synchronize()
+    assert model.block.differentiable and torch.isfinite(signal).all()
+    assert dict(kernel_lib.launches) == {"wavenet_layer": 0, "oscillator": 0, "wavenet_cond_upsampled": 0,
+                                         "post_pqmf": 0}
